@@ -1,0 +1,139 @@
+"""Build, load and launch the port's CUDA kernels.
+
+The sources in ``repro_torch/csrc/*.cu`` expose plain C entry points.  At
+first use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c``
+per source, all started together), linked into one shared library, and
+loaded with ``ctypes``.  The library's name carries a hash of the sources
+and flags, so an edited source rebuilds.  The build directory is
+``repro_torch/.build`` (override with ``REPRO_TORCH_BUILD_DIR``).
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises if that is not 0 and adds one
+to the kernel's launch count.  The counts are how a run shows that its
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# The argument types of every C entry point: P = pointer, I = int64, i = int.
+_SIGNATURES = {
+    "hkv_find_scan": "PPPPPPPPPPPPPIIiP",
+    "hkv_upsert_probe": "PPPPPPPPPPPIiP",
+    "hkv_claim_scan": "PPPPPPPPIP",
+    "hkv_scatter_rows": "PPPPIIIiP",
+}
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int}
+
+launch_counts: collections.Counter = collections.Counter()
+build_log: list[str] = []
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    launch_counts.clear()
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def build_dir() -> pathlib.Path:
+    d = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    return pathlib.Path(d) if d else CSRC.parent / ".build"
+
+
+def build() -> pathlib.Path:
+    """Compile the sources (if this exact build is not there yet) and
+    return the shared library's path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        digest.update(p.name.encode() + p.read_bytes())
+    out = build_dir() / f"libhkv_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [pathlib.Path(tmp) / (src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        for src, p in zip(sources, procs):
+            log = p.communicate()[0]
+            build_log.append(f"[nvcc {src.name}]\n{log}")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        lib_tmp = pathlib.Path(tmp) / out.name
+        r = subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(lib_tmp)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{r.stdout}")
+        os.replace(lib_tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, sig in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [_CTYPES[c] for c in sig]
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _arg(x):
+    if isinstance(x, torch.Tensor):
+        return ctypes.c_void_p(x.data_ptr())
+    return x
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `hkv_<name>` on the current stream, raise on a
+    launch error, and count the launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), "hkv_" + name)(*map(_arg, args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: cudaError {err}")
+    launch_counts[name] += 1
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+                 device: torch.device, align: int = 1) -> None:
+    """The wrappers take exactly the layout their kernel reads; `align` is
+    the byte alignment of the kernel's widest load from `t`."""
+    check(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
+    check(tuple(t.shape) == tuple(shape), f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    check(t.device == device, f"{name}: on {t.device}, expected {device}")
+    check(t.is_contiguous(), f"{name}: not contiguous")
+    check(t.data_ptr() % align == 0, f"{name}: not aligned to {align} bytes")

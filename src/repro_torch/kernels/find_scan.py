@@ -1,0 +1,70 @@
+"""find_scan: the fused find pass (CUDA source ``csrc/find_scan.cu``).
+
+Replaces the TPU kernels ``find_scan_tlp`` and ``find_scan_pipeline``
+(``src/repro/kernels/find_scan.py``), one function on two TPU schedules.
+Per query, over both candidate rows: digest pre-filter, full-key confirm,
+hit in bucket1 wins (a miss reports bucket1, slot 0), the hit slot's score,
+and its value row (zeros on a miss).  An EMPTY query key is a miss.  (The
+reference kernel lets it match empty slots and its wrapper masks found,
+values and scores afterwards; deciding it here spares that pass.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.find import match_rows
+from repro_torch.core.u64 import EMPTY
+from repro_torch.kernels import _build
+
+NAME = "find_scan"
+
+
+def find_scan_plain(digests, keys, scores, values, bucket1, bucket2, qdigest,
+                    qkeys, use_digest: bool = True):
+    """The plain PyTorch version.  Returns (found i32 [N], sel i32 [N],
+    slot i32 [N], score i64 [N], values [N, V])."""
+    s = keys.shape[1]
+    valid = qkeys != EMPTY
+    hit1, slot1 = match_rows(keys, digests, bucket1, qkeys, qdigest, use_digest)
+    hit2, slot2 = match_rows(keys, digests, bucket2, qkeys, qdigest, use_digest)
+    hit1, hit2 = hit1 & valid, hit2 & valid
+    found = hit1 | hit2
+    sel = ~hit1 & hit2
+    slot = torch.where(hit1, slot1, torch.where(hit2, slot2, 0))
+    bucket = torch.where(sel, bucket2, bucket1)
+    score = torch.where(found, scores[bucket, slot], 0)
+    vals = values[bucket * s + slot]
+    vals = torch.where(found[:, None], vals, torch.zeros_like(vals))
+    i32 = torch.int32
+    return found.to(i32), sel.to(i32), slot.to(i32), score, vals
+
+
+def find_scan(digests, keys, scores, values, bucket1, bucket2, qdigest, qkeys,
+              use_digest: bool = True):
+    """Fused find.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (or raise)."""
+    dev = qkeys.device
+    if dev.type == "cpu":
+        return find_scan_plain(digests, keys, scores, values, bucket1, bucket2,
+                               qdigest, qkeys, use_digest)
+    _build.check(dev.type == "cuda", f"find_scan: unsupported device {dev}")
+    b, s = keys.shape
+    n, v = qkeys.shape[0], values.shape[1]
+    _build.check(s == 128, "find_scan: the kernel takes 128 slots per bucket")
+    for name, t, dt, shape, align in (   # digest lines are read in 4-byte words
+            ("digests", digests, torch.uint8, (b, s), 4), ("keys", keys, torch.int64, (b, s), 8),
+            ("scores", scores, torch.int64, (b, s), 8),
+            ("values", values, torch.float32, (b * s, v), 4),
+            ("bucket1", bucket1, torch.int64, (n,), 8), ("bucket2", bucket2, torch.int64, (n,), 8),
+            ("qdigest", qdigest, torch.uint8, (n,), 1), ("qkeys", qkeys, torch.int64, (n,), 8)):
+        _build.check_tensor(name, t, dt, shape, dev, align)
+    found = torch.empty(n, dtype=torch.int32, device=dev)
+    sel = torch.empty_like(found)
+    slot = torch.empty_like(found)
+    score = torch.empty(n, dtype=torch.int64, device=dev)
+    vals = torch.empty((n, v), dtype=values.dtype, device=dev)
+    if n:
+        _build.launch(NAME, digests, keys, scores, values, bucket1, bucket2, qdigest,
+                      qkeys, found, sel, slot, score, vals, n, v, int(use_digest))
+    return found, sel, slot, score, vals

@@ -1,0 +1,68 @@
+"""Rules the port keeps: it imports nothing of JAX or of the JAX package,
+it runs on the card unless asked for the CPU, and no kernel wrapper falls
+back to its plain version for a tensor that is not on the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.kernels import find_scan, scatter, upsert_scan  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_files_were_found():
+    assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+
+
+def test_create_without_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.HKVTable.create(capacity=128, dim=4)
+    with pytest.raises(RuntimeError):
+        convert.state_from_arrays({})
+    assert repro_torch.HKVTable.create(capacity=128, dim=4, device="cpu").size() == 0
+
+
+def test_hmem_tier_is_refused():
+    with pytest.raises(NotImplementedError, match="hmem"):
+        repro_torch.HKVTable.create(capacity=128, dim=4, device="cpu", value_tier="hmem")
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    """A tensor on another device than the CPU goes to the kernel or
+    raises; it never takes the plain version."""
+    meta = lambda *shape, dt=torch.int64: torch.empty(shape, dtype=dt, device="meta")
+    planes = (meta(1, 128, dt=torch.uint8), meta(1, 128), meta(1, 128))
+    q = (meta(4), meta(4), meta(4, dt=torch.uint8), meta(4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        find_scan.find_scan(*planes, meta(128, 4, dt=torch.float32), *q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        upsert_scan.upsert_probe(*planes, *q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        upsert_scan.claim_scan(planes[1], planes[2], meta(4), meta(4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        scatter.scatter_rows(meta(128, 4, dt=torch.float32), meta(4),
+                             meta(4, 4, dt=torch.float32), meta(4, dt=torch.bool), False)

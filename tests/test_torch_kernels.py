@@ -1,0 +1,196 @@
+"""The plain versions of the port's four kernels against the JAX package.
+
+Each kernel's plain PyTorch version (what the wrapper runs on CPU tensors,
+and what `chip_smoke.py` holds the CUDA kernel against on the card) must
+equal, bit for bit, both the JAX package's Pallas kernel in interpret mode
+and its jnp reference, on the same inputs: tables filled by the JAX
+package to λ 0.5 and 1.0 and carried across by `repro_torch.convert`,
+queries mixing resident keys, misses, wide keys and EMPTY padding.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import find as jfind  # noqa: E402
+from repro.core import merge as jmerge  # noqa: E402
+from repro.core import table as jtable  # noqa: E402
+from repro.core import u64 as ju64  # noqa: E402
+from repro.kernels import ops as jkops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import upsert_scan as jus  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import find as pfind  # noqa: E402
+from repro_torch.core import table as ptable  # noqa: E402
+from repro_torch.kernels import find_scan as pfs  # noqa: E402
+from repro_torch.kernels import ops as pkops  # noqa: E402
+from repro_torch.kernels import scatter as psc  # noqa: E402
+from repro_torch.kernels import upsert_scan as pus  # noqa: E402
+
+EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
+N = 64
+LAMBDAS = (0.5, 1.0)
+
+
+def _u64(hi, lo):
+    return (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(lo).astype(np.uint64)
+
+
+def _np(t):
+    return t.numpy().view(np.uint64) if t.dtype == torch.int64 else t.numpy()
+
+
+def _filled(lam, dual, use_digest=True, seed=0):
+    """A JAX table filled to λ (1.0: driven 3x past capacity) under lfu,
+    whose small counts make score ties common; plus its resident keys."""
+    rng = np.random.default_rng(seed + int(100 * lam) + 7 * dual)
+    cfg = jtable.HKVConfig(capacity=4 * 128, dim=8, buckets_per_key=2 if dual else 1,
+                           score_policy="lfu", use_digest=use_digest)
+    state = jtable.create(cfg)
+    n_fill = int(lam * cfg.capacity) if lam < 1 else 3 * cfg.capacity
+    keys = rng.integers(1, 2**60, size=n_fill).astype(np.uint64)
+    keys[::5] |= np.uint64(1 << 63)
+    for chunk in np.array_split(keys, 4):
+        dup = np.concatenate([chunk, chunk[: len(chunk) // 3]])  # counts 1 and 2
+        vals = jnp.asarray(rng.normal(size=(len(dup), cfg.dim)), jnp.float32)
+        state = jmerge.upsert(state, cfg, ju64.from_uint64(dup), vals).state
+    resident = ju64.to_uint64(state.keys).reshape(-1)
+    resident = resident[resident != EMPTY]
+    if lam == 1.0:
+        assert len(resident) == cfg.capacity
+    return rng, cfg, state, resident
+
+
+def _queries(rng, resident):
+    q = np.concatenate([
+        rng.choice(resident, size=N // 2),
+        rng.integers(0, 2**64 - 2, size=N // 2 - 6, dtype=np.uint64),
+        np.full(6, EMPTY, np.uint64)])
+    rng.shuffle(q)
+    return q
+
+
+def _probe_inputs(cfg, qkeys):
+    """The same probe for both packages: JAX arrays and torch tensors."""
+    k = ju64.from_uint64(qkeys)
+    probe = jfind.probe_keys(cfg, k)
+    b2 = probe.bucket2 if cfg.buckets_per_key == 2 else probe.bucket1
+    jax_in = (probe.bucket1, b2, probe.digest.astype(jnp.uint32), k.hi, k.lo)
+    torch_in = (torch.from_numpy(np.asarray(probe.bucket1).astype(np.int64)),
+                torch.from_numpy(np.asarray(b2).astype(np.int64)),
+                torch.from_numpy(np.array(probe.digest)),
+                torch.from_numpy(qkeys.view(np.int64).copy()))
+    return k, probe, jax_in, torch_in
+
+
+def _port_cfg(cfg):
+    return ptable.HKVConfig(capacity=cfg.capacity, dim=cfg.dim,
+                            buckets_per_key=cfg.buckets_per_key,
+                            score_policy=cfg.score_policy, use_digest=cfg.use_digest)
+
+
+@pytest.mark.parametrize("use_digest", [True, False], ids=["digest", "nodigest"])
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_find_scan_plain_matches_jax(lam, dual, use_digest):
+    rng, cfg, state, resident = _filled(lam, dual, use_digest)
+    qkeys = _queries(rng, resident)
+    k, probe, jin, tin = _probe_inputs(cfg, qkeys)
+    ps = convert.state_from_arrays(state, device="cpu")
+    got = pfs.find_scan(ps.digests, ps.keys, ps.scores, ps.values, *tin, use_digest=use_digest)
+    want = jref.find_scan_ref(state.digests, state.key_hi, state.key_lo, state.score_hi,
+                              state.score_lo, state.values, *jin, use_digest=use_digest)
+    # the port reports an EMPTY query key as a miss; the reference kernel
+    # lets it match empty slots, so the raw outputs agree on the other lanes
+    found, sel, slot, score, vals = got
+    valid, pad = qkeys != EMPTY, qkeys == EMPTY
+    for name, g, w in (("found", found, want[0]), ("sel", sel, want[1]), ("slot", slot, want[2]),
+                       ("values", vals, want[5])):
+        np.testing.assert_array_equal(_np(g)[valid], np.asarray(w)[valid], err_msg=name)
+        assert not _np(g)[pad].any(), f"{name}: an EMPTY query is not a miss"
+    np.testing.assert_array_equal(_np(score)[valid], _u64(want[3], want[4])[valid], err_msg="score")
+    assert not _np(score)[pad].any()
+    assert found.sum() > 0 and (found == 0).sum() > 0
+
+    # the wrapper level: the port's find_fused_kernel vs the Pallas find
+    # kernel in interpret mode, whose wrapper masks EMPTY lanes by validity
+    jr = jkops.find_fused_kernel(state, cfg, k, interpret=True)
+    pr = pkops.find_fused_kernel(ps, _port_cfg(cfg), tin[3])
+    np.testing.assert_array_equal(pr.found.numpy(), np.asarray(jr.found))
+    np.testing.assert_array_equal(pr.values.numpy(), np.asarray(jr.values))
+    np.testing.assert_array_equal(_np(pr.scores), _u64(jr.score_hi, jr.score_lo))
+    # where a miss is reported (bucket, slot) is free; hits and misses of
+    # real keys agree, and an EMPTY key reports bucket1, slot 0
+    np.testing.assert_array_equal(pr.bucket.numpy()[valid], np.asarray(jr.bucket)[valid])
+    np.testing.assert_array_equal(pr.slot.numpy()[valid], np.asarray(jr.slot)[valid])
+    np.testing.assert_array_equal(pr.bucket.numpy()[pad], tin[0].numpy()[pad])
+    assert not pr.slot.numpy()[pad].any()
+
+
+@pytest.mark.parametrize("use_digest", [True, False], ids=["digest", "nodigest"])
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_upsert_probe_plain_matches_jax(lam, use_digest):
+    rng, cfg, state, resident = _filled(lam, True, use_digest)
+    qkeys = _queries(rng, resident)
+    k, probe, jin, tin = _probe_inputs(cfg, qkeys)
+    ps = convert.state_from_arrays(state, device="cpu")
+    got = pus.upsert_probe(ps.digests, ps.keys, ps.scores, *tin, use_digest=use_digest)
+    want = jus.upsert_probe(state.digests, state.key_hi, state.key_lo, state.score_hi,
+                            state.score_lo, *jin, use_digest=use_digest, interpret=True)
+    for name, g, w in zip(("found", "hit_sel", "hit_slot", "tgt_sel"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    # the select pass: zero query keys, only tgt_sel used — the jnp D1/D2 rule
+    target = jmerge._select_target_bucket(state, cfg, probe)
+    pt_probe = pfind.Probe(tin[0], tin[1], tin[2], tin[3] != -1)
+    stages = pkops.kernel_stages(_port_cfg(cfg), torch.device("cpu"))
+    np.testing.assert_array_equal(stages.select_target(ps, None, pt_probe).numpy(),
+                                  np.asarray(target))
+    if lam == 1.0:  # the D2 (full-bucket) branch decided some targets
+        assert (got[3] == 1).any() and (got[3] == 0).any()
+
+
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_claim_scan_plain_matches_jax(lam):
+    rng, cfg, state, _ = _filled(lam, True)
+    b, s = cfg.num_buckets, cfg.slots_per_bucket
+    buckets = rng.integers(0, b, size=N).astype(np.int32)
+    rank = np.concatenate([rng.integers(0, 4, size=N // 2), rng.integers(0, s, size=N // 2)])
+    rank = rank.astype(np.int32)
+    ps = convert.state_from_arrays(state, device="cpu")
+    tb, tr = torch.from_numpy(buckets.astype(np.int64)), torch.from_numpy(rank.astype(np.int64))
+    slot, occ, score, key = pus.claim_scan(ps.keys, ps.scores, tb, tr)
+    w = jus.claim_scan(state.key_hi, state.key_lo, state.score_hi, state.score_lo,
+                       jnp.asarray(buckets), jnp.asarray(rank), interpret=True)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(w[0]))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(w[1]))
+    np.testing.assert_array_equal(_np(score), _u64(w[2], w[3]))
+    np.testing.assert_array_equal(_np(key), _u64(w[4], w[5]))
+    jslot, jocc, jsc, jkey = jmerge._jnp_victim_at_rank(state, cfg, jnp.asarray(buckets),
+                                                        jnp.asarray(rank))
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
+    np.testing.assert_array_equal(occ.numpy().astype(bool), np.asarray(jocc))
+    np.testing.assert_array_equal(_np(key), _u64(jkey.hi, jkey.lo))
+    assert (occ == 0).any() == (lam < 1.0)
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
+def test_scatter_rows_plain_matches_jax(add):
+    rng = np.random.default_rng(5 + add)
+    r, d = 8 * 128, 8
+    values = rng.normal(size=(r, d)).astype(np.float32)
+    rows = rng.permutation(r)[:N].astype(np.int64)
+    mask = rng.random(N) < 0.7
+    # masked-out lanes aimed at masked-in rows, and past the plane's end:
+    # neither may write
+    rows[~mask] = np.where(rng.random((~mask).sum()) < 0.5,
+                           rng.choice(rows[mask], size=(~mask).sum()), r + 3)
+    updates = rng.normal(size=(N, d)).astype(np.float32)
+    want = jref.scatter_rows_ref(jnp.asarray(values), jnp.asarray(rows.astype(np.int32)),
+                                 jnp.asarray(updates), jnp.asarray(mask), add)
+    got = torch.from_numpy(values.copy())
+    psc.scatter_rows(got, torch.from_numpy(rows), torch.from_numpy(updates),
+                     torch.from_numpy(mask), add)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), values)
