@@ -4,27 +4,44 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs three phases; any failure exits non-zero:
+sm_90a (first use), then runs four phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
-   to λ 0.5 and then 1.0, each kernel's wrapper and its plain PyTorch
-   version run on the same inputs and must agree bit for bit (tolerance:
-   exact equality, as the slice is integer maths and float copies).  Both
-   are timed there with CUDA events, beside one PyTorch library call where
-   one computes the same function, and beside the kernel's bound (the
-   larger of its bytes over the HBM rate and its operations over the
-   int32 rate, both counted from this run's inputs).
+   to λ 0.5 and then 1.0, and on a single-bucket config-B table at λ 1.0
+   (gather_rows, digest_scan, sweep_match), each kernel's wrapper and its
+   plain PyTorch version run on the same inputs and must agree bit for
+   bit (tolerance: exact equality, as the kernels are integer maths and
+   float copies).  Both are timed there with CUDA events, beside one
+   PyTorch library call where one computes the same function, and beside
+   the kernel's bound (the larger of its bytes over the HBM rate and its
+   operations over the int32 rate, both counted from this run's inputs).
 2. kernel path vs plain path: a reduced table (2^20 slots, 65,536-key
    batches) is driven past λ = 1.0 through the public insert_or_assign and
-   find on both backends; statuses, find results and the full state must be
-   equal after every op.
+   find on both backends (dual bucket, lru and lfu); then every op of the
+   public HKVTable is replayed on both backends, in both bucket modes
+   under lru and custom scores.  Statuses, eviction streams,
+   find_or_insert values, Locates, sweep counts and the full state must be
+   equal after every op; assign_add and accum_or_assign get unique keys,
+   and one last batch with duplicates is held at a float32 tolerance
+   (their sums run as atomics on the card, in no fixed order).
 3. the main path at config B's full size, with the launch counts set to 0
    just before and read just after: insert_or_assign in 1,048,576-key
    batches to λ 0.5, 1.0, and past it (the last batches must report EVICTED
    and REJECTED); find on resident keys and on a mix with misses, checked
    against the keys the script knows are resident; throughput of both ops,
    median of timed runs, at λ 0.5 and 1.0.
+4. the rest of the op surface at config B's full size, with the counts
+   set to 0 just before and read just after: a single-bucket table (the
+   HKVConfig default) takes insert_or_assign to λ 0.5, 1.0 and past it
+   (EVICTED and REJECTED), then find, find_ptr and contains against known
+   residents; a dual-bucket table past λ 1.0 takes insert_and_evict (each
+   EVICTED lane's stream carries a displaced key, no longer found),
+   find_or_insert on a mix of hits and misses, erase_if(key_in_range) (a
+   find then misses exactly the erased keys) and evict_if(always) (a
+   coldest-first stream of the right count).  Each op is timed (median of
+   timed runs) and its launches checked against the routing table in
+   ``repro_torch/core/ops.py``.
 
 The last two lines are a JSON object with one entry per kernel, and the
 JSON result line.  Without a card (or without the repository around it)
@@ -57,8 +74,34 @@ INT32_OPS_PER_S = 67e12 / 4
 # 32-bit words in one carry chain
 OPS_U64_CMP = 2
 OPS_VICTIM_CMP = 6
+# sweep_match, by predicate kind: whether it reads the score plane (the
+# kernel loads it only then), and its int32 operations a slot: the
+# liveness test, the kind's unsigned 64-bit compares (epoch_lt compares
+# one 32-bit half), and a conjunction for each
+SWEEP_KINDS = {"always": (False, OPS_U64_CMP),
+               "score_lt": (True, 2 * OPS_U64_CMP + 1),
+               "score_ge": (True, 2 * OPS_U64_CMP + 1),
+               "epoch_lt": (True, OPS_U64_CMP + 1 + 1),
+               "key_range": (False, 3 * OPS_U64_CMP + 2)}
+# a float32 sum of a few N(0, 1) terms taken in another order moves by a
+# few ulps; duplicates' sums in assign_add / accum_or_assign are atomics
+DUP_SUM_ATOL = 1e-5
 SEED = 20260417
 STATUS_NAMES = ("invalid", "updated", "inserted", "evicted", "rejected")
+# launches of one op on backend 'auto' on the card, by bucket mode: the
+# routing table of repro_torch/core/ops.py
+UPSERT = {1: {"digest_scan": 1, "claim_scan": 1, "scatter_rows": 2},
+          2: {"upsert_probe": 2, "claim_scan": 1, "scatter_rows": 2}}
+ROUTES = {
+    "insert_or_assign": UPSERT,
+    "find": {1: {"find_scan": 1}, 2: {"find_scan": 1}},
+    "find_ptr": {1: {"digest_scan": 1}, 2: {"digest_scan": 2}},
+    "contains": {1: {"digest_scan": 1}, 2: {"digest_scan": 2}},
+    "insert_and_evict": {m: {**UPSERT[m], "gather_rows": 1} for m in (1, 2)},
+    "find_or_insert": {m: {**UPSERT[m], "scatter_rows": 1, "gather_rows": 1} for m in (1, 2)},
+    "erase_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
+    "evict_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +112,13 @@ class Sizes:
     small_batch: int
     hot_keys: int            # keys aimed at one bucket, to force rejections
     timed_runs: int
+    replay_steps: int        # phase 2's every-op replay, per mode and policy
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
-             hot_keys=1024, timed_runs=5)
+             hot_keys=1024, timed_runs=5, replay_steps=10)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
-             hot_keys=400, timed_runs=2)
+             hot_keys=400, timed_runs=2, replay_steps=4)
 DIM = 32
 
 
@@ -120,11 +164,15 @@ class Smoke:
 
         from repro_torch.core import find as find_mod
         from repro_torch.core import u64
-        from repro_torch.kernels import _build, find_scan, scatter, upsert_scan
+        from repro_torch.kernels import _build, digest_scan, find_scan, gather, scatter
+        from repro_torch.kernels import sweep_scan, upsert_scan
+        from repro_torch import SweepPredicate
 
         self.torch, self.dev, self.sz = torch, device, sizes
         self.find_mod, self.u64, self._build = find_mod, u64, _build
         self.fs, self.us, self.sc = find_scan, upsert_scan, scatter
+        self.ga, self.ds, self.sw = gather, digest_scan, sweep_scan
+        self.Pred = SweepPredicate
         self.gen = torch.Generator(device=device).manual_seed(SEED)
         self.next_key = 1
         self.stats: dict[str, dict] = {}      # per kernel: errors, timings, bounds
@@ -192,7 +240,7 @@ class Smoke:
         bucket %= num_buckets
         j = torch.arange(n, device=self.dev)
         h1 = (bucket + j * num_buckets) & m
-        hi = (0x5EED0000 + j + self.next_key) & m
+        hi = (0x5EED0000 + j + self.next_key) & 0x7FFFFFFF   # below 2^63: not padding
         self.next_key += n
         a = u64.fmix32(hi ^ 0x9E3779B9)
         keys = u64.join(hi, fmix32_inv(h1) ^ a)
@@ -245,19 +293,24 @@ class Smoke:
         t0 = time.perf_counter()
         self.phase_main()
         log(f"phase 3 (main path at config B) passed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        self.phase_rest()
+        log(f"phase 4 (the rest of the op surface at config B) passed in "
+            f"{time.perf_counter() - t0:.1f} s")
         self.report()
 
-    def config_b(self, backend="auto"):
+    def config_b(self, backend="auto", buckets_per_key=2):
         from repro_torch import HKVTable
 
-        return HKVTable.create(capacity=self.sz.capacity, dim=DIM, buckets_per_key=2,
+        return HKVTable.create(capacity=self.sz.capacity, dim=DIM,
+                               buckets_per_key=buckets_per_key,
                                score_policy="lru", device=self.dev, backend=backend)
 
     def fill(self, table, target: float):
         """insert_or_assign fresh batches until the load factor reaches
         `target`; returns the last batch's keys, values and statuses."""
         keys = vals = status = None
-        for _ in range(2 * table.capacity // self.sz.batch + 8):
+        for _ in range(4 * table.capacity // self.sz.batch + 8):
             if table.load_factor() >= target:
                 break
             keys, vals = self.fresh_keys(self.sz.batch), self.values(self.sz.batch)
@@ -268,7 +321,6 @@ class Smoke:
     # phase 1 --------------------------------------------------------------
 
     def phase_kernels(self):
-        torch = self.torch
         table = self.config_b()
         resident = self.fill(table, 0.5)[0]
         for lam in (0.5, 1.0):
@@ -276,9 +328,115 @@ class Smoke:
                 resident = self.fill(table, 1.0)[0]
             log(f"phase 1: λ = {table.load_factor():.6f}")
             self.compare_kernels(table, resident, lam)
+            self.compare_new_kernels(table, resident, str(lam))
         del table
+        self.free()
+        table = self.config_b(buckets_per_key=1)
+        resident = self.fill(table, 1.0)[0]
+        log(f"phase 1: single-bucket table, λ = {table.load_factor():.6f}")
+        self.compare_new_kernels(table, resident, "1.0 single")
+        del table
+        self.free()
+
+    def free(self):
         if self.dev.type == "cuda":
-            torch.cuda.empty_cache()
+            self.torch.cuda.empty_cache()
+
+    def queries(self, resident, n):
+        """Queries as find sees them: half resident, half fresh, some EMPTY."""
+        q = self.torch.cat([resident[: n // 2], self.fresh_keys(n - n // 2)])
+        q = q[self.torch.randperm(n, generator=self.gen, device=self.dev)]
+        q[:: 97] = self.u64.EMPTY
+        return q
+
+    def compare_new_kernels(self, table, resident, tag: str):
+        """gather_rows, digest_scan and sweep_match against their plain
+        versions on this table; `tag` names the table's λ (and mode)."""
+        torch, sz = self.torch, self.sz
+        st, cfg = table.state, table.cfg
+        n, s, runs = sz.batch, cfg.slots_per_bucket, sz.timed_runs
+        q = self.queries(resident, n)
+        p = self.find_mod.probe_keys(cfg, q)
+
+        # gather_rows: rows of resident and missing keys, half masked
+        r_tot, v = st.values.shape
+        rows = torch.randint(0, r_tot, (n,), generator=self.gen, device=self.dev)
+        mask = torch.rand(n, generator=self.gen, device=self.dev) < 0.5
+        got = self.ga.gather_rows(st.values, rows, mask)
+        self.check_equal("gather_rows", (got,), (self.ga.gather_rows_plain(st.values, rows, mask),), tag)
+        m = int(mask.sum())
+        self.record("gather_rows", **{
+            f"ms@{tag}": self.time_ms(lambda: self.ga.gather_rows(st.values, rows, mask), runs),
+            f"plain_ms@{tag}": self.time_ms(
+                lambda: self.ga.gather_rows_plain(st.values, rows, mask), 2),
+            f"library_ms@{tag}": self.time_ms(
+                lambda: torch.where(mask[:, None], st.values.index_select(0, rows), 0), runs),
+            f"bytes@{tag}": n * (4 + 1) + m * v * 4 + n * v * 4, f"ops@{tag}": 0})
+
+        # digest_scan: each candidate bucket row (one in single mode)
+        for b in (p.bucket1, p.bucket2) if cfg.buckets_per_key == 2 else (p.bucket1,):
+            args = (st.digests, st.keys, b, p.digest, q)
+            self.check_equal("digest_scan", self.ds.digest_scan(*args),
+                             self.ds.digest_scan_plain(*args), tag)
+        args = (st.digests, st.keys, p.bucket1, p.digest, q)
+        self.record("digest_scan", **{
+            f"ms@{tag}": self.time_ms(lambda: self.ds.digest_scan(*args), runs),
+            f"plain_ms@{tag}": self.time_ms(lambda: self.ds.digest_scan_plain(*args), 2),
+            **self.digest_work(st, p.bucket1, p.digest, tag)})
+
+        # sweep_match: every predicate kind over all slots.  LRU scores
+        # carry no epoch (their high half is 0), so epoch_lt runs on the
+        # table's keys with a score plane whose high halves are random
+        # epochs, half of them >= 2^31, against a threshold that splits them
+        sc = torch.sort(self.u64.flip(st.scores[st.keys != self.u64.EMPTY])).values
+        mid = self.u64.flip(sc[sc.numel() // 2])
+        epochs = torch.randint(0, 2**32, st.scores.shape, generator=self.gen, device=self.dev)
+        epoch_scores = self.u64.join(epochs, self.u64.lo32(st.scores))
+        preds = {"always": (self.Pred.always(), st.scores),
+                 "score_lt": (self.Pred.score_below(mid), st.scores),
+                 "score_ge": (self.Pred.score_at_least(mid), st.scores),
+                 "epoch_lt": (self.Pred.expire_before(3 * 2**30), epoch_scores),
+                 "key_range": (self.Pred.key_in_range(0, 2**61), st.scores)}
+        b_tot = cfg.num_buckets
+        work = {}
+        for kind, (pred, scores) in preds.items():
+            got = self.sw.sweep_match(st.keys, scores, pred)
+            self.check_equal("sweep_match", got, self.sw.sweep_match_plain(st.keys, scores, pred),
+                             f"{tag} {kind}")
+            n_match = int(got[1].sum())
+            live = int((st.keys != self.u64.EMPTY).sum())
+            require(kind == "always" or 0 < n_match < live,
+                    f"sweep_match {kind} at {tag}: {n_match} of {live} live slots match; "
+                    "the check does not split the table")
+            reads_score, ops = SWEEP_KINDS[kind]
+            work[kind] = {
+                f"ms_{kind}@{tag}": self.time_ms(
+                    lambda: self.sw.sweep_match(st.keys, scores, pred), runs),
+                f"bytes_{kind}@{tag}": b_tot * s * (8 + 8 * reads_score + 1) + b_tot * 4,
+                f"ops_{kind}@{tag}": b_tot * s * ops}
+        # the kernels line reports key_range, erase_if's kind on the main path
+        pred = preds["key_range"][0]
+        kr = work["key_range"]
+        self.record("sweep_match", **{k: v for w in work.values() for k, v in w.items()}, **{
+            f"ms@{tag}": kr[f"ms_key_range@{tag}"],
+            f"plain_ms@{tag}": self.time_ms(
+                lambda: self.sw.sweep_match_plain(st.keys, st.scores, pred), 2),
+            f"bytes@{tag}": kr[f"bytes_key_range@{tag}"],
+            f"ops@{tag}": kr[f"ops_key_range@{tag}"]})
+        del epochs, epoch_scores
+        self.free()
+
+    def digest_work(self, st, bucket, qdigest, tag) -> dict:
+        """Least bytes and operations of one digest_scan launch: the query
+        inputs (4-byte bucket index, digest, key), the digest line of each
+        distinct probed row, the keys whose digest matched, and the two
+        int32 outputs; 128 digest bytes a query, four to a 32-bit compare,
+        and one 64-bit equality a candidate."""
+        n = bucket.shape[0]
+        cand = int((st.digests[bucket] == qdigest[:, None]).sum())
+        rows = self.torch.unique(bucket).numel()
+        return {f"bytes@{tag}": n * (4 + 1 + 8) + rows * 128 + cand * 8 + n * 8,
+                f"ops@{tag}": n * 128 // 4 + cand * OPS_U64_CMP}
 
     def compare_kernels(self, table, resident, lam: float):
         torch, sz = self.torch, self.sz
@@ -424,9 +582,113 @@ class Smoke:
                 f"{sorted(STATUS_NAMES[i] for i in seen)}")
             require({3, 4} <= seen, "phase 2 did not reach eviction and rejection")
             del tk, tp
+        for buckets_per_key in (1, 2):
+            for policy in ("lru", "custom"):
+                self.replay_every_op(buckets_per_key, policy)
 
     def assert_same(self, a, b, ctx):
         require(self.torch.equal(a, b), f"kernel path and plain path differ: {ctx}")
+
+    def replay_every_op(self, buckets_per_key: int, policy: str):
+        """Every op of the public HKVTable on 'auto' (the kernels) and
+        'plain', on a reduced table; every result and the full state are
+        compared after every op."""
+        from repro_torch import HKVTable
+        from repro_torch.core import ops
+
+        torch, sz, u64 = self.torch, self.sz, self.u64
+        kw = dict(capacity=sz.small_capacity, dim=DIM, buckets_per_key=buckets_per_key,
+                  score_policy=policy, device=self.dev)
+        tk, tp = HKVTable.create(backend="auto", **kw), HKVTable.create(backend="plain", **kw)
+        n = sz.small_batch
+        space = self.fresh_keys(2 * sz.small_capacity)
+        tag = f"{'dual' if buckets_per_key == 2 else 'single'} {policy}"
+
+        def batch(unique=False):
+            if unique:
+                keys = space[torch.randperm(space.numel(), generator=self.gen,
+                                            device=self.dev)[:n]]
+            else:
+                keys = space[torch.randint(0, space.numel(), (n,), generator=self.gen,
+                                           device=self.dev)]
+            keys[::61] = u64.EMPTY
+            return keys
+
+        def custom():
+            if policy != "custom":
+                return None
+            return torch.randint(0, 2**40, (n,), generator=self.gen, device=self.dev)
+
+        def same(a, b, ctx):
+            if isinstance(a, torch.Tensor):
+                self.assert_same(a, b, ctx)
+            elif isinstance(a, tuple):   # a result, a stream, a locate
+                for i, (x, y) in enumerate(zip(a, b)):
+                    same(x, y, f"{ctx}[{i}]")
+
+        def state(ctx):
+            for name in ("keys", "digests", "scores", "values"):
+                self.assert_same(getattr(tk.state, name), getattr(tp.state, name),
+                                 f"{tag} {ctx} state.{name}")
+            require((tk.state.clock, tk.state.epoch) == (tp.state.clock, tp.state.epoch),
+                    f"{tag} {ctx}: clocks differ")
+
+        def both(name, *args, **kwargs):
+            a = getattr(tk, name)(*args, **kwargs)
+            b = getattr(tp, name)(*args, **kwargs)
+            same(a, b, f"{tag} {name}")
+            state(name)
+            return a
+
+        seen = set()
+        for step in range(sz.replay_steps):
+            keys, vals = batch(), self.values(n)
+            if step % 3 == 2:   # a burst aimed at one bucket
+                keys[: sz.hot_keys] = self.hot_bucket_keys(tk.cfg.num_buckets, sz.hot_keys, step)
+            r = both("insert_and_evict", keys, vals, custom())
+            seen.update(torch.unique(r.status).tolist())
+            both("insert_or_assign", batch(), self.values(n), custom())
+            mix = torch.cat([keys[: n // 2], batch()[n // 2:]])
+            both("find_or_insert", mix, self.values(n), custom(), return_evicted=step % 2 == 0)
+            both("ingest", batch(), self.values(n), custom())
+            for name in ("find", "find_rows", "find_ptr", "contains"):
+                both(name, mix)
+            loc = tp.find_ptr(mix)
+            for fn in (ops.find, ops.find_rows):   # at a caller's locate: gather_rows
+                same(tuple(fn(tk.state, tk.cfg, mix, loc, backend="auto")),
+                     tuple(fn(tp.state, tp.cfg, mix, loc, backend="plain")), f"{tag} {fn.__name__}(loc)")
+            both("assign", mix, self.values(n), update_scores=policy != "custom")
+            u = batch(unique=True)
+            both("assign_add", u, self.values(n))
+            both("assign_scores", mix, torch.randint(0, 2**40, (n,), generator=self.gen,
+                                                     device=self.dev))
+            both("accum_or_assign", u, self.values(n), custom())
+            both("erase", batch()[: n // 8])
+            both("export_batch", 0, tk.num_buckets)
+            if step % 4 == 3:
+                r = both("erase_if", self.Pred.key_in_range(0, 2**59))
+                require(int(r.swept) > 0, f"{tag}: erase_if swept nothing")
+                r = both("evict_if", self.Pred.always(), n // 4)
+                require(int(r.count) == n // 4, f"{tag}: evict_if count")
+        # duplicates' float sums: atomics on the card, held at a tolerance;
+        # this is the replay's last op, so the exact checks above stand
+        d = batch()
+        d[n // 2:] = d[: n // 2]
+        vals, cs = self.values(n), custom()
+        sk = tk.accum_or_assign(d, vals, cs).status
+        sp = tp.accum_or_assign(d, vals, cs).status
+        self.assert_same(sk, sp, f"{tag} accum_or_assign with duplicates: status")
+        tk.assign_add(d, vals)
+        tp.assign_add(d, vals)
+        for name in ("keys", "digests", "scores"):
+            self.assert_same(getattr(tk.state, name), getattr(tp.state, name), f"{tag} dup {name}")
+        err = (tk.state.values - tp.state.values).abs().max().item()
+        require(err <= DUP_SUM_ATOL, f"{tag}: duplicate sums differ by {err}")
+        log(f"phase 2 replay {tag}: {sz.replay_steps} steps of every op, λ = "
+            f"{tk.load_factor():.4f}, insert_and_evict statuses "
+            f"{sorted(STATUS_NAMES[i] for i in seen)}; duplicate sums within {err:.3g}")
+        require({3} <= seen, f"{tag}: the replay never evicted")
+        del tk, tp
 
     # phase 3 --------------------------------------------------------------
 
@@ -540,6 +802,178 @@ class Smoke:
         require(torch.equal(r.values[:half][ok[:half]], vals[:half][ok[:half]]), f"{ctx}: values")
         require(not bool(r.values[half:].any()), f"{ctx}: a miss returned a nonzero row")
 
+    # phase 4 --------------------------------------------------------------
+
+    def op(self, table, name, *args, **kwargs):
+        """One public op on `table`, its launches checked against ROUTES."""
+        counts = self._build.launch_counts
+        before = dict(counts)
+        out = getattr(table, name)(*args, **kwargs)
+        self.sync()
+        got = {k: v - before.get(k, 0) for k, v in counts.items() if v != before.get(k, 0)}
+        mode = table.cfg.buckets_per_key
+        self.op_launches[f"{name} ({'dual' if mode == 2 else 'single'})"] = got
+        if self.dev.type == "cuda":
+            require(got == ROUTES[name][mode],
+                    f"{name}: launches {got}, the routing table says {ROUTES[name][mode]}")
+        return out
+
+    def time_op(self, table, name, inputs) -> float:
+        """Median over `inputs` of one timed call each (stream timestamps)."""
+        lam = table.load_factor()
+        times = []
+        for args in inputs:
+            self.sync()
+            a = self.mark()
+            getattr(table, name)(*args)
+            b = self.mark()
+            self.sync()
+            times.append(self.elapsed_ms(a, b))
+        t = statistics.median(times)
+        mode = "dual" if table.cfg.buckets_per_key == 2 else "single"
+        self.op_times.append((name, mode, lam, t))
+        return t
+
+    def phase_rest(self):
+        torch, sz = self.torch, self.sz
+        n, runs = sz.batch, sz.timed_runs
+        self.free()
+        self._build.reset_counts()
+        self.op_times, self.op_launches = [], {}
+
+        # single bucket (the HKVConfig default): insert_or_assign, find,
+        # find_ptr, contains
+        table = self.config_b(buckets_per_key=1)
+        log(f"phase 4: config B table, capacity {table.capacity}, dim {table.dim}, "
+            f"single bucket, lru, on {table.device}")
+        for lam in (0.5, 1.0):
+            keys, vals, status = self.fill(table, lam)
+            self.check_find(table, keys, vals, status, f"single λ={lam}")
+            self.check_pointers(table, keys, status, f"single λ={lam}")
+            for name in ("find", "find_ptr", "contains"):
+                self.time_op(table, name, [(keys,)] * runs)
+            self.op(table, "insert_or_assign", self.fresh_keys(n), self.values(n))
+            self.time_op(table, "insert_or_assign",
+                         [(self.fresh_keys(n), self.values(n)) for _ in range(runs)])
+        counts = torch.zeros(5, dtype=torch.int64)
+        for i in range(3):   # past λ = 1.0, with a burst at one bucket
+            keys = self.fresh_keys(n)
+            keys[: sz.hot_keys] = self.hot_bucket_keys(table.cfg.num_buckets, sz.hot_keys, 777 + i)
+            vals = self.values(n)
+            status = self.op(table, "insert_or_assign", keys, vals).status
+            counts += torch.bincount(status.long().cpu(), minlength=5)
+            self.check_find(table, keys, vals, status, f"single past λ=1 batch {i}")
+            self.check_pointers(table, keys, status, f"single past λ=1 batch {i}")
+        log("phase 4: single bucket past λ = 1.0: " + ", ".join(
+            f"{STATUS_NAMES[i]} {int(c)}" for i, c in enumerate(counts)))
+        require(counts[3] > 0 and counts[4] > 0, "single bucket: no EVICTED or no REJECTED")
+        del table
+        self.free()
+
+        # dual bucket past λ 1.0: insert_and_evict, find_or_insert,
+        # erase_if, evict_if
+        table = self.config_b()
+        self.fill(table, 1.0)
+        log(f"phase 4: dual-bucket table at λ = {table.load_factor():.6f}")
+        keys, vals = self.fresh_keys(n), self.values(n)
+        r = self.op(table, "insert_and_evict", keys, vals)
+        self.check_stream(table, keys, r)
+        self.time_op(table, "insert_and_evict",
+                     [(self.fresh_keys(n), self.values(n)) for _ in range(runs)])
+
+        ok = (r.status >= 1) & (r.status <= 3)
+        resident = keys[ok][: n // 2]
+        mix = torch.cat([resident, self.fresh_keys(n - resident.numel())])
+        init = self.values(n)
+        f = self.op(table, "find_or_insert", mix, init)
+        h = resident.numel()
+        require(bool(f.found[:h].all()) and not bool(f.found[h:].any()),
+                "find_or_insert: found is not the keys resident before the op")
+        require(torch.equal(f.values[:h], vals[ok][: n // 2]), "find_or_insert: hit values")
+        require(torch.equal(f.values[h:], init[h:]), "find_or_insert: miss values")
+        require(bool((f.status[:h] == 1).all()), "find_or_insert: hit statuses")
+        self.time_op(table, "find_or_insert", [
+            (torch.cat([resident[: n // 4], self.fresh_keys(n - n // 4)]), self.values(n))
+            for _ in range(runs)])
+
+        known = resident
+        require(bool(table.contains(known).all()), "erase_if: the known keys are not resident")
+        size0 = table.size()
+        e = self.op(table, "erase_if", self.Pred.key_in_range(0, 2**60))
+        gone = known < 2**60
+        got = table.find(known).found
+        require(torch.equal(got, ~gone), "erase_if: find does not miss exactly the erased keys")
+        require(int(e.swept) == size0 - table.size() and int(e.swept) > 0,
+                "erase_if: swept count")
+        log(f"phase 4: erase_if(key_in_range(0, 2^60)) swept {int(e.swept)} of {size0}")
+        self.time_op(table, "erase_if", [(self.Pred.key_in_range(2**60 + i * 2**54,
+                                                                 2**60 + (i + 1) * 2**54),)
+                                         for i in range(runs)])
+
+        size0 = table.size()
+        budget = n
+        v = self.op(table, "evict_if", self.Pred.always(), budget)
+        self.check_evict_if(table, v, budget, size0)
+        self.time_op(table, "evict_if", [(self.Pred.always(), budget)] * runs)
+
+        self.sync()
+        self.launches_rest = dict(self._build.launch_counts)
+        log(f"phase 4: kernel launches: {json.dumps(self.launches_rest)}")
+        log(f"phase 4: launches per op: {json.dumps(self.op_launches)}")
+        if self.dev.type == "cuda":
+            missing = [k for k in ("gather_rows", "digest_scan", "sweep_match")
+                       if self.launches_rest.get(k, 0) == 0]
+            require(not missing, f"phase 4 never launched {missing}")
+        del table
+        self.free()
+
+    def check_pointers(self, table, keys, status, ctx):
+        """find_ptr and contains on the batch just inserted and on fresh
+        keys: admitted keys are found where the key plane holds them."""
+        torch = self.torch
+        ok = (status >= 1) & (status <= 3)
+        fresh = self.fresh_keys(keys.numel() // 4)
+        q = torch.cat([keys, fresh])
+        loc = table.find_ptr(q)
+        want = torch.cat([ok, torch.zeros_like(fresh, dtype=torch.bool)])
+        require(torch.equal(loc.found, want), f"{ctx}: find_ptr.found")
+        require(torch.equal(table.state.keys.view(-1)[loc.row[loc.found]], q[loc.found]),
+                f"{ctx}: find_ptr rows do not hold their keys")
+        require(torch.equal(table.contains(q), want), f"{ctx}: contains")
+
+    def check_stream(self, table, keys, r):
+        """insert_and_evict: the EVICTED lanes carry the displaced keys,
+        which are gone; the admitted keys are found."""
+        torch, u64 = self.torch, self.u64
+        ev = r.evicted
+        require(torch.equal(ev.mask, r.status == 3), "insert_and_evict: stream mask")
+        require(int(ev.count()) > 0, "insert_and_evict: nothing evicted past λ 1.0")
+        out = ev.keys[ev.mask]
+        require(not bool(table.contains(out).any()), "insert_and_evict: a displaced key is found")
+        require(bool((out != u64.EMPTY).all()) and not bool(torch.isin(out, keys).any()),
+                "insert_and_evict: a displaced key is not an old resident")
+        require(not bool(ev.keys[~ev.mask].any()) and not bool(ev.values[~ev.mask].any()),
+                "insert_and_evict: a non-evicting lane is not zeros")
+        ok = (r.status >= 1) & (r.status <= 3)
+        require(bool(table.contains(keys[ok]).all()), "insert_and_evict: an admitted key is missing")
+        log(f"phase 4: insert_and_evict past λ 1.0: {int(ev.count())} evicted of {keys.numel()}")
+
+    def check_evict_if(self, table, v, budget, size0):
+        """evict_if(always): `budget` entries, coldest first, gone; every
+        entry left is at least as hot as the hottest evicted."""
+        torch, u64 = self.torch, self.u64
+        ev = v.evicted
+        require(int(v.count) == min(budget, size0) and bool(ev.mask.all()), "evict_if: count")
+        f = u64.flip(ev.scores)
+        require(bool((f[1:] >= f[:-1]).all()), "evict_if: not coldest first")
+        require(table.size() == size0 - int(v.count), "evict_if: size")
+        require(not bool(table.contains(ev.keys).any()), "evict_if: an evicted key is found")
+        live = table.state.keys != u64.EMPTY
+        require(bool((u64.flip(table.state.scores[live]).min() >= f[-1])),
+                "evict_if: an entry left is colder than an evicted one")
+        log(f"phase 4: evict_if(always, budget={budget}) evicted {int(v.count)}, scores "
+            f"{int(ev.scores[0])}..{int(ev.scores[-1])}")
+
     # ----------------------------------------------------------------- report
 
     def report(self):
@@ -549,12 +983,27 @@ class Smoke:
         for lam, (f, i) in self.throughput.items():
             log(f"throughput λ={lam}: find {f:.4f} B-KV/s, insert_or_assign {i:.4f} B-KV/s")
         for name, st in sorted(self.stats.items()):
-            for lam in (0.5, 1.0):
+            for lam in (0.5, 1.0, "1.0 single"):
+                if f"ms@{lam}" not in st:
+                    continue
                 bound, by = self.bound(st, lam)
                 log(f"kernel {name} λ={lam}: {st[f'ms@{lam}']:.4f} ms, plain "
                     f"{st[f'plain_ms@{lam}']:.4f} ms, bound {bound:.4f} ms by {by} (bytes "
                     f"{self.bytes_ms(st, lam):.4f} ms, operations {self.ops_ms(st, lam):.4f} ms)"
                     + (f", library {st[f'library_ms@{lam}']:.4f} ms" if f"library_ms@{lam}" in st else ""))
+        sw = self.stats["sweep_match"]
+        for lam in (0.5, 1.0, "1.0 single"):
+            by_kind = []
+            for k in SWEEP_KINDS:
+                bound, by = self.bound({"bytes@": sw[f"bytes_{k}@{lam}"],
+                                        "ops@": sw[f"ops_{k}@{lam}"]}, "")
+                by_kind.append(f"{k} {sw[f'ms_{k}@{lam}']:.4f} ms (bound {bound:.4f} ms by {by})")
+            log(f"sweep_match λ={lam} by kind: " + ", ".join(by_kind))
+        for name, mode, lam, t in self.op_times:
+            rate = ("a whole-table sweep" if name in ("erase_if", "evict_if") else
+                    f"{self.sz.batch / t / 1e6:.4f} B-KV/s at {self.sz.batch} keys")
+            log(f"op {name} ({mode}) from λ {lam:.6f}: {t:.3f} ms ({rate}; median of "
+                f"{self.sz.timed_runs})")
         cs = self.stats["claim_scan"]
         for lam in (0.5, 1.0):
             log(f"claim_scan λ={lam}: every query on one cached row {cs[f'ms_one_row@{lam}']:.4f} ms "
@@ -581,20 +1030,29 @@ class Smoke:
         return (b, "bytes") if b >= o else (o, "operations")
 
     def kernel_rows(self) -> list[dict]:
-        """One entry per kernel, from this run's λ = 1.0 measurements."""
+        """One entry per kernel, from this run's λ = 1.0 dual-bucket
+        measurements."""
         meta = {
             "find_scan": ("src/repro_torch/csrc/find_scan.cu", "src/repro/kernels/find_scan.py:350"),
             "upsert_probe": ("src/repro_torch/csrc/upsert_scan.cu", "src/repro/kernels/upsert_scan.py:98"),
             "claim_scan": ("src/repro_torch/csrc/upsert_scan.cu", "src/repro/kernels/upsert_scan.py:189"),
             "scatter_rows": ("src/repro_torch/csrc/scatter.cu", "src/repro/kernels/scatter.py:37"),
+            "gather_rows": ("src/repro_torch/csrc/gather.cu", "src/repro/kernels/gather.py:34"),
+            "digest_scan": ("src/repro_torch/csrc/digest_scan.cu",
+                            "src/repro/kernels/digest_scan.py:159"),
+            "sweep_match": ("src/repro_torch/csrc/sweep_scan.cu",
+                            "src/repro/kernels/sweep_scan.py:55"),
         }
         rows = []
         for name, (source, replaces) in meta.items():
             st = self.stats[name]
             bound, by = self.bound(st, 1.0)
+            # launches: the main path's phase 3 for its four kernels, the
+            # rest of the op surface's phase 4 for the kernels it added
+            path = self.launches if name in self.launches else self.launches_rest
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": self.launches.get(name, 0), "max_abs_err": st["max_abs_err"],
+                "launches": path.get(name, 0), "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": st.get("library_ms@1.0"),

@@ -9,6 +9,13 @@ Both directions go through numpy arrays named as the JAX state's fields:
 
 so a JAX ``HKVState`` (a NamedTuple of arrays) or a dict of numpy arrays
 can be passed in directly, without this module importing JAX.
+
+The op results that carry 64-bit words convert the same way, to dicts
+named as the JAX result's fields: ``stream_to_arrays`` (an
+``EvictionStream``), ``locate_to_arrays`` (a ``Locate``, int32 as in the
+reference), ``export_to_arrays`` (an ``ExportResult``); and a JAX
+``SweepPredicate`` (kind and four uint32 operands) comes across with
+``predicate_from_arrays``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import table as table_mod
+from repro_torch.core import u64
+from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVState
 
 FIELDS = ("key_hi", "key_lo", "digests", "score_hi", "score_lo", "values",
@@ -66,3 +75,35 @@ def state_to_arrays(state: HKVState) -> dict[str, np.ndarray]:
         "clock_lo": np.uint32(state.clock & 0xFFFFFFFF),
         "epoch": np.uint32(state.epoch),
     }
+
+
+def _words(prefix: str, x: torch.Tensor) -> dict[str, np.ndarray]:
+    hi, lo = _split(x)
+    return {f"{prefix}_hi": hi, f"{prefix}_lo": lo}
+
+
+def stream_to_arrays(stream) -> dict[str, np.ndarray]:
+    """EvictionStream -> the JAX EvictionStream's fields as numpy."""
+    return {**_words("key", stream.keys), "values": stream.values.detach().cpu().numpy(),
+            **_words("score", stream.scores), "mask": stream.mask.cpu().numpy()}
+
+
+def locate_to_arrays(loc) -> dict[str, np.ndarray]:
+    """find.Locate -> the JAX Locate's fields (int32 indices) as numpy."""
+    return {"found": loc.found.cpu().numpy(),
+            **{f: getattr(loc, f).cpu().numpy().astype(np.int32)
+               for f in ("bucket", "slot", "row")}}
+
+
+def export_to_arrays(res) -> dict[str, np.ndarray]:
+    """ops.ExportResult -> the JAX ExportResult's fields as numpy."""
+    return {**_words("key", res.keys), "values": res.values.detach().cpu().numpy(),
+            **_words("score", res.scores), "mask": res.mask.cpu().numpy()}
+
+
+def predicate_from_arrays(pred: Any) -> SweepPredicate:
+    """A JAX-layout predicate (kind, a_hi, a_lo, b_hi, b_lo) -> the
+    port's SweepPredicate with the same operand bits."""
+    word = lambda hi, lo: u64.to_signed((int(np.asarray(getattr(pred, hi))) << 32)
+                                        | int(np.asarray(getattr(pred, lo))))
+    return SweepPredicate(pred.kind, word("a_hi", "a_lo"), word("b_hi", "b_lo"))

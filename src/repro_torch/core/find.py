@@ -84,9 +84,14 @@ def locate(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                   row=bucket * state.slots_per_bucket + slot)
 
 
+def gather_rows(values: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """THE masked row gather: values[rows[i]] where mask[i], zeros
+    elsewhere (`rows` within the plane)."""
+    out = values[rows]
+    return torch.where(mask[:, None], out, torch.zeros_like(out))
+
+
 def gather_values(state: HKVState, loc: Locate, dim: Optional[int] = None) -> torch.Tensor:
     """Position-addressed value gather; missing keys read zeros."""
-    rows = state.values[loc.row]
-    if dim is not None:
-        rows = rows[:, :dim]
-    return torch.where(loc.found[:, None], rows, torch.zeros_like(rows))
+    rows = gather_rows(state.values, loc.row, loc.found)
+    return rows if dim is None else rows[:, :dim]

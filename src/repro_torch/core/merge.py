@@ -1,10 +1,11 @@
 """Batch-synchronous bucket merge: the closure of paper Algorithms 2 and 3.
 
-This is the reference's ``core/merge.py`` batch closure, ported as far as
-``insert_or_assign`` needs it:
+This is the reference's ``core/merge.py`` batch closure, the one engine
+behind ``insert_or_assign``, ``insert_and_evict``, ``find_or_insert`` and
+``ingest``:
 
-  phase 1  keys already present are updates: score transition and value
-           write at their (bucket, slot);
+  phase 1  keys already present are updates: score transition and (unless
+           ``write_hit_values=False``) value write at their (bucket, slot);
   phase 2  the remaining keys are insertions: per target bucket, the r-th
            best incoming key (score descending, then key ascending) is
            paired with the r-th weakest existing slot under the total
@@ -13,8 +14,10 @@ This is the reference's ``core/merge.py`` batch closure, ported as far as
 
 The state is updated in place, in the reference's order of reads and
 writes: phase-1 score and value writes land before ``select_target`` (its
-D2 rule must see this batch's score touches), and ``victim_at_rank`` reads
-before the structural scatter.
+D2 rule must see this batch's score touches), and ``victim_at_rank`` and
+the evicted rows' ``gather_values`` read before the structural scatter
+overwrites them.  With in-place planes the order of the calls is the
+whole guarantee.
 
 Multi-key sorts become chains of stable single-key sorts, least
 significant key first; unsigned 64-bit keys sort through ``u64.flip``.
@@ -53,6 +56,9 @@ class UpsertStages(NamedTuple):
       select_target(state, cfg, probe) -> int64 [N] target bucket
       victim_at_rank(state, cfg, buckets, rank)
           -> (slot int64, occupied bool, score int64, key int64), each [N]
+      gather_values(cfg, values, rows, mask) -> [N, Dtot]
+          values[rows[i]] where mask[i], zeros elsewhere (the evicted-value
+          hand-off); rows outside the plane are clipped into it.
       scatter_values(cfg, values, rows, updates, mask) -> None
           values[rows[i]] = updates[i] where mask[i], in place; masked rows
           are unique within the batch.
@@ -61,7 +67,64 @@ class UpsertStages(NamedTuple):
     locate: Callable
     select_target: Callable
     victim_at_rank: Callable
+    gather_values: Callable
     scatter_values: Callable
+
+
+class EvictionStream(NamedTuple):
+    """Displaced (key, value, score) entries of one structural op: the
+    paper's in-launch eviction hand-off (§3.6).
+
+    Lanes align with the op's input batch (``insert_and_evict``,
+    ``find_or_insert``: lane i carries the entry displaced by input key i)
+    or with rank (``evict_if``: lane i is the i-th coldest).  A lane with
+    mask False displaced nothing; its key, value and score are zeros, NOT
+    the EMPTY sentinel, so mask before reusing them as keys
+    (``masked_keys``)."""
+
+    keys: torch.Tensor      # int64 [N] displaced keys (0 where ~mask)
+    values: torch.Tensor    # [N, Dtot] full-width rows (aux columns too)
+    scores: torch.Tensor    # int64 [N] their scores (0 where ~mask)
+    mask: torch.Tensor      # bool [N] lane carries a displaced entry
+
+    def masked_keys(self) -> torch.Tensor:
+        """Keys with non-displacing lanes set to EMPTY: the form another
+        table op takes directly (a zero lane would be the valid key 0)."""
+        return torch.where(self.mask, self.keys, u64.EMPTY)
+
+    def count(self) -> torch.Tensor:
+        """int64 [] number of displaced entries."""
+        return self.mask.sum()
+
+    @classmethod
+    def zero(cls, n: int, vdim: int, vdtype: torch.dtype,
+             device: torch.device) -> "EvictionStream":
+        """n lanes displacing nothing (n = 0: the placeholder of an op
+        whose caller did not ask for the hand-off)."""
+        z = torch.zeros(n, dtype=torch.int64, device=device)
+        return cls(keys=z, values=torch.zeros((n, vdim), dtype=vdtype, device=device),
+                   scores=z.clone(), mask=torch.zeros(n, dtype=torch.bool, device=device))
+
+
+class MergeResult(NamedTuple):
+    state: HKVState
+    status: torch.Tensor             # int8 [N] in batch order
+    evicted: EvictionStream          # batch-aligned iff return_evicted, else 0 lanes
+    found: torch.Tensor              # bool [N] key existed BEFORE this op
+    loc: find_mod.Locate             # where each key lives AFTER this op
+                                     # (loc.found: present now, hit or admitted)
+
+
+class DedupeResult(NamedTuple):
+    """A key batch deduplicated in sorted space (the engine's canonical
+    form).  Every tensor has the batch length N."""
+
+    unique: torch.Tensor       # int64 [N] each group's key at its first sorted slot, EMPTY elsewhere
+    idx_sorted: torch.Tensor   # int64 [N] batch position of sorted slot j
+    gid: torch.Tensor          # int64 [N] group id of sorted slot j
+    rep_mask: torch.Tensor     # bool [N] True at each valid group's first sorted slot
+    last_index: torch.Tensor   # int64 [N] batch position of the group's LAST occurrence
+    inverse: torch.Tensor      # int64 [N] batch position -> its group's first sorted slot
 
 
 def stable_argsort(*keys: torch.Tensor) -> torch.Tensor:
@@ -90,6 +153,30 @@ def _dedupe_sort(keys: torch.Tensor):
     last_idx.scatter_reduce_(0, gid, idx_s, "amax", include_self=False)
     rep_mask = is_first & ~u64.empty_lanes(keys_s)
     return keys_s, idx_s, gid, counts[gid], last_idx[gid], rep_mask
+
+
+def dedupe_keys(keys: torch.Tensor) -> DedupeResult:
+    """Dedupe over the canonical key sort: route or reduce per `unique`,
+    then map per-group results back to the batch with `inverse`."""
+    n = keys.shape[0]
+    keys_s, idx_s, gid, _count, last_idx, rep = _dedupe_sort(keys)
+    unique = torch.where(rep, keys_s, u64.EMPTY)
+    iota = torch.arange(n, device=keys.device)
+    rep_pos = torch.full((n,), n, dtype=torch.int64, device=keys.device)
+    rep_pos.scatter_reduce_(0, gid, iota, "amin", include_self=True)
+    inverse = torch.empty(n, dtype=torch.int64, device=keys.device)
+    inverse[idx_s] = rep_pos[gid]
+    return DedupeResult(unique=unique, idx_sorted=idx_s, gid=gid, rep_mask=rep,
+                        last_index=last_idx, inverse=inverse)
+
+
+def last_writer_mask(keys: torch.Tensor) -> torch.Tensor:
+    """bool [N] in batch order: the lane is its key's last occurrence in
+    the batch (every lane of a key that occurs once)."""
+    _ks, idx_s, _gid, _cnt, last_idx_s, _rep = _dedupe_sort(keys)
+    mask = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
+    mask[idx_s] = idx_s == last_idx_s
+    return mask
 
 
 def bucket_stats(keys: torch.Tensor, scores: torch.Tensor):
@@ -136,6 +223,11 @@ def plain_victim_at_rank(state: HKVState, cfg: HKVConfig, buckets: torch.Tensor,
     return victim_rows_at_rank(state.keys[buckets], state.scores[buckets], rank)
 
 
+def plain_gather_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    return find_mod.gather_rows(values, rows.clamp(0, values.shape[0] - 1), mask)
+
+
 def plain_scatter_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tensor,
                          updates: torch.Tensor, mask: torch.Tensor) -> None:
     values[rows[mask]] = updates[mask].to(values.dtype)
@@ -147,23 +239,39 @@ def plain_stages() -> UpsertStages:
         locate=lambda state, cfg, keys, probe: find_mod.locate(state, cfg, keys, probe),
         select_target=select_target_bucket,
         victim_at_rank=plain_victim_at_rank,
+        gather_values=plain_gather_values,
         scatter_values=plain_scatter_values,
     )
 
 
 def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
            values: torch.Tensor, *, custom_scores: Optional[torch.Tensor] = None,
-           stages: Optional[UpsertStages] = None) -> torch.Tensor:
-    """insert_or_assign's batch closure, in place on `state`.
+           write_hit_values: bool = True, update_hit_scores: bool = True,
+           insert_values: Optional[torch.Tensor] = None,
+           return_evicted: bool = False,
+           stages: Optional[UpsertStages] = None,
+           loc: Optional[find_mod.Locate] = None) -> MergeResult:
+    """The batch closure of insert_or_assign / insert_and_evict /
+    find_or_insert / ingest, in place on `state`.
 
-    keys   : int64 [N] (EMPTY lanes ignored; duplicates: last writer wins)
-    values : [N, Dtot] rows, already padded to the plane's width
-    Returns the int8 [N] status codes in batch order.
+    keys          : int64 [N] (EMPTY lanes ignored; duplicates: last writer wins)
+    values        : [N, Dtot] rows, already padded to the plane's width;
+                    written on a hit (when write_hit_values) and inserted
+                    on a miss (unless insert_values overrides)
+    insert_values : optional distinct rows for the insertion path
+    return_evicted: gather the displaced entries into a batch-aligned
+                    EvictionStream (else a zero-lane placeholder)
+    loc           : optional batch-order locate of `keys` against this
+                    state's key plane, used in place of the closure's own
+                    (exact: a locate depends only on the key plane)
     """
     n = keys.shape[0]
     b, s = cfg.num_buckets, cfg.slots_per_bucket
     dev = keys.device
+    vdim = state.values.shape[1]
     policy = cfg.policy
+    if insert_values is None:
+        insert_values = values
     if stages is None:
         stages = plain_stages()
 
@@ -177,12 +285,19 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
 
     # ---- phase 1: hits -------------------------------------------------------
     probe_s = find_mod.probe_keys(cfg, keys_s)
-    loc = stages.locate(state, cfg, keys_s, probe_s)
+    if loc is None:
+        loc = stages.locate(state, cfg, keys_s, probe_s)
+    else:   # batch order -> sorted space; EMPTY lanes forced to miss
+        loc = find_mod.Locate(found=loc.found[idx_s] & probe_s.valid,
+                              bucket=loc.bucket[idx_s], slot=loc.slot[idx_s],
+                              row=loc.row[idx_s])
     hit = loc.found & rep_mask
-    old_sc = state.scores[loc.bucket, loc.slot]
-    new_sc = policy.update_score(old_sc, clock, epoch, count_s, custom_s)
-    state.scores[loc.bucket[hit], loc.slot[hit]] = new_sc[hit]
-    stages.scatter_values(cfg, state.values, loc.row, values[last_idx_s], hit)
+    if update_hit_scores:
+        old_sc = state.scores[loc.bucket, loc.slot]
+        new_sc = policy.update_score(old_sc, clock, epoch, count_s, custom_s)
+        state.scores[loc.bucket[hit], loc.slot[hit]] = new_sc[hit]
+    if write_hit_values:
+        stages.scatter_values(cfg, state.values, loc.row, values[last_idx_s], hit)
     status_g.scatter_reduce_(0, gid, hit.to(torch.int32) * STATUS_UPDATED, "amax")
 
     # ---- phase 2: misses -----------------------------------------------------
@@ -193,7 +308,7 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     # canonical order: (bucket asc, score desc, key asc); non-misses last
     bkt_key = torch.where(miss, target, b)
     perm = stable_argsort(bkt_key, u64.flip(~init_sc), u64.flip(keys_s))
-    bkt_m, key_m, gid_m = bkt_key[perm], keys_s[perm], gid[perm]
+    bkt_m, key_m, gid_m, idx_m = bkt_key[perm], keys_s[perm], gid[perm], idx_s[perm]
     sc_m, dig_m, vrow_m = init_sc[perm], probe_s.digest[perm], last_idx_s[perm]
     mask_m = bkt_m < b
     iota = torch.arange(n, device=dev)
@@ -203,18 +318,23 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     rank = iota - run_start
 
     bkt_g = bkt_m.clamp(0, b - 1)
-    victim_slot, victim_occ, victim_sc, _victim_key = stages.victim_at_rank(
+    victim_slot, victim_occ, victim_sc, victim_key = stages.victim_at_rank(
         state, cfg, bkt_g, rank)
     admitted = mask_m & (rank < s) & (~victim_occ | u64.gt(sc_m, victim_sc))
     evicts = admitted & victim_occ
+
+    # the evicted rows are read before the structural scatter overwrites them
+    victim_row = bkt_g * s + victim_slot
+    if return_evicted:
+        ev_values = stages.gather_values(cfg, state.values, victim_row, evicts)
 
     # structural scatter: distinct (bucket, victim_slot) pairs
     tb, ts = bkt_m[admitted], victim_slot[admitted]
     state.keys[tb, ts] = key_m[admitted]
     state.digests[tb, ts] = dig_m[admitted]
     state.scores[tb, ts] = sc_m[admitted]
-    stages.scatter_values(cfg, state.values, bkt_g * s + victim_slot,
-                          values[vrow_m], admitted)
+    stages.scatter_values(cfg, state.values, victim_row,
+                          insert_values[vrow_m].to(state.values.dtype), admitted)
 
     status_m = torch.where(
         admitted,
@@ -225,4 +345,43 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     # group status -> batch order (duplicates share their group's status)
     status = torch.empty(n, dtype=torch.int8, device=dev)
     status[idx_s] = status_g[gid].to(torch.int8)
-    return status
+
+    # ---- post-op locations (batch order) -------------------------------------
+    # Hits stay where they were located, admitted misses sit in their
+    # victim's slot.  A hit can lose its slot within the batch to an
+    # admitted miss whose init score beats its updated score (lfu-family
+    # and custom policies, never monotone lru clocks): the final key plane
+    # at the hit's position decides whether it is still there.
+    hit_live = hit & find_mod.match_lanes(state.keys[loc.bucket, loc.slot], keys_s)
+    pos_b = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    pos_s = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    pos_in = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    hg = torch.where(hit_live, gid, n)                 # lane n absorbs the rest
+    pos_b[hg], pos_s[hg], pos_in[hg] = loc.bucket, loc.slot, hit_live
+    ag = torch.where(admitted, gid_m, n)
+    pos_b[ag], pos_s[ag], pos_in[ag] = bkt_m, victim_slot, admitted
+    pos_b[n], pos_s[n], pos_in[n] = 0, 0, False
+
+    def to_batch(a):
+        out = torch.empty(n, dtype=a.dtype, device=dev)
+        out[idx_s] = a[gid]
+        return out
+
+    post_b, post_s = to_batch(pos_b), to_batch(pos_s)
+    post_loc = find_mod.Locate(found=to_batch(pos_in), bucket=post_b, slot=post_s,
+                               row=post_b * s + post_s)
+    pre_found = torch.empty(n, dtype=torch.bool, device=dev)
+    pre_found[idx_s] = loc.found
+
+    if return_evicted:
+        oe = torch.where(evicts, idx_m, n)            # evictor's batch position
+        stream = EvictionStream.zero(n + 1, vdim, state.values.dtype, dev)
+        stream.keys[oe] = torch.where(evicts, victim_key, 0)
+        stream.scores[oe] = torch.where(evicts, victim_sc, 0)
+        stream.values[oe] = ev_values.to(state.values.dtype)
+        stream.mask[oe] = evicts
+        stream = EvictionStream(*(x[:n] for x in stream))
+    else:
+        stream = EvictionStream.zero(0, vdim, state.values.dtype, dev)
+    return MergeResult(state=state, status=status, evicted=stream,
+                       found=pre_found, loc=post_loc)

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "hkv_upsert_probe": "PPPPPPPPPPPIiP",
     "hkv_claim_scan": "PPPPPPPPIP",
     "hkv_scatter_rows": "PPPPIIIiP",
+    "hkv_gather_rows": "PPPPIIiP",
+    "hkv_digest_scan": "PPPPPPPIP",
+    "hkv_sweep_match": "PPPPIiIIP",
 }
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int}
 

@@ -1,13 +1,24 @@
 """The table ops' kernel-backed stages.
 
   find_fused_kernel   the reader: one find_scan launch resolves match,
-                      score readout and value copy;
+                      score readout and value copy (find, find_rows);
+  locate_kernel       the metadata-only locate: one digest_scan launch per
+                      candidate bucket (find_ptr, contains, and the
+                      single-bucket upsert's locate stage);
+  gather_rows_kernel  the value gather at a known locate (find and
+                      find_rows at a caller's loc, find_or_insert's
+                      readback);
+  sweep_mask_kernel   the sweeps' live-gated predicate mask (erase_if,
+                      evict_if), one sweep_match launch;
   kernel_stages       the inserter's stages for ``core.merge.upsert``:
-                      locate and select_target on upsert_probe (dual-bucket
-                      mode), victim_at_rank on claim_scan, scatter_values on
-                      scatter_rows.  Per dual-bucket insert_or_assign: two
-                      upsert_probe, one claim_scan and two scatter_rows
-                      launches.
+                      dual-bucket mode locates and selects on upsert_probe,
+                      single-bucket mode locates on digest_scan and targets
+                      bucket1; victim_at_rank on claim_scan, gather_values
+                      on gather_rows, scatter_values on scatter_rows.  Per
+                      insert_or_assign: two upsert_probe (dual) or one
+                      digest_scan (single), one claim_scan and two
+                      scatter_rows launches; return_evicted adds one
+                      gather_rows.
 
 The wrappers run their plain versions on CPU tensors, so the CPU tests
 reach this module too.
@@ -21,9 +32,13 @@ import torch
 
 from repro_torch.core import find as find_mod
 from repro_torch.core import merge as merge_mod
+from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.kernels.digest_scan import digest_scan
 from repro_torch.kernels.find_scan import find_scan
+from repro_torch.kernels.gather import gather_rows
 from repro_torch.kernels.scatter import scatter_rows
+from repro_torch.kernels.sweep_scan import sweep_match
 from repro_torch.kernels.upsert_scan import claim_scan, upsert_probe
 
 
@@ -51,17 +66,49 @@ def find_fused_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor) -> Fu
     )
 
 
+def locate_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
+                  probe: find_mod.Probe | None = None) -> find_mod.Locate:
+    """Drop-in for ``core.find.locate`` on digest_scan, one launch per
+    candidate bucket, merged with a hit in bucket1 winning (always
+    digest-filtered, like the reference's locate kernel)."""
+    if probe is None:
+        probe = find_mod.probe_keys(cfg, keys)
+
+    def run(bucket):
+        slot, found = digest_scan(state.digests, state.keys, bucket, probe.digest, keys)
+        return slot.to(torch.int64), found.to(torch.bool)
+
+    slot1, hit1 = run(probe.bucket1)
+    if cfg.buckets_per_key == 2:
+        slot2, hit2 = run(probe.bucket2)
+        found = (hit1 | hit2) & probe.valid
+        bucket = torch.where(hit1 | ~hit2, probe.bucket1, probe.bucket2)
+        slot = torch.where(hit1, slot1, torch.where(hit2, slot2, 0))
+    else:
+        found = hit1 & probe.valid
+        bucket, slot = probe.bucket1, torch.where(hit1, slot1, 0)
+    return find_mod.Locate(found=found, bucket=bucket, slot=slot,
+                           row=bucket * cfg.slots_per_bucket + slot)
+
+
+def gather_rows_kernel(state: HKVState, loc: find_mod.Locate, dim: int) -> torch.Tensor:
+    """The value rows at `loc` (zeros where not found), first `dim` columns."""
+    return gather_rows(state.values, loc.row, loc.found)[:, :dim]
+
+
+def sweep_mask_kernel(state: HKVState, pred: SweepPredicate) -> torch.Tensor:
+    """bool [B, S]: live entries matching `pred`."""
+    match, _count = sweep_match(state.keys, state.scores, pred)
+    return match
+
+
 def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStages:
     """Kernel-backed implementations of the upsert stages."""
     s = cfg.slots_per_bucket
-    if cfg.buckets_per_key == 1 and device.type == "cuda":
-        raise NotImplementedError(
-            "single-bucket insert_or_assign on the card needs the digest_scan "
-            "kernel, which is not ported yet; use buckets_per_key=2 or backend='plain'")
 
     def locate(state: HKVState, _cfg, keys, probe: find_mod.Probe) -> find_mod.Locate:
-        if cfg.buckets_per_key == 1:   # CPU only (see above): the plain locate
-            return find_mod.locate(state, cfg, keys, probe)
+        if cfg.buckets_per_key == 1:
+            return locate_kernel(state, cfg, keys, probe)
         found, hit_sel, hit_slot, _tgt = upsert_probe(
             state.digests, state.keys, state.scores, probe.bucket1, probe.bucket2,
             probe.digest, keys, use_digest=cfg.use_digest)
@@ -86,9 +133,13 @@ def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStage
                                            rank.clamp(0, s - 1))
         return slot.to(torch.int64), occ.to(torch.bool), score, key
 
+    def gather_values(_cfg, values, rows, mask) -> torch.Tensor:
+        return gather_rows(values, rows, mask)
+
     def scatter_values(_cfg, values, rows, updates, mask) -> None:
         scatter_rows(values, rows, updates.to(values.dtype).contiguous(), mask, add=False)
 
     return merge_mod.UpsertStages(locate=locate, select_target=select_target,
                                   victim_at_rank=victim_at_rank,
+                                  gather_values=gather_values,
                                   scatter_values=scatter_values)

@@ -11,7 +11,9 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.kernels import find_scan, scatter, upsert_scan  # noqa: E402
+from repro_torch import SweepPredicate  # noqa: E402
+from repro_torch.kernels import digest_scan, find_scan, gather, scatter  # noqa: E402
+from repro_torch.kernels import sweep_scan, upsert_scan  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -66,3 +68,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         scatter.scatter_rows(meta(128, 4, dt=torch.float32), meta(4),
                              meta(4, 4, dt=torch.float32), meta(4, dt=torch.bool), False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gather.gather_rows(meta(128, 4, dt=torch.float32), meta(4), meta(4, dt=torch.bool))
+    with pytest.raises(ValueError, match="unsupported device"):
+        digest_scan.digest_scan(planes[0], planes[1], q[0], q[2], q[3])
+    with pytest.raises(ValueError, match="unsupported device"):
+        sweep_scan.sweep_match(planes[1], planes[2], SweepPredicate.always())

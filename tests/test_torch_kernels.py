@@ -1,4 +1,4 @@
-"""The plain versions of the port's four kernels against the JAX package.
+"""The plain versions of the port's kernels against the JAX package.
 
 Each kernel's plain PyTorch version (what the wrapper runs on CPU tensors,
 and what `chip_smoke.py` holds the CUDA kernel against on the card) must
@@ -16,17 +16,24 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import find as jfind  # noqa: E402
 from repro.core import merge as jmerge  # noqa: E402
+from repro.core.predicates import SweepPredicate as JaxPredicate  # noqa: E402
 from repro.core import table as jtable  # noqa: E402
 from repro.core import u64 as ju64  # noqa: E402
 from repro.kernels import ops as jkops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import digest_scan as jds  # noqa: E402
+from repro.kernels import gather as jga  # noqa: E402
+from repro.kernels import sweep_scan as jsw  # noqa: E402
 from repro.kernels import upsert_scan as jus  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import find as pfind  # noqa: E402
 from repro_torch.core import table as ptable  # noqa: E402
+from repro_torch.kernels import digest_scan as pds  # noqa: E402
 from repro_torch.kernels import find_scan as pfs  # noqa: E402
+from repro_torch.kernels import gather as pga  # noqa: E402
 from repro_torch.kernels import ops as pkops  # noqa: E402
 from repro_torch.kernels import scatter as psc  # noqa: E402
+from repro_torch.kernels import sweep_scan as psw  # noqa: E402
 from repro_torch.kernels import upsert_scan as pus  # noqa: E402
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -194,3 +201,86 @@ def test_scatter_rows_plain_matches_jax(add):
                      torch.from_numpy(mask), add)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert not np.array_equal(got.numpy(), values)
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_digest_scan_plain_matches_jax(lam, dual):
+    """The plain digest_scan against both TPU schedules (tlp and
+    pipeline, interpret mode) and the jnp reference, on each candidate
+    bucket; then locate_kernel against the JAX locate kernel, EMPTY lanes
+    included (an EMPTY query misses on both sides and reports slot 0:
+    the free slots that hold the EMPTY key carry digest 0xFF, not its
+    digest 28, and a resident slot with digest 28 fails the key compare)."""
+    rng, cfg, state, resident = _filled(lam, dual)
+    qkeys = _queries(rng, resident)
+    k, probe, jin, tin = _probe_inputs(cfg, qkeys)
+    ps = convert.state_from_arrays(state, device="cpu")
+    for jb, tb in ((jin[0], tin[0]), (jin[1], tin[1])):
+        slot, found = pds.digest_scan(ps.digests, ps.keys, tb, tin[2], tin[3])
+        jargs = (state.digests, state.key_hi, state.key_lo, jb, jin[2], jin[3], jin[4])
+        for want in (jds.digest_scan_tlp(*jargs, interpret=True),
+                     jds.digest_scan_pipeline(*jargs, q_tile=N // 2, interpret=True),
+                     jref.digest_scan_ref(*jargs)):
+            np.testing.assert_array_equal(slot.numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(found.numpy(), np.asarray(want[1]))
+        assert found.sum() > 0 and (found == 0).sum() > 0
+        assert not found.numpy()[qkeys == EMPTY].any()
+    jl = jkops.locate_kernel(state, cfg, k, interpret=True)
+    pl = pkops.locate_kernel(ps, _port_cfg(cfg), tin[3])
+    got = convert.locate_to_arrays(pl)
+    for f in ("found", "bucket", "slot", "row"):
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(jl, f)), err_msg=f)
+    # and the plain locate of core.find, which the CPU path runs
+    jf = jfind.locate(state, cfg, k)
+    for f in ("found", "bucket", "slot", "row"):
+        np.testing.assert_array_equal(convert.locate_to_arrays(pfind.locate(ps, _port_cfg(cfg), tin[3]))[f],
+                                      np.asarray(getattr(jf, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_gather_rows_plain_matches_jax(lam):
+    """Masked gather at the rows of resident keys and of misses, with rows
+    past the plane's end (clipped by both wrappers)."""
+    rng, cfg, state, _ = _filled(lam, True)
+    values = np.array(state.values)
+    r = values.shape[0]
+    rows = rng.integers(0, r, size=N).astype(np.int64)
+    rows[::9] = r + 4
+    mask = rng.random(N) < 0.5
+    got = pga.gather_rows(torch.from_numpy(values), torch.from_numpy(rows), torch.from_numpy(mask))
+    clipped = jnp.asarray(np.clip(rows, 0, r - 1).astype(np.int32))
+    for want in (jga.gather_rows(jnp.asarray(values), clipped, jnp.asarray(mask.astype(np.int32)),
+                                 interpret=True),
+                 jref.gather_rows_ref(jnp.asarray(values), jnp.asarray(rows.astype(np.int32)),
+                                      jnp.asarray(mask))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[torch.from_numpy(~mask)].eq(0).all() and got[torch.from_numpy(mask)].ne(0).any()
+
+
+@pytest.mark.parametrize("kind", ("always", "score_lt", "score_ge", "epoch_lt", "key_range"))
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_sweep_match_plain_matches_jax(lam, kind):
+    """Every predicate kind over the whole table against the Pallas sweep
+    kernel in interpret mode: mask and per-bucket count."""
+    rng, cfg, state, resident = _filled(lam, True)
+    ps = convert.state_from_arrays(state, device="cpu")
+    live_scores = np.unique(_u64(state.score_hi, state.score_lo)[np.asarray(state.key_hi) != 0xFFFFFFFF])
+    keys = np.sort(resident)
+    threshold = int(live_scores[1])   # lfu counts: 1 below it, the rest at or above
+    jp = {"always": JaxPredicate.always(),
+          "score_lt": JaxPredicate.score_below(threshold),
+          "score_ge": JaxPredicate.score_at_least(threshold),
+          # lfu scores are small counts with a zero high half, so every
+          # live entry is below epoch 1 (wide words: test_torch_sweep.py)
+          "epoch_lt": JaxPredicate.expire_before(1),
+          "key_range": JaxPredicate.key_in_range(int(keys[len(keys) // 3]),
+                                                 int(keys[2 * len(keys) // 3]))}[kind]
+    match, count = psw.sweep_match(ps.keys, ps.scores, convert.predicate_from_arrays(jp))
+    wm, wc = jsw.sweep_match(state.key_hi, state.key_lo, state.score_hi, state.score_lo,
+                             jp.a_hi, jp.a_lo, jp.b_hi, jp.b_lo, kind=kind, interpret=True)
+    np.testing.assert_array_equal(match.numpy(), np.asarray(wm))
+    np.testing.assert_array_equal(count.numpy(), np.asarray(wc))
+    assert match.dtype == torch.bool and count.dtype == torch.int32
+    if kind in ("score_lt", "score_ge", "key_range"):
+        assert 0 < int(count.sum()) < len(resident)

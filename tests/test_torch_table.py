@@ -140,7 +140,8 @@ def test_kernel_stages_on_cpu_run_the_plain_versions(dual):
         sp = plain.insert_or_assign(keys, vals).status
         tkeys = repro_torch.normalize_keys(keys, kern.device)
         sk = pt_merge.upsert(kern.state, kern.cfg, tkeys,
-                             pt_ops._pad_aux(torch.from_numpy(vals), kern.state), stages=stages)
+                             pt_ops._pad_aux(torch.from_numpy(vals), kern.state),
+                             stages=stages).status
         assert torch.equal(sp, sk)
         a, b = convert.state_to_arrays(plain.state), convert.state_to_arrays(kern.state)
         for f in convert.FIELDS:
