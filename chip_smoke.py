@@ -42,9 +42,26 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    coldest-first stream of the right count).  Each op is timed (median of
    timed runs) and its launches checked against the routing table in
    ``repro_torch/core/ops.py``.
+5. the training path at config B's full size, with the counts set to 0
+   just before and read just after each entry point: an HKVEmbedding of
+   config B (2^27 slots, dim 32, rowwise_adagrad so V = 33, dual bucket,
+   LRU) prefilled to λ 1.0 takes 5 DLRM steps of 32,768 samples x 26
+   Zipfian fields (lookup_train, the forward and backward pass, the dense
+   update, apply_grads, whose launches must be one update_scan); then the
+   fused gradient step is timed against the composed one (digest_scan per
+   bucket, gather_rows, the optimizer, scatter_rows) on the last step's
+   gradients; and a 2^20-slot twin takes the same steps on 'auto' and
+   'plain', equal in keys, digests, scores and statuses, and within 1e-5
+   in values and loss (the gradient sums of repeated tokens are float32
+   atomics on the card).
 
-The last two lines are a JSON object with one entry per kernel, and the
-JSON result line.  Without a card (or without the repository around it)
+Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
+= 32, 33 and 64 at dim 32, the planes other than config B's own value
+plane made for the check) and bucket_stats; phase 2 also replays
+update_rows (fused, composed, through an OpSession) on both backends.
+
+The last lines are the card's name and power limit, a JSON object with
+one entry per kernel, and the JSON result line.  Without a card (or without the repository around it)
 the script exits non-zero and prints no result.  ``--rehearse`` runs the
 same phases at a tiny size on the CPU through the plain versions, to check
 the script itself; it never prints a result and exits non-zero.
@@ -64,6 +81,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published HBM3 rate
+FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 # 32-bit integer operations a second outside the tensor cores: the data
 # sheet's 67 TFLOP/s float32 counts 128 lanes x 2 (an FMA) a clock on each
 # SM; the CUDA programming guide gives compute capability 9.0 64 results a
@@ -87,6 +105,14 @@ SWEEP_KINDS = {"always": (False, OPS_U64_CMP),
 # few ulps; duplicates' sums in assign_add / accum_or_assign are atomics
 DUP_SUM_ATOL = 1e-5
 SEED = 20260417
+# update_scan's optimizers, in the order phase 1 runs them (one extra value
+# plane per row width: V = 64 for sgdm and adagrad, 33 for rowwise_adagrad),
+# and the float operations each does on a row, a column at a time
+OPTIMIZERS = ("sgd", "sgdm", "adagrad", "rowwise_adagrad")
+FLOPS_PER_COL = {"sgd": 2, "sgdm": 4, "adagrad": 7, "rowwise_adagrad": 4}
+NUM_SPARSE = 26                    # DLRM fields (phase 5)
+DENSE_FEATURES = 13
+TRAIN_LR = 0.05                    # the dense update of the DLRM example
 STATUS_NAMES = ("invalid", "updated", "inserted", "evicted", "rejected")
 # launches of one op on backend 'auto' on the card, by bucket mode: the
 # routing table of repro_torch/core/ops.py
@@ -102,6 +128,10 @@ ROUTES = {
     "erase_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
     "evict_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
 }
+# the training path's entry points (dual bucket): lookup_train is one
+# find_or_insert, apply_grads one update_scan
+TRAIN_ROUTES = {"lookup_train": ROUTES["find_or_insert"][2],
+                "apply_grads": {"update_scan": 1}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +143,14 @@ class Sizes:
     hot_keys: int            # keys aimed at one bucket, to force rejections
     timed_runs: int
     replay_steps: int        # phase 2's every-op replay, per mode and policy
+    train_batch: int         # DLRM samples a step (phase 5; 26 keys each)
+    train_steps: int
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
-             hot_keys=1024, timed_runs=5, replay_steps=10)
+             hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
-             hot_keys=400, timed_runs=2, replay_steps=4)
+             hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3)
 DIM = 32
 
 
@@ -165,18 +197,21 @@ class Smoke:
         from repro_torch.core import find as find_mod
         from repro_torch.core import u64
         from repro_torch.kernels import _build, digest_scan, find_scan, gather, scatter
-        from repro_torch.kernels import sweep_scan, upsert_scan
+        from repro_torch.kernels import score_scan, sweep_scan, update_scan, upsert_scan
         from repro_torch import SweepPredicate
 
         self.torch, self.dev, self.sz = torch, device, sizes
         self.find_mod, self.u64, self._build = find_mod, u64, _build
         self.fs, self.us, self.sc = find_scan, upsert_scan, scatter
         self.ga, self.ds, self.sw = gather, digest_scan, sweep_scan
+        self.up, self.ss = update_scan, score_scan
         self.Pred = SweepPredicate
         self.gen = torch.Generator(device=device).manual_seed(SEED)
         self.next_key = 1
         self.stats: dict[str, dict] = {}      # per kernel: errors, timings, bounds
         self.launches: dict[str, int] = {}
+        self.launches_train: dict[str, int] = {}
+        self.train_cmp: dict[str, float] = {}
 
     # ------------------------------------------------------------------ utils
 
@@ -297,6 +332,9 @@ class Smoke:
         self.phase_rest()
         log(f"phase 4 (the rest of the op surface at config B) passed in "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        self.phase_train()
+        log(f"phase 5 (the training path at config B) passed in {time.perf_counter() - t0:.1f} s")
         self.report()
 
     def config_b(self, backend="auto", buckets_per_key=2):
@@ -329,6 +367,8 @@ class Smoke:
             log(f"phase 1: λ = {table.load_factor():.6f}")
             self.compare_kernels(table, resident, lam)
             self.compare_new_kernels(table, resident, str(lam))
+            self.compare_update_scan(table, resident, lam)
+            self.compare_bucket_stats(table, lam)
         del table
         self.free()
         table = self.config_b(buckets_per_key=1)
@@ -545,6 +585,130 @@ class Smoke:
                                  + n * (4 + 4 + 4 + 8 + v * 4)),
                 f"ops@{lam}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP}
 
+    def checksum(self, values) -> int:
+        """A bit-exact checksum of a value plane: the sum of its 32-bit
+        words, in slices so that no int64 copy of the plane is made."""
+        torch = self.torch
+        flat = values.view(-1).view(torch.int32)
+        return sum(int(c.sum(dtype=torch.int64)) for c in flat.split(2**28))
+
+    def compare_update_scan(self, table, resident, lam):
+        """update_scan against its plain version for every optimizer and
+        both bucket modes, on this table's key planes, with the main path's
+        query count (a DLRM step's keys): unique keys, half resident, some
+        EMPTY and some with the gate off.  The value plane of each row width
+        is the table's own (V = 32) or one made for the check and filled with
+        uniform [0, 1) floats (adagrad accumulators must be >= 0); it is not
+        cloned: the rows a hit may touch are saved, the kernel runs, those
+        rows are read and the saved ones put back, and a checksum shows the
+        rest of the plane unchanged; then the plain version runs the same
+        way."""
+        from repro_torch.embedding.sparse_opt import SparseOptimizer
+
+        torch, sz, u64 = self.torch, self.sz, self.u64
+        st, cfg = table.state, table.cfg
+        n = sz.train_batch * NUM_SPARSE
+        q = torch.cat([resident[: n // 2], self.fresh_keys(n - n // 2)])
+        q = q[torch.randperm(n, generator=self.gen, device=self.dev)]
+        q[::97] = u64.EMPTY
+        p = self.find_mod.probe_keys(cfg, q)
+        valid = p.valid.clone()
+        valid[::13] = False
+        grads = torch.randn((n, DIM), generator=self.gen, device=self.dev)
+        # the rows a hit may touch: resident in either candidate bucket
+        # (single mode touches a subset: those in bucket1)
+        loc = self.find_mod.locate(st, cfg, q)
+        rows = loc.row[loc.found & valid]
+        hit1 = loc.found & (loc.bucket == p.bucket1)
+        planes = {st.values.shape[1]: st.values}
+        for opt_name in OPTIMIZERS:
+            opt = SparseOptimizer(opt_name, lr=0.05)
+            v = DIM + opt.aux_dim(DIM)
+            if v not in planes:
+                values = None   # one extra plane at a time: drop the last first
+                planes = {st.values.shape[1]: st.values}
+                self.free()
+                planes[v] = torch.rand((st.values.shape[0], v), generator=self.gen,
+                                       device=self.dev)
+            values = planes[v]
+            for mode in ("dual", "single"):
+                b2 = p.bucket2 if mode == "dual" else p.bucket1
+                args = (st.digests, st.keys, values, p.bucket1, b2, p.digest, q, valid, grads,
+                        opt, DIM)
+                saved = values[rows].clone()
+                before = self.checksum(values)
+                fk = self.up.update_scan(*args)
+                got = values[rows].clone()
+                values[rows] = saved
+                require(self.checksum(values) == before,
+                        f"update_scan {opt_name} {mode} λ={lam}: a row outside the hits moved")
+                fp = self.up.update_scan_plain(*args)
+                want = values[rows].clone()
+                values[rows] = saved
+                self.check_equal("update_scan", (fk, got), (fp, want),
+                                 f"{lam} {opt_name} {mode}")
+                require(0 < int(fk.sum()) < n, "update_scan: no hits or no misses")
+                t = self.time_ms(lambda: self.up.update_scan(*args), sz.timed_runs)
+                values[rows] = saved
+                self.record("update_scan", **{f"ms_{opt_name}_{mode}@{lam}": t})
+                if opt_name != "rowwise_adagrad" or mode != "dual":
+                    continue
+                # config B's optimizer in dual mode: the main path's launch
+                self.record("update_scan", **{
+                    f"ms@{lam}": t,
+                    f"plain_ms@{lam}": self.time_ms(lambda: self.up.update_scan_plain(*args), 2),
+                    **self.update_work(st, p, q, valid, hit1, fk.bool(), v, opt_name, lam)})
+                values[rows] = saved
+        del planes, values
+        self.free()
+
+    def update_work(self, st, p, q, valid, hit1, found, v, opt_name, lam) -> dict:
+        """Least bytes and operations of update_scan on these queries.
+        Bytes: each lane's inputs (4-byte bucket indices, key, digest,
+        gate) and found word; the digest line of every probed row (bucket2
+        only after a miss in bucket1); the keys whose digest matched; and on
+        a hit its gradient row and the value row read and written.
+        Operations: the digest compares and key equalities in int32, the
+        optimizer's float operations on each hit row."""
+        torch = self.torch
+        n = q.shape[0]
+        second = valid & ~hit1 & (p.bucket2 != p.bucket1)
+        probed_b = torch.cat([p.bucket1[valid], p.bucket2[second]])
+        probed_q = torch.cat([torch.nonzero(valid).flatten(), torch.nonzero(second).flatten()])
+        cand = int((st.digests[probed_b] == p.digest[probed_q][:, None]).sum())
+        rows = torch.unique(probed_b).numel()
+        hits = int(found.sum())
+        return {f"bytes@{lam}": (n * (4 + 4 + 8 + 1 + 1 + 4) + rows * 128 + cand * 8
+                                 + hits * (DIM * 4 + 2 * v * 4)),
+                f"ops@{lam}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP,
+                f"flops@{lam}": hits * DIM * FLOPS_PER_COL[opt_name]}
+
+    def compare_bucket_stats(self, table, lam):
+        """bucket_stats against its plain version over the whole table, and
+        one PyTorch yardstick: the masked minimum and the occupancy sum."""
+        torch, u64 = self.torch, self.u64
+        st = table.state
+        b, s = st.keys.shape
+        got = self.ss.bucket_stats(st.keys, st.scores)
+        self.check_equal("bucket_stats", got, self.ss.bucket_stats_plain(st.keys, st.scores),
+                         str(lam))
+
+        def library():
+            live = st.keys != u64.EMPTY
+            return (torch.min(u64.flip(torch.where(live, st.scores, u64.U64_MAX)), dim=1),
+                    live.sum(dim=1))
+
+        runs = self.sz.timed_runs
+        self.record("bucket_stats", **{
+            f"ms@{lam}": self.time_ms(lambda: self.ss.bucket_stats(st.keys, st.scores), runs),
+            f"plain_ms@{lam}": self.time_ms(
+                lambda: self.ss.bucket_stats_plain(st.keys, st.scores), 2),
+            f"library_ms@{lam}": self.time_ms(library, runs),
+            # every key and score once, three words a bucket out; per slot a
+            # liveness test and a minimum step, each a 64-bit compare
+            f"bytes@{lam}": b * s * 16 + b * (4 + 8 + 4),
+            f"ops@{lam}": b * s * 2 * OPS_U64_CMP})
+
     # phase 2 --------------------------------------------------------------
 
     def phase_paths(self):
@@ -585,6 +749,8 @@ class Smoke:
         for buckets_per_key in (1, 2):
             for policy in ("lru", "custom"):
                 self.replay_every_op(buckets_per_key, policy)
+        for opt_name in ("rowwise_adagrad", "sgdm"):
+            self.replay_update_rows(opt_name)
 
     def assert_same(self, a, b, ctx):
         require(self.torch.equal(a, b), f"kernel path and plain path differ: {ctx}")
@@ -688,6 +854,72 @@ class Smoke:
             f"{tk.load_factor():.4f}, insert_and_evict statuses "
             f"{sorted(STATUS_NAMES[i] for i in seen)}; duplicate sums within {err:.3g}")
         require({3} <= seen, f"{tag}: the replay never evicted")
+        del tk, tp
+
+    def replay_update_rows(self, opt_name: str):
+        """update_rows on 'auto' (update_scan, or gather_rows at a shared
+        locate) and 'plain', on a reduced dual-bucket table with aux
+        columns: fused through ops.update_rows, composed through
+        update_composed_kernel, and through an OpSession (a RowUpdate alone,
+        and one sharing a contains' locate).  Found and the full state are
+        equal after every update."""
+        from repro_torch import HKVTable, RowUpdate
+        from repro_torch.core import ops
+        from repro_torch.embedding.sparse_opt import SparseOptimizer
+        from repro_torch.kernels import ops as kops
+
+        torch, sz, u64 = self.torch, self.sz, self.u64
+        opt = SparseOptimizer(opt_name, lr=0.05)
+        kw = dict(capacity=sz.small_capacity, dim=DIM, buckets_per_key=2,
+                  aux_value_dim=opt.aux_dim(DIM), device=self.dev)
+        tk, tp = HKVTable.create(backend="auto", **kw), HKVTable.create(backend="plain", **kw)
+        n = sz.small_batch
+        space = self.fresh_keys(2 * sz.small_capacity)
+        for i in range(0, space.numel(), n):   # past λ 1.0
+            keys = space[i:i + n]
+            vals = torch.rand((keys.numel(), DIM), generator=self.gen, device=self.dev)
+            self.assert_same(tk.insert_or_assign(keys, vals).status,
+                             tp.insert_or_assign(keys, vals).status, f"{opt_name} fill")
+
+        def state(ctx):
+            for name in ("keys", "digests", "scores", "values"):
+                self.assert_same(getattr(tk.state, name), getattr(tp.state, name),
+                                 f"update_rows {opt_name} {ctx} state.{name}")
+
+        def unique_batch():
+            keys = space[torch.randperm(space.numel(), generator=self.gen, device=self.dev)[:n]]
+            keys[::61] = u64.EMPTY
+            return keys
+
+        trained = 0
+        for step in range(sz.replay_steps // 2):
+            u, g = unique_batch(), torch.randn((n, DIM), generator=self.gen, device=self.dev)
+            fk = ops.update_rows(tk.state, tk.cfg, u, g, opt).found
+            fp = ops.update_rows(tp.state, tp.cfg, u, g, opt, backend="plain").found
+            self.assert_same(fk, fp, f"update_rows {opt_name} fused found")
+            state(f"step {step} fused")
+            trained += int(fk.sum())
+            u, g = unique_batch(), torch.randn((n, DIM), generator=self.gen, device=self.dev)
+            fk = kops.update_composed_kernel(tk.state, tk.cfg, u, g, opt).found
+            fp = ops.update_rows(tp.state, tp.cfg, u, g, opt, backend="plain").found
+            self.assert_same(fk, fp, f"update_rows {opt_name} composed found")
+            state(f"step {step} composed")
+            for shared in (False, True):
+                u, g = unique_batch(), torch.randn((n, DIM), generator=self.gen, device=self.dev)
+                refs = []
+                for t in (tk, tp):
+                    sess = t.session()
+                    if shared:
+                        sess.contains(u)
+                    refs.append(sess.update_rows(u, RowUpdate(opt, g)))
+                    require(sess.commit() is t, "OpSession.commit returned another handle")
+                self.assert_same(refs[0].get().found, refs[1].get().found,
+                                 f"update_rows {opt_name} session found")
+                state(f"step {step} session{' shared' if shared else ''}")
+        require(trained > 0, f"update_rows {opt_name}: nothing trained")
+        log(f"phase 2 update_rows {opt_name}: {sz.replay_steps // 2} rounds of fused, composed "
+            f"and session updates equal on both backends; {trained} rows trained by the fused "
+            f"path, λ = {tk.load_factor():.4f}")
         del tk, tp
 
     # phase 3 --------------------------------------------------------------
@@ -974,6 +1206,175 @@ class Smoke:
         log(f"phase 4: evict_if(always, budget={budget}) evicted {int(v.count)}, scores "
             f"{int(ev.scores[0])}..{int(ev.scores[-1])}")
 
+    # phase 5 --------------------------------------------------------------
+
+    def train_batch(self, rng, batch: int):
+        """One DLRM batch as examples/dlrm_continuous.py makes it: per field
+        Zipfian ids (α 0.99 over 10^6 ranks) salted by the field, masked to
+        31 bits; dense features N(0, 1); click labels 0/1."""
+        import numpy as np
+
+        from repro_torch.data import zipf_keys
+
+        torch = self.torch
+        field_keys = np.stack([zipf_keys(rng, batch, 0.99, 10**6) ^ np.uint64(f << 56)
+                               for f in range(NUM_SPARSE)], axis=1)
+        toks = torch.from_numpy((field_keys & np.uint64(0x7FFFFFFF)).astype(np.int64))
+        dense_x = torch.from_numpy(rng.normal(size=(batch, DENSE_FEATURES)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 2, size=batch).astype(np.float32))
+        return toks.to(self.dev), dense_x.to(self.dev), labels.to(self.dev)
+
+    def counted(self, name, fn, *args):
+        """One entry point, its launches counted from 0 and checked against
+        TRAIN_ROUTES (on the card), and its time between stream marks."""
+        self._build.reset_counts()
+        self.sync()
+        a = self.mark()
+        out = fn(*args)
+        b = self.mark()
+        self.sync()
+        got = dict(self._build.launch_counts)
+        for k, v in got.items():
+            self.launches_train[k] = self.launches_train.get(k, 0) + v
+        if self.dev.type == "cuda":
+            require(got == TRAIN_ROUTES[name],
+                    f"{name}: launches {got}, the training path's route is {TRAIN_ROUTES[name]}")
+        return out, self.elapsed_ms(a, b)
+
+    def dlrm_step(self, emb, table, model, toks, dense_x, labels):
+        """lookup_train, forward and backward with the dense update,
+        apply_grads; returns (loss, ms of each part, the embedding grads)."""
+        (table, rows), t_lookup = self.counted("lookup_train", emb.lookup_train, table, toks)
+        self.sync()
+        a = self.mark()
+        rows = rows.detach().requires_grad_(True)
+        loss = model.loss(rows, dense_x, labels)
+        loss.backward()
+        model.sgd_(TRAIN_LR)
+        b = self.mark()
+        self.sync()
+        grads = rows.grad
+        _, t_apply = self.counted("apply_grads", emb.apply_grads, table, toks, grads)
+        return loss.detach(), {"lookup_train": t_lookup, "forward+backward": self.elapsed_ms(a, b),
+                               "apply_grads": t_apply}, grads
+
+    def phase_train(self):
+        """The training path at config B, full width (see the module note)."""
+        import numpy as np
+
+        from repro_torch.configs.hkv_dlrm import PAPER_CONFIGS
+        from repro_torch.kernels import ops as kops
+        from repro_torch.models.dlrm import DLRM
+
+        torch, sz = self.torch, self.sz
+        self.free()
+        self.launches_train = {}
+        cfg = PAPER_CONFIGS["B"]
+        emb = dataclasses.replace(cfg.embedding(), capacity=sz.capacity)
+        table = emb.create(device=self.dev)
+        require(table.state.values.shape == (sz.capacity, DIM + 1) and cfg.dim == DIM,
+                 "config B's table is not [capacity, 33]")
+        self.fill(table, 1.0)
+        log(f"phase 5: HKVEmbedding of config B: capacity {table.capacity}, dim {emb.dim}, "
+            f"{emb.optimizer.name} (V = {table.state.values.shape[1]}), dual bucket, "
+            f"{emb.score_policy}; prefilled to λ = {table.load_factor():.6f}")
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        model = DLRM(DIM, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
+        rng = np.random.default_rng(SEED)
+        losses = []
+        for step in range(sz.train_steps):
+            toks, dense_x, labels = self.train_batch(rng, sz.train_batch)
+            keys = emb.keys_of(toks)
+            found = int(table.contains(keys).sum())
+            loss, ms, grads = self.dlrm_step(emb, table, model, toks, dense_x, labels)
+            require(bool(torch.isfinite(loss)), f"phase 5 step {step}: loss is not finite")
+            losses.append(float(loss))
+            uniq, g_sum = emb.sum_grads(toks, grads)
+            t_sum = self.time_ms(lambda: emb.sum_grads(toks, grads), 1)
+            trained = int(table.contains(uniq).sum())
+            n_uniq = int((uniq != self.u64.EMPTY).sum())
+            require(0 < trained <= n_uniq, f"phase 5 step {step}: {trained} rows trained")
+            log(f"phase 5 step {step}: {toks.numel()} keys ({n_uniq} unique, {found} found "
+                f"before the step, {trained} trained); lookup_train {ms['lookup_train']:.3f} ms, "
+                f"forward+backward {ms['forward+backward']:.3f} ms, apply_grads "
+                f"{ms['apply_grads']:.3f} ms (dedupe+segment-sum {t_sum:.3f} ms timed alone, "
+                f"the rest, hashing and update_scan, {ms['apply_grads'] - t_sum:.3f} ms); "
+                f"loss {float(loss):.6f}; λ {table.load_factor():.6f}")
+        log(f"phase 5: kernel launches over {sz.train_steps} steps: "
+            f"{json.dumps(self.launches_train)}")
+        if self.dev.type == "cuda":
+            require(self.launches_train.get("update_scan") == sz.train_steps,
+                    "phase 5: apply_grads did not run one update_scan a step")
+        # exp9's comparison on the last step's gradients: the fused step (one
+        # update_scan) against the composed one; both train the same rows
+        opt, tcfg = emb.optimizer, table.cfg
+        for name, fn, route in (
+                ("fused", kops.update_rows_kernel, {"update_scan": 1}),
+                ("composed", kops.update_composed_kernel,
+                 {"digest_scan": 2, "gather_rows": 1, "scatter_rows": 1})):
+            self._build.reset_counts()
+            fn(table.state, tcfg, uniq, g_sum, opt)
+            self.sync()
+            if self.dev.type == "cuda":
+                require(dict(self._build.launch_counts) == route, f"{name} update: launches")
+            t = self.time_ms(lambda: fn(table.state, tcfg, uniq, g_sum, opt), sz.timed_runs)
+            self.train_cmp[name] = t
+            log(f"phase 5: {name} gradient step on the last batch's {n_uniq} unique keys: "
+                f"{t:.3f} ms, launches {json.dumps(route)}")
+        del table
+        self.free()
+        self.train_twin(emb, losses)
+
+    def train_twin(self, emb, losses):
+        """The same DLRM steps on a 2^20-slot table (a 2^11-slot one in the
+        rehearsal) through 'auto' and 'plain' on this device."""
+        import copy
+
+        import numpy as np
+
+        from repro_torch.models.dlrm import DLRM
+
+        torch, sz = self.torch, self.sz
+        small = dataclasses.replace(emb, capacity=sz.small_capacity)
+        ek, ep = small, dataclasses.replace(small, backend="plain")
+        tk, tp = ek.create(device=self.dev), ep.create(device=self.dev)
+        for i in range(0, 2 * sz.small_capacity, sz.small_batch):   # past λ 1.0
+            keys, vals = self.fresh_keys(sz.small_batch), self.values(sz.small_batch)
+            self.assert_same(tk.insert_or_assign(keys, vals).status,
+                             tp.insert_or_assign(keys, vals).status, "twin prefill")
+        gen = torch.Generator(device=self.dev).manual_seed(SEED + 1)
+        mk = DLRM(DIM, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
+        mp = copy.deepcopy(mk)
+        rng = np.random.default_rng(SEED + 1)
+        worst = 0.0
+        for step in range(sz.train_steps):
+            toks, dense_x, labels = self.train_batch(rng, sz.train_batch // 4)
+            keys = ek.keys_of(toks)
+            init = ek.default_rows(keys)
+            self.assert_same(tk.snapshot().find_or_insert(keys, init).status,
+                             tp.snapshot().find_or_insert(keys, init).status,
+                             f"twin step {step} statuses")
+            out = []
+            for e, t, m in ((ek, tk, mk), (ep, tp, mp)):
+                t, rows = e.lookup_train(t, toks)
+                rows = rows.detach().requires_grad_(True)
+                loss = m.loss(rows, dense_x, labels)
+                loss.backward()
+                m.sgd_(TRAIN_LR)
+                e.apply_grads(t, toks, rows.grad)
+                out.append(loss.detach())
+            for name in ("keys", "digests", "scores"):
+                self.assert_same(getattr(tk.state, name), getattr(tp.state, name),
+                                 f"twin step {step} state.{name}")
+            err = max((tk.state.values - tp.state.values).abs().max().item(),
+                      abs(float(out[0]) - float(out[1])))
+            worst = max(worst, err)
+            require(err <= DUP_SUM_ATOL, f"twin step {step}: values or loss differ by {err}")
+        log(f"phase 5 twin: {sz.train_steps} steps on {sz.small_capacity} slots, 'auto' and "
+            f"'plain' equal in keys, digests, scores and statuses; values and loss within "
+            f"{worst:.3g}; config B losses {', '.join(f'{x:.6f}' for x in losses)}")
+        del tk, tp
+
     # ----------------------------------------------------------------- report
 
     def report(self):
@@ -1004,6 +1405,14 @@ class Smoke:
                     f"{self.sz.batch / t / 1e6:.4f} B-KV/s at {self.sz.batch} keys")
             log(f"op {name} ({mode}) from λ {lam:.6f}: {t:.3f} ms ({rate}; median of "
                 f"{self.sz.timed_runs})")
+        up = self.stats["update_scan"]
+        for lam in (0.5, 1.0):
+            log(f"update_scan λ={lam} by optimizer and mode: " + ", ".join(
+                f"{o} {m} {up[f'ms_{o}_{m}@{lam}']:.4f} ms" for o in OPTIMIZERS
+                for m in ("dual", "single")))
+        if self.train_cmp:
+            log(f"gradient step at config B: fused {self.train_cmp['fused']:.3f} ms against "
+                f"composed {self.train_cmp['composed']:.3f} ms")
         cs = self.stats["claim_scan"]
         for lam in (0.5, 1.0):
             log(f"claim_scan λ={lam}: every query on one cached row {cs[f'ms_one_row@{lam}']:.4f} ms "
@@ -1021,7 +1430,9 @@ class Smoke:
 
     @staticmethod
     def ops_ms(st, lam) -> float:
-        return st[f"ops@{lam}"] / INT32_OPS_PER_S * 1e3
+        """int32 operations at the int32 rate, plus float32 ones (where a
+        kernel counts them) at the float32 rate."""
+        return (st[f"ops@{lam}"] / INT32_OPS_PER_S + st.get(f"flops@{lam}", 0) / FP32_FLOPS_PER_S) * 1e3
 
     def bound(self, st, lam) -> tuple[float, str]:
         """The least time for the work: the larger of the bytes' and the
@@ -1031,7 +1442,7 @@ class Smoke:
 
     def kernel_rows(self) -> list[dict]:
         """One entry per kernel, from this run's λ = 1.0 dual-bucket
-        measurements."""
+        measurements (update_scan: rowwise_adagrad, config B's optimizer)."""
         meta = {
             "find_scan": ("src/repro_torch/csrc/find_scan.cu", "src/repro/kernels/find_scan.py:350"),
             "upsert_probe": ("src/repro_torch/csrc/upsert_scan.cu", "src/repro/kernels/upsert_scan.py:98"),
@@ -1042,14 +1453,21 @@ class Smoke:
                             "src/repro/kernels/digest_scan.py:159"),
             "sweep_match": ("src/repro_torch/csrc/sweep_scan.cu",
                             "src/repro/kernels/sweep_scan.py:55"),
+            "update_scan": ("src/repro_torch/csrc/update_scan.cu",
+                            "src/repro/kernels/update_scan.py:282"),
+            "bucket_stats": ("src/repro_torch/csrc/score_scan.cu",
+                             "src/repro/kernels/score_scan.py:46"),
         }
         rows = []
         for name, (source, replaces) in meta.items():
             st = self.stats[name]
             bound, by = self.bound(st, 1.0)
             # launches: the main path's phase 3 for its four kernels, the
-            # rest of the op surface's phase 4 for the kernels it added
-            path = self.launches if name in self.launches else self.launches_rest
+            # rest of the op surface's phase 4 for the kernels it added, the
+            # training path's phase 5 for update_scan; no op calls
+            # bucket_stats, so no path launches it
+            path = (self.launches if name in self.launches else
+                    self.launches_train if name == "update_scan" else self.launches_rest)
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": path.get(name, 0), "max_abs_err": st["max_abs_err"],

@@ -5,12 +5,17 @@ of it.  Ops run on the card unless the caller asks for the CPU:
 
     from repro_torch import HKVTable, SweepPredicate
     table = HKVTable.create(capacity=2**27, dim=32, buckets_per_key=2)
+
+The training path: ``repro_torch.embedding.HKVEmbedding`` (lookup_train,
+lookup_serve, apply_grads) and ``repro_torch.models.dlrm.DLRM``.
 """
 
-from repro_torch.core.api import HKVTable, dedupe_keys, normalize_keys
+from repro_torch.core.api import (HKVTable, KVTable, OpSession, dedupe_keys, normalize_keys,
+                                  table_signature)
 from repro_torch.core.merge import EvictionStream
+from repro_torch.core.ops import RowUpdate
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
 
-__all__ = ["EvictionStream", "HKVConfig", "HKVState", "HKVTable", "SweepPredicate",
-           "dedupe_keys", "normalize_keys"]
+__all__ = ["EvictionStream", "HKVConfig", "HKVState", "HKVTable", "KVTable", "OpSession",
+           "RowUpdate", "SweepPredicate", "dedupe_keys", "normalize_keys", "table_signature"]

@@ -15,7 +15,12 @@ named as the JAX result's fields: ``stream_to_arrays`` (an
 ``EvictionStream``), ``locate_to_arrays`` (a ``Locate``, int32 as in the
 reference), ``export_to_arrays`` (an ``ExportResult``); and a JAX
 ``SweepPredicate`` (kind and four uint32 operands) comes across with
-``predicate_from_arrays``.
+``predicate_from_arrays``.  The value plane is carried whole, aux
+optimizer columns included (V = dim + aux).
+
+``dlrm_params_from_jax`` carries the reference DLRM's parameter dict
+(``bottom1``, ``bottom2``, ``top1``, ``top2`` as numpy arrays) into a state
+dict for the port's ``models.dlrm.DLRM``.
 """
 
 from __future__ import annotations
@@ -107,3 +112,12 @@ def predicate_from_arrays(pred: Any) -> SweepPredicate:
     word = lambda hi, lo: u64.to_signed((int(np.asarray(getattr(pred, hi))) << 32)
                                         | int(np.asarray(getattr(pred, lo))))
     return SweepPredicate(pred.kind, word("a_hi", "a_lo"), word("b_hi", "b_lo"))
+
+
+DLRM_PARAMS = ("bottom1", "bottom2", "top1", "top2")
+
+
+def dlrm_params_from_jax(params_np: Mapping) -> dict[str, torch.Tensor]:
+    """The reference DLRM's parameters (numpy arrays, [fan_in, fan_out] as
+    the port's) -> a state dict for ``DLRM.load_state_dict``."""
+    return {k: torch.from_numpy(np.array(params_np[k], dtype=np.float32)) for k in DLRM_PARAMS}

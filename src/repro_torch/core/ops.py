@@ -4,8 +4,9 @@ The reference's roles (paper §3.5) hold here as they do there:
 
   READERS    find, find_rows, find_ptr, contains, size, load_factor,
              export_batch, export_batch_if: read the state, write nothing;
-  UPDATERS   assign, assign_add, assign_scores: write values or scores of
-             keys already present, never a key, digest or slot;
+  UPDATERS   assign, assign_add, assign_scores, update_rows: write values
+             or scores of keys already present, never a key, digest or
+             slot;
   INSERTERS  insert_or_assign, insert_and_evict, find_or_insert, ingest,
              accum_or_assign, erase, clear, erase_if, evict_if: change
              bucket membership.
@@ -27,6 +28,9 @@ where the reference runs plain jnp:
   insert_and_evict,        evicted rows, find_or_insert one for its readback
   find_or_insert
   erase_if, evict_if       sweep_match for the mask
+  update_rows              update_scan, when no ``loc`` is given and no
+                           score is touched; at a caller's ``loc``:
+                           gather_rows, the optimizer, and assign
   the rest                 plain PyTorch (the reference's are plain jnp)
 
 ``HKVTable`` in ``core.api`` is the public surface; these free functions
@@ -35,7 +39,7 @@ are the implementation it delegates to.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -238,6 +242,53 @@ def assign_scores(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     write = loc.found & merge_mod.last_writer_mask(keys)
     state.scores[loc.bucket[write], loc.slot[write]] = scores[write]
     return state
+
+
+class RowUpdate(NamedTuple):
+    """The gradient step as a structured session payload: a sparse
+    optimizer and the per-key (deduplicated, summed) gradient rows.  A
+    session can route it whole to ``update_rows``, and so to the fused
+    update_scan kernel, which an opaque callable would not allow."""
+
+    opt: Any                 # embedding.sparse_opt.SparseOptimizer
+    grads: torch.Tensor      # [N, dim] summed gradient rows
+
+
+class UpdateRowsResult(NamedTuple):
+    state: HKVState
+    found: torch.Tensor      # bool [N] the key was resident and its row trained
+
+
+def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torch.Tensor,
+                opt, *, update_scores: bool = False,
+                loc: Optional[find_mod.Locate] = None,
+                backend: str = "auto") -> UpdateRowsResult:
+    """Updater.  The gradient step: each resident key's full row
+    [embedding | aux optimizer state] becomes ``opt.apply(row, grad)``, in
+    place.  Misses are no-ops: keys not admitted do not train.
+
+    PRECONDITION: the valid keys are unique and `grads` summed per key
+    (``HKVEmbedding.apply_grads`` deduplicates first).
+
+    On the card, with no `loc` and no score touch, one update_scan launch
+    does probe, optimizer and write-back.  Otherwise the step is composed
+    as the reference composes it: locate (or the caller's `loc`), the row
+    gather, the optimizer, and ``assign`` at that locate."""
+    kern = uses_kernels(backend, state.device)
+    if loc is None and not update_scores and kern:
+        r = _kernel_ops().update_rows_kernel(state, cfg, keys, grads, opt)
+        return UpdateRowsResult(state=state, found=r.found)
+    if loc is None:
+        loc = find_mod.locate(state, cfg, keys)
+        rows = find_mod.gather_values(state, loc)
+    elif kern:
+        rows = _kernel_ops().gather_rows_kernel(state, loc, state.values.shape[1])
+    else:
+        rows = find_mod.gather_values(state, loc)
+    new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
+    new_rows = torch.where(loc.found[:, None], new_rows, rows)
+    assign(state, cfg, keys, new_rows, update_scores=update_scores, loc=loc)
+    return UpdateRowsResult(state=state, found=loc.found)
 
 
 # =============================================================================

@@ -31,7 +31,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# The argument types of every C entry point: P = pointer, I = int64, i = int.
+# The argument types of every C entry point: P = pointer, I = int64, i = int,
+# f = float.
 _SIGNATURES = {
     "hkv_find_scan": "PPPPPPPPPPPPPIIiP",
     "hkv_upsert_probe": "PPPPPPPPPPPIiP",
@@ -40,8 +41,10 @@ _SIGNATURES = {
     "hkv_gather_rows": "PPPPIIiP",
     "hkv_digest_scan": "PPPPPPPIP",
     "hkv_sweep_match": "PPPPIiIIP",
+    "hkv_update_scan": "PPPPPPPPPPIIiiifffP",
+    "hkv_bucket_stats": "PPPPPIP",
 }
-_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int}
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
 
 launch_counts: collections.Counter = collections.Counter()
 build_log: list[str] = []

@@ -10,6 +10,15 @@
                       readback);
   sweep_mask_kernel   the sweeps' live-gated predicate mask (erase_if,
                       evict_if), one sweep_match launch;
+  update_rows_kernel  the updater's fused gradient step: one update_scan
+                      launch probes, applies the sparse optimizer and
+                      writes the rows back (update_rows, apply_grads);
+  update_composed_kernel  the same step composed as locate (a digest_scan
+                      launch per candidate bucket), gather_rows, the
+                      optimizer in plain PyTorch and scatter_rows: the
+                      launch-count and parity baseline of the fused pass;
+  bucket_stats_kernel per-bucket occupancy and minimum live score, one
+                      bucket_stats launch (no op calls it);
   kernel_stages       the inserter's stages for ``core.merge.upsert``:
                       dual-bucket mode locates and selects on upsert_probe,
                       single-bucket mode locates on digest_scan and targets
@@ -38,7 +47,9 @@ from repro_torch.kernels.digest_scan import digest_scan
 from repro_torch.kernels.find_scan import find_scan
 from repro_torch.kernels.gather import gather_rows
 from repro_torch.kernels.scatter import scatter_rows
+from repro_torch.kernels.score_scan import bucket_stats
 from repro_torch.kernels.sweep_scan import sweep_match
+from repro_torch.kernels.update_scan import update_scan
 from repro_torch.kernels.upsert_scan import claim_scan, upsert_probe
 
 
@@ -100,6 +111,45 @@ def sweep_mask_kernel(state: HKVState, pred: SweepPredicate) -> torch.Tensor:
     """bool [B, S]: live entries matching `pred`."""
     match, _count = sweep_match(state.keys, state.scores, pred)
     return match
+
+
+class UpdateRows(NamedTuple):
+    """Which lanes trained; the value plane was updated in place."""
+
+    found: torch.Tensor      # bool [N] the key was resident and its row trained
+
+
+def update_rows_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
+                       grads: torch.Tensor, opt) -> UpdateRows:
+    """The fused updater pass: one update_scan launch.  PRECONDITION: the
+    valid keys are unique and `grads` summed per key.  Misses and EMPTY
+    padding write nothing: the key-validity gate goes into the kernel,
+    since an updater cannot mask its writes afterwards."""
+    probe = find_mod.probe_keys(cfg, keys)   # bucket2 = bucket1 in single mode
+    found = update_scan(state.digests, state.keys, state.values, probe.bucket1, probe.bucket2,
+                        probe.digest, keys, probe.valid,
+                        grads.to(state.values.dtype).contiguous(), opt, cfg.dim,
+                        use_digest=cfg.use_digest)
+    return UpdateRows(found=found.to(torch.bool))
+
+
+def update_composed_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
+                           grads: torch.Tensor, opt) -> UpdateRows:
+    """The updater composed of separate passes: locate_kernel, gather_rows,
+    the optimizer in plain PyTorch, scatter_rows.  Kept as the fused
+    pass's launch-count and parity baseline, as in the reference."""
+    loc = locate_kernel(state, cfg, keys)
+    rows_idx = loc.row.clamp(0, state.values.shape[0] - 1)
+    rows = gather_rows(state.values, rows_idx, loc.found)
+    new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
+    scatter_rows(state.values, rows_idx, new_rows.contiguous(), loc.found, add=False)
+    return UpdateRows(found=loc.found)
+
+
+def bucket_stats_kernel(state: HKVState):
+    """(occupancy int32 [B], minimum live score int64 [B], its slot int32
+    [B]) per bucket, one bucket_stats launch."""
+    return bucket_stats(state.keys, state.scores)
 
 
 def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStages:

@@ -230,3 +230,146 @@ def test_every_op_kernel_path_matches_plain(dev, dual):
         assert torch.equal(x, y)
     same_state()
     assert all(_build.launch_counts[k] > 0 for k in ("gather_rows", "digest_scan", "sweep_match"))
+
+
+def _update_table(dev, opt, dim, capacity=64 * 128):
+    """A plain-path table on the card past λ = 1.0 with V = dim + aux and
+    non-negative rows (adagrad accumulators)."""
+    g = np.random.default_rng(8)
+    t = repro_torch.HKVTable.create(capacity=capacity, dim=dim, buckets_per_key=2,
+                                    aux_value_dim=opt.aux_dim(dim), device=dev, backend="plain")
+    for _ in range(6):
+        keys = g.integers(0, 2**64 - 2, size=capacity // 2, dtype=np.uint64)
+        t.insert_or_assign(keys, torch.rand(capacity // 2, t.cfg.total_value_dim, device=dev))
+    return t
+
+
+def _update_queries(t, n=4096):
+    """Unique keys: half resident, half not; every 17th EMPTY; every 13th
+    a resident key with its gate off."""
+    gen = torch.Generator(device=t.device).manual_seed(12)
+    live = t.state.keys[t.state.keys != -1]
+    q = torch.cat([live[torch.randperm(live.numel(), generator=gen, device=t.device)[:n // 2]],
+                   torch.randint(0, 2**62, (n // 2,), generator=gen, device=t.device)])
+    q = torch.unique(q)[:n]
+    q[::17] = -1
+    p = find_mod.probe_keys(t.cfg, q)
+    valid = p.valid.clone()
+    valid[::13] = False
+    return q, p, valid
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("opt_name,dim", [("sgd", 32), ("sgdm", 32), ("rowwise_adagrad", 32),
+                                          ("adagrad", 32), ("rowwise_adagrad", 100),
+                                          ("sgdm", 8)])
+def test_update_scan_kernel_matches_plain(dev, opt_name, dim, dual):
+    """Every optimizer, V = 32, 33 and 64 at dim 32 (and dims 100 and 8):
+    found and the whole value plane bit-identical to the plain version."""
+    from repro_torch.embedding.sparse_opt import SparseOptimizer
+    from repro_torch.kernels import update_scan
+
+    opt = SparseOptimizer(opt_name, lr=0.05)
+    t = _update_table(dev, opt, dim)
+    q, p, valid = _update_queries(t)
+    b2 = p.bucket2 if dual else p.bucket1
+    grads = torch.randn(q.numel(), dim, device=dev)
+    s = t.state
+    vk, vp = s.values.clone(), s.values.clone()
+    fk = update_scan.update_scan(s.digests, s.keys, vk, p.bucket1, b2, p.digest, q, valid,
+                                 grads, opt, dim)
+    fp = update_scan.update_scan_plain(s.digests, s.keys, vp, p.bucket1, b2, p.digest, q,
+                                       valid, grads, opt, dim)
+    _same((fk, vk), (fp, vp))
+    assert 0 < int(fk.sum()) < q.numel() and not torch.equal(vk, s.values)
+
+
+def test_update_scan_offsets_past_2_31(dev):
+    """A value plane of 2^26 rows of 64 floats: rows in the upper half sit
+    past 2^31 floats, so the kernel's offsets must be 64-bit.  The touched
+    rows are held against the plain version; a checksum of the plane shows
+    no other row moved."""
+    from repro_torch.embedding.sparse_opt import SparseOptimizer
+    from repro_torch.kernels import update_scan
+
+    opt = SparseOptimizer("adagrad", lr=0.05)
+    t = repro_torch.HKVTable.create(capacity=2**26, dim=32, aux_value_dim=32,
+                                    buckets_per_key=2, device=dev, backend="plain")
+    g = np.random.default_rng(2)
+    keys = g.integers(0, 2**63, size=8192, dtype=np.uint64)
+    t.insert_or_assign(keys, torch.rand(8192, 64, device=dev))
+    q, p, valid = _update_queries(t, n=8192)
+    s = t.state
+    loc = t.find_ptr(q)
+    rows = loc.row[loc.found & valid]
+    assert int((rows * 64 >= 2**31).sum()) > 1000
+    grads = torch.randn(q.numel(), 32, device=dev)
+    saved = s.values[rows].clone()
+    checksum = s.values.view(torch.int32).sum(dtype=torch.int64)
+    fk = update_scan.update_scan(s.digests, s.keys, s.values, p.bucket1, p.bucket2, p.digest,
+                                 q, valid, grads, opt, 32)
+    got = s.values[rows].clone()
+    s.values[rows] = saved
+    assert int(s.values.view(torch.int32).sum(dtype=torch.int64)) == int(checksum)
+    fp = update_scan.update_scan_plain(s.digests, s.keys, s.values, p.bucket1, p.bucket2,
+                                       p.digest, q, valid, grads, opt, 32)
+    _same((fk, got), (fp, s.values[rows]))
+
+
+def test_bucket_stats_kernel_matches_plain(dev):
+    """Occupancy, minimum live score and its slot, with an all-empty
+    bucket (all-ones score, slot 0) and a bucket of tied minima."""
+    from repro_torch.kernels import score_scan
+
+    t = _table(dev)
+    keys, scores = t.state.keys.clone(), t.state.scores.clone()
+    keys[3] = -1
+    keys[5:7] = torch.arange(256, device=dev).reshape(2, 128) + 10**6
+    scores[5] = 7
+    scores[6, 40:] = 0
+    scores[6, :40] = 2**62
+    keys[6, 60] = -1
+    got = score_scan.bucket_stats(keys, scores)
+    _same(got, score_scan.bucket_stats_plain(keys, scores))
+    assert int(got[0][3]) == 0 and int(got[1][3]) == -1 and int(got[2][3]) == 0
+    assert int(got[2][5]) == 0 and int(got[2][6]) == 40 and int(got[1][6]) == 0
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "rowwise_adagrad"])
+def test_apply_grads_kernel_path_matches_plain(dev, opt_name):
+    """HKVEmbedding steps on 'auto' and 'plain' on the card: the same
+    statuses, key planes and scores; values within 1e-5 (duplicated
+    tokens' gradient sums are float32 atomics on the card); apply_grads
+    is one update_scan launch, and update_rows at a shared locate and
+    the composed stage agree with the fused one."""
+    from repro_torch.core import ops
+    from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+    from repro_torch.kernels import ops as kops
+
+    opt = SparseOptimizer(opt_name, lr=0.05)
+    ek = HKVEmbedding(capacity=16 * 128, dim=32, optimizer=opt, backend="auto")
+    ep = HKVEmbedding(capacity=16 * 128, dim=32, optimizer=opt, backend="plain")
+    tk, tp = ek.create(device=dev), ep.create(device=dev)
+    g = np.random.default_rng(7)
+    for _ in range(5):
+        toks = torch.from_numpy(g.integers(-2, 5000, size=(256, 26))).to(dev)
+        tk, rk = ek.lookup_train(tk, toks)
+        tp, rp = ep.lookup_train(tp, toks)
+        assert (rk - rp).abs().max().item() <= 1e-5
+        grads = torch.randn(256, 26, 32, device=dev)
+        _build.reset_counts()
+        ek.apply_grads(tk, toks, grads)
+        assert dict(_build.launch_counts) == {"update_scan": 1}
+        ep.apply_grads(tp, toks, grads)
+        for name in ("keys", "digests", "scores"):
+            assert torch.equal(getattr(tk.state, name), getattr(tp.state, name)), name
+        assert (tk.state.values - tp.state.values).abs().max().item() <= 1e-5
+    uniq = torch.unique(tk.state.keys[tk.state.keys != -1])[:500]
+    grads = torch.randn(500, 32, device=dev)
+    states = [tk.snapshot().state for _ in range(3)]
+    kops.update_rows_kernel(states[0], tk.cfg, uniq, grads, opt)
+    kops.update_composed_kernel(states[1], tk.cfg, uniq, grads, opt)
+    loc = kops.locate_kernel(states[2], tk.cfg, uniq)
+    ops.update_rows(states[2], tk.cfg, uniq, grads, opt, loc=loc)
+    for st in states[1:]:
+        assert torch.equal(st.values, states[0].values)

@@ -13,7 +13,9 @@ import repro_torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import SweepPredicate  # noqa: E402
 from repro_torch.kernels import digest_scan, find_scan, gather, scatter  # noqa: E402
-from repro_torch.kernels import sweep_scan, upsert_scan  # noqa: E402
+from repro_torch.kernels import score_scan, sweep_scan, update_scan, upsert_scan  # noqa: E402
+from repro_torch.embedding import DenseEmbedding, HKVEmbedding, SparseOptimizer  # noqa: E402
+from repro_torch.models.dlrm import DLRM  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -48,6 +50,19 @@ def test_create_without_device_raises_without_a_card(monkeypatch):
     assert repro_torch.HKVTable.create(capacity=128, dim=4, device="cpu").size() == 0
 
 
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """HKVEmbedding.create, DenseEmbedding and DLRM default to the card and
+    raise without one; device='cpu' works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emb = HKVEmbedding(capacity=256, dim=4)
+    for make in (emb.create, lambda: DenseEmbedding(10, 4), lambda: DLRM(4, num_sparse=3)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert emb.create(device="cpu").state.values.shape == (256, 5)
+    assert DLRM(4, num_sparse=3, device="cpu").top1.shape == (4 + 6, 64)
+    assert DenseEmbedding(10, 4, device="cpu").table.shape == (10, 4)
+
+
 def test_hmem_tier_is_refused():
     with pytest.raises(NotImplementedError, match="hmem"):
         repro_torch.HKVTable.create(capacity=128, dim=4, device="cpu", value_tier="hmem")
@@ -74,3 +89,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         digest_scan.digest_scan(planes[0], planes[1], q[0], q[2], q[3])
     with pytest.raises(ValueError, match="unsupported device"):
         sweep_scan.sweep_match(planes[1], planes[2], SweepPredicate.always())
+    with pytest.raises(ValueError, match="unsupported device"):
+        update_scan.update_scan(planes[0], planes[1], meta(128, 4, dt=torch.float32), q[0],
+                                q[1], q[2], q[3], meta(4, dt=torch.bool),
+                                meta(4, 4, dt=torch.float32), SparseOptimizer("sgd"), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        score_scan.bucket_stats(planes[1], planes[2])
