@@ -30,7 +30,10 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    batches to λ 0.5, 1.0, and past it (the last batches must report EVICTED
    and REJECTED); find on resident keys and on a mix with misses, checked
    against the keys the script knows are resident; throughput of both ops,
-   median of timed runs, at λ 0.5 and 1.0.
+   median of timed runs, at λ 0.5 and 1.0.  The λ 1.0 breakdown's upsert
+   records the buckets and ranks its victim stage gets (its miss lanes), and
+   claim_scan is then timed on them against the plain version, after the
+   launch counts are read.
 4. the rest of the op surface at config B's full size, with the counts
    set to 0 just before and read just after: a single-bucket table (the
    HKVConfig default) takes insert_or_assign to λ 0.5, 1.0 and past it
@@ -41,16 +44,22 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    find then misses exactly the erased keys) and evict_if(always) (a
    coldest-first stream of the right count).  Each op is timed (median of
    timed runs) and its launches checked against the routing table in
-   ``repro_torch/core/ops.py``.
+   ``repro_torch/core/ops.py``: an upserting op launches claim_scan once
+   if its batch has a miss lane (a status inserted, evicted or rejected)
+   and not at all otherwise.
 5. the training path at config B's full size, with the counts set to 0
    just before and read just after each entry point: an HKVEmbedding of
    config B (2^27 slots, dim 32, rowwise_adagrad so V = 33, dual bucket,
    LRU) prefilled to λ 1.0 takes 5 DLRM steps of 32,768 samples x 26
    Zipfian fields (lookup_train, the forward and backward pass, the dense
-   update, apply_grads, whose launches must be one update_scan); then the
-   fused gradient step is timed against the composed one (digest_scan per
-   bucket, gather_rows, the optimizer, scatter_rows) on the last step's
-   gradients; and a 2^20-slot twin takes the same steps on 'auto' and
+   update, apply_grads, whose launches must be one update_scan); each
+   step's victim stage must get exactly the batch's distinct keys that
+   contains() did not find before the step, and lookup_train launches
+   claim_scan once if there are any; then the fused gradient step is timed
+   against the composed one (digest_scan per bucket, gather_rows, the
+   optimizer, scatter_rows) on the last step's gradients, and scatter_rows
+   is held against its plain version and timed at V = 33 on the phase's
+   value plane; and a 2^20-slot twin takes the same steps on 'auto' and
    'plain', equal in keys, digests, scores and statuses, and within 1e-5
    in values and loss (the gradient sums of repeated tokens are float32
    atomics on the card).
@@ -69,6 +78,7 @@ the script itself; it never prints a result and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -115,7 +125,8 @@ DENSE_FEATURES = 13
 TRAIN_LR = 0.05                    # the dense update of the DLRM example
 STATUS_NAMES = ("invalid", "updated", "inserted", "evicted", "rejected")
 # launches of one op on backend 'auto' on the card, by bucket mode: the
-# routing table of repro_torch/core/ops.py
+# routing table of repro_torch/core/ops.py.  claim_scan runs on the miss
+# lanes only: an op whose batch has none launches it 0 times (Smoke.route)
 UPSERT = {1: {"digest_scan": 1, "claim_scan": 1, "scatter_rows": 2},
           2: {"upsert_probe": 2, "claim_scan": 1, "scatter_rows": 2}}
 ROUTES = {
@@ -286,6 +297,43 @@ class Smoke:
 
     def record(self, name: str, **kw):
         self.stats.setdefault(name, {}).update(kw)
+
+    @staticmethod
+    def route(want: dict, has_miss: bool) -> dict:
+        """An upserting op's expected launches: the victim stage, and with
+        it claim_scan, runs only where the batch has a miss lane."""
+        return {k: v for k, v in want.items() if has_miss or k != "claim_scan"}
+
+    @staticmethod
+    def has_miss(status) -> bool:
+        return bool((status >= 2).any())   # a lane inserted, evicted or rejected
+
+    @contextlib.contextmanager
+    def victim_lanes(self):
+        """Record the lanes each upsert's victim stage (claim_scan on the
+        card) gets.  The kernel and plain stage sets are wrapped where the
+        ops look them up; the closure is unchanged."""
+        from repro_torch.core import merge
+        from repro_torch.kernels import ops as kops
+
+        calls = []
+
+        def wrap(make):
+            def stages(*args):
+                st = make(*args)
+
+                def victim_at_rank(state, cfg, buckets, rank):
+                    calls.append(buckets.shape[0])
+                    return st.victim_at_rank(state, cfg, buckets, rank)
+                return st._replace(victim_at_rank=victim_at_rank)
+            return stages
+
+        saved = kops.kernel_stages, merge.plain_stages
+        kops.kernel_stages, merge.plain_stages = wrap(saved[0]), wrap(saved[1])
+        try:
+            yield calls
+        finally:
+            kops.kernel_stages, merge.plain_stages = saved
 
     def check_equal(self, name: str, got, want, ctx: str) -> None:
         """Kernel outputs against the plain version's: bit-identical."""
@@ -538,31 +586,41 @@ class Smoke:
             f"ops@{lam}": n * (s - 1) * OPS_VICTIM_CMP,
             f"loop_ops@{lam}": n * s * s * OPS_VICTIM_CMP})
 
-        # scatter_rows, set and add, on a copy of the value plane each
-        r_tot = st.values.shape[0]
+        self.compare_scatter(st.values, tag, f"@{lam}")
+
+    def compare_scatter(self, values, ctx: str, key: str):
+        """scatter_rows, set and add, against the plain version on a copy
+        of `values` each (2^20 lanes, nine tenths masked in; masked-out
+        lanes aimed at a written row and past the plane, which must not
+        write); then timed in place beside index_put_ on the masked lanes,
+        and beside index_fill_ of the same rows, which reads no update: the
+        cost of the stores alone.  `key` suffixes the recorded numbers."""
+        torch, sz = self.torch, self.sz
+        n = sz.batch
+        r_tot, v = values.shape
         rows_i = torch.randperm(r_tot, generator=self.gen, device=self.dev)[:n]
         mask = torch.rand(n, generator=self.gen, device=self.dev) < 0.9
         rows_i[~mask] = torch.where(torch.arange(n, device=self.dev)[~mask] % 2 == 0,
                                     rows_i[mask][0], r_tot + 5)   # must not write
-        upd = self.values(n)
+        upd = torch.randn((n, v), generator=self.gen, device=self.dev)
         for add in (False, True):
-            vk = st.values
-            vp = st.values.clone()
-            self.sc.scatter_rows(vk, rows_i, upd, mask, add)
+            vp = values.clone()
+            self.sc.scatter_rows(values, rows_i, upd, mask, add)
             self.sc.scatter_rows_plain(vp, rows_i, upd, mask, add)
-            self.check_equal("scatter_rows", (vk,), (vp,), tag + (" add" if add else " set"))
+            self.check_equal("scatter_rows", (values,), (vp,), ctx + (" add" if add else " set"))
             del vp
         rows_m, upd_m = rows_i[mask], upd[mask]
-        vp = st.values
         m = int(mask.sum())
+        runs = sz.timed_runs
         self.record("scatter_rows", **{
-            f"ms@{lam}": self.time_ms(lambda: self.sc.scatter_rows(vp, rows_i, upd, mask, False), runs),
-            f"plain_ms@{lam}": self.time_ms(
-                lambda: self.sc.scatter_rows_plain(vp, rows_i, upd, mask, False), 2),
-            f"library_ms@{lam}": self.time_ms(lambda: vp.index_put_((rows_m,), upd_m), runs),
-            f"bytes@{lam}": n * (4 + 1) + m * DIM * 4 * 2, f"ops@{lam}": 0})
-        if self.dev.type == "cuda":
-            torch.cuda.empty_cache()
+            f"ms{key}": self.time_ms(
+                lambda: self.sc.scatter_rows(values, rows_i, upd, mask, False), runs),
+            f"plain_ms{key}": self.time_ms(
+                lambda: self.sc.scatter_rows_plain(values, rows_i, upd, mask, False), 2),
+            f"library_ms{key}": self.time_ms(lambda: values.index_put_((rows_m,), upd_m), runs),
+            f"fill_ms{key}": self.time_ms(lambda: values.index_fill_(0, rows_m, 0.5), runs),
+            f"bytes{key}": n * (4 + 1) + m * v * 4 * 2, f"ops{key}": 0})
+        self.free()
 
     def find_work(self, st, p, q, plain_out, lam) -> dict:
         """Least bytes and operations of find_scan on these queries.  Bytes:
@@ -962,7 +1020,28 @@ class Smoke:
             missing = [k for k in ("find_scan", "upsert_probe", "claim_scan", "scatter_rows")
                        if self.launches.get(k, 0) == 0]
             require(not missing, f"main path never launched {missing}")
+        self.time_claim_main(table)
         del table
+
+    def time_claim_main(self, table):
+        """claim_scan on the buckets and ranks that the λ 1.0 breakdown's
+        insert_or_assign of fresh keys gave its victim stage, against the
+        plain version and timed, on the table as it is now (the same rows).
+        Run after the main path's launch counts are read."""
+        torch = self.torch
+        st, s = table.state, table.cfg.slots_per_bucket
+        buckets, rank = self.claim_main
+        m = buckets.numel()
+        args = (st.keys, st.scores, buckets, rank)
+        self.check_equal("claim_scan", self.us.claim_scan(*args),
+                         self.us.claim_scan_plain(*args), "λ=1.0 insert's own ranks")
+        rows = torch.unique(buckets).numel()
+        hist = torch.bincount(rank.clamp(0, 4), minlength=5).tolist()
+        self.record("claim_scan", **{
+            "ms_main@1.0": self.time_ms(lambda: self.us.claim_scan(*args), self.sz.timed_runs),
+            "bytes_main@1.0": rows * 16 * s + m * (4 + 4) + m * 24,
+            "ops_main@1.0": m * (s - 1) * OPS_VICTIM_CMP,
+            "lanes_main@1.0": m, "rank_hist_main@1.0": hist})
 
     def mark(self):
         """A timestamp taken in stream order (a CUDA event on the card)."""
@@ -983,10 +1062,13 @@ class Smoke:
         from repro_torch.core import merge, ops
         from repro_torch.kernels import ops as kops
 
+        torch = self.torch
         spans = []
 
         def timed(name, fn):
             def run(*args):
+                if name == "victim_at_rank" and lam == 1.0:   # (buckets, rank) of the misses
+                    self.claim_main = (args[2].clone(), args[3].clone())
                 a = self.mark()
                 out = fn(*args)
                 spans.append((name, a, self.mark()))
@@ -1010,6 +1092,17 @@ class Smoke:
         log(f"phase 3: λ={lam} insert_or_assign breakdown: total {total:.3f} ms; "
             + "; ".join(f"{k} {v:.3f} ms" for k, v in per.items())
             + f"; orchestration {rest:.3f} ms")
+        # the closure's host read of its miss count: a sum over the batch's
+        # lanes and the copy to the host, host clock, on an idle stream
+        miss = torch.rand(n, generator=self.gen, device=self.dev) < 0.5
+        int(miss.sum())
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            int(miss.sum())
+        t_read = (time.perf_counter() - t0) / 20 * 1e3
+        log(f"phase 3: λ={lam} host read of the miss count (sum of {n} lanes, copy to the "
+            f"host): {t_read:.4f} ms, mean of 20 on an idle stream")
         t_probe = self.time_ms(lambda: self.find_mod.probe_keys(table.cfg, find_keys), 3)
         log(f"phase 3: λ={lam} find: key hashing (probe_keys) {t_probe:.3f} ms of the op")
 
@@ -1045,9 +1138,11 @@ class Smoke:
         got = {k: v - before.get(k, 0) for k, v in counts.items() if v != before.get(k, 0)}
         mode = table.cfg.buckets_per_key
         self.op_launches[f"{name} ({'dual' if mode == 2 else 'single'})"] = got
+        want = ROUTES[name][mode]
+        if "claim_scan" in want:
+            want = self.route(want, self.has_miss(out.status))
         if self.dev.type == "cuda":
-            require(got == ROUTES[name][mode],
-                    f"{name}: launches {got}, the routing table says {ROUTES[name][mode]}")
+            require(got == want, f"{name}: launches {got}, the routing table says {want}")
         return out
 
     def time_op(self, table, name, inputs) -> float:
@@ -1224,9 +1319,10 @@ class Smoke:
         labels = torch.from_numpy(rng.integers(0, 2, size=batch).astype(np.float32))
         return toks.to(self.dev), dense_x.to(self.dev), labels.to(self.dev)
 
-    def counted(self, name, fn, *args):
+    def counted(self, name, fn, *args, has_miss: bool = True):
         """One entry point, its launches counted from 0 and checked against
-        TRAIN_ROUTES (on the card), and its time between stream marks."""
+        TRAIN_ROUTES (on the card; claim_scan only where the batch has a
+        miss lane), and its time between stream marks."""
         self._build.reset_counts()
         self.sync()
         a = self.mark()
@@ -1236,15 +1332,21 @@ class Smoke:
         got = dict(self._build.launch_counts)
         for k, v in got.items():
             self.launches_train[k] = self.launches_train.get(k, 0) + v
+        want = self.route(TRAIN_ROUTES[name], has_miss)
         if self.dev.type == "cuda":
-            require(got == TRAIN_ROUTES[name],
-                    f"{name}: launches {got}, the training path's route is {TRAIN_ROUTES[name]}")
+            require(got == want, f"{name}: launches {got}, the training path's route is {want}")
         return out, self.elapsed_ms(a, b)
 
-    def dlrm_step(self, emb, table, model, toks, dense_x, labels):
+    def dlrm_step(self, emb, table, model, toks, dense_x, labels, misses: int):
         """lookup_train, forward and backward with the dense update,
-        apply_grads; returns (loss, ms of each part, the embedding grads)."""
-        (table, rows), t_lookup = self.counted("lookup_train", emb.lookup_train, table, toks)
+        apply_grads; returns (loss, ms of each part, the embedding grads).
+        `misses`: the batch's distinct keys not resident before the step,
+        which lookup_train's victim stage must get, and nothing else."""
+        with self.victim_lanes() as lanes:
+            (table, rows), t_lookup = self.counted("lookup_train", emb.lookup_train, table, toks,
+                                                   has_miss=misses > 0)
+        require(lanes == ([misses] if misses else []),
+                f"lookup_train: the victim stage got {lanes} lanes, the batch has {misses} misses")
         self.sync()
         a = self.mark()
         rows = rows.detach().requires_grad_(True)
@@ -1285,8 +1387,10 @@ class Smoke:
         for step in range(sz.train_steps):
             toks, dense_x, labels = self.train_batch(rng, sz.train_batch)
             keys = emb.keys_of(toks)
-            found = int(table.contains(keys).sum())
-            loss, ms, grads = self.dlrm_step(emb, table, model, toks, dense_x, labels)
+            hit = table.contains(keys)
+            found = int(hit.sum())
+            misses = torch.unique(keys[~hit & (keys != self.u64.EMPTY)]).numel()
+            loss, ms, grads = self.dlrm_step(emb, table, model, toks, dense_x, labels, misses)
             require(bool(torch.isfinite(loss)), f"phase 5 step {step}: loss is not finite")
             losses.append(float(loss))
             uniq, g_sum = emb.sum_grads(toks, grads)
@@ -1295,7 +1399,8 @@ class Smoke:
             n_uniq = int((uniq != self.u64.EMPTY).sum())
             require(0 < trained <= n_uniq, f"phase 5 step {step}: {trained} rows trained")
             log(f"phase 5 step {step}: {toks.numel()} keys ({n_uniq} unique, {found} found "
-                f"before the step, {trained} trained); lookup_train {ms['lookup_train']:.3f} ms, "
+                f"before the step, {trained} trained; claim_scan got {misses} lanes of the "
+                f"{toks.numel()}); lookup_train {ms['lookup_train']:.3f} ms, "
                 f"forward+backward {ms['forward+backward']:.3f} ms, apply_grads "
                 f"{ms['apply_grads']:.3f} ms (dedupe+segment-sum {t_sum:.3f} ms timed alone, "
                 f"the rest, hashing and update_scan, {ms['apply_grads'] - t_sum:.3f} ms); "
@@ -1321,6 +1426,7 @@ class Smoke:
             self.train_cmp[name] = t
             log(f"phase 5: {name} gradient step on the last batch's {n_uniq} unique keys: "
                 f"{t:.3f} ms, launches {json.dumps(route)}")
+        self.compare_scatter(table.state.values, "V=33 phase 5 plane", "_v33@1.0")
         del table
         self.free()
         self.train_twin(emb, losses)
@@ -1414,6 +1520,18 @@ class Smoke:
             log(f"gradient step at config B: fused {self.train_cmp['fused']:.3f} ms against "
                 f"composed {self.train_cmp['composed']:.3f} ms")
         cs = self.stats["claim_scan"]
+        main = {f"{k}@": cs[f"{k}_main@1.0"] for k in ("bytes", "ops")}
+        bound, by = self.bound(main, "")
+        log(f"claim_scan on the λ=1.0 insert_or_assign's own {cs['lanes_main@1.0']} miss lanes "
+            f"(ranks 0, 1, 2, 3, >=4: {cs['rank_hist_main@1.0']}): {cs['ms_main@1.0']:.4f} ms, "
+            f"bound {bound:.4f} ms by {by}")
+        sr = self.stats["scatter_rows"]
+        bound, by = self.bound({"bytes@": sr["bytes_v33@1.0"], "ops@": 0}, "")
+        log(f"scatter_rows at V=33 (phase 5 plane): {sr['ms_v33@1.0']:.4f} ms, plain "
+            f"{sr['plain_ms_v33@1.0']:.4f} ms, library {sr['library_ms_v33@1.0']:.4f} ms, the "
+            f"stores alone (index_fill_) {sr['fill_ms_v33@1.0']:.4f} ms, bound {bound:.4f} ms by "
+            f"{by}; at V=32 (phase 1, λ=1.0) {sr['ms@1.0']:.4f} ms, the stores alone "
+            f"{sr['fill_ms@1.0']:.4f} ms")
         for lam in (0.5, 1.0):
             log(f"claim_scan λ={lam}: every query on one cached row {cs[f'ms_one_row@{lam}']:.4f} ms "
                 f"against {cs[f'ms@{lam}']:.4f} ms spread over the table; its own s*s compare loop "

@@ -55,7 +55,8 @@ class UpsertStages(NamedTuple):
       locate(state, cfg, keys, probe) -> find.Locate
       select_target(state, cfg, probe) -> int64 [N] target bucket
       victim_at_rank(state, cfg, buckets, rank)
-          -> (slot int64, occupied bool, score int64, key int64), each [N]
+          -> (slot int64, occupied bool, score int64, key int64), each [M]
+          for the batch's M miss lanes (not called when M is 0)
       gather_values(cfg, values, rows, mask) -> [N, Dtot]
           values[rows[i]] where mask[i], zeros elsewhere (the evicted-value
           hand-off); rows outside the plane are clipped into it.
@@ -318,8 +319,18 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     rank = iota - run_start
 
     bkt_g = bkt_m.clamp(0, b - 1)
-    victim_slot, victim_occ, victim_sc, victim_key = stages.victim_at_rank(
-        state, cfg, bkt_g, rank)
+    # The misses sort first, so they are the prefix [:m]: victim_at_rank
+    # runs on those lanes only (one host read of m; the boolean indexing
+    # below syncs anyway).  The other lanes keep (slot 0, free, score 0,
+    # key 0), which no later step reads: admitted and evicts are False there.
+    m = int(mask_m.sum())
+    victim_slot = torch.zeros(n, dtype=torch.int64, device=dev)
+    victim_occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    victim_sc = torch.zeros(n, dtype=torch.int64, device=dev)
+    victim_key = torch.zeros(n, dtype=torch.int64, device=dev)
+    if m:
+        (victim_slot[:m], victim_occ[:m], victim_sc[:m],
+         victim_key[:m]) = stages.victim_at_rank(state, cfg, bkt_g[:m], rank[:m])
     admitted = mask_m & (rank < s) & (~victim_occ | u64.gt(sc_m, victim_sc))
     evicts = admitted & victim_occ
 

@@ -6,33 +6,96 @@
 // mode="drop" scatter drops them.
 //
 // Bound: bytes: per masked lane, one update row read and one value row
-// written (and read too for add).  One warp per lane copies the row with
-// consecutive lanes on consecutive floats, one coalesced 128-byte
-// transaction at V=32.  Masked-out lanes do not write at all, so the TPU
-// kernel's masked-out-first sort (which kept its no-op rewrites from
-// clobbering real writes) is not needed.  Masked rows are unique by
-// precondition, so there are no atomics.  The add is __fadd_rn, a plain
-// rounded float32 add, as in the reference.
+// written (and read too for add).  A warp a lane would make three
+// dependent trips to device memory (mask, then the row index, then the
+// update row) to move one row, ~124 waves of them at 2^20 lanes: bound by
+// the latency of its index loads, not by bytes.  So one warp owns a group
+// of 32 lanes:
+//   - it loads the group's mask and row indices with one coalesced load
+//     each, unconditionally, and a ballot gives the rows to write;
+//   - the group's update rows are contiguous in `updates`, so the warp
+//     reads them as one flat coalesced stream: the lanes take the group's
+//     elements in turn, each finds its row j and column c, and gets row
+//     j's index with a shuffle.  Eight elements a lane are loaded (and,
+//     for add, the destination read) before any is stored, so a group
+//     costs one round trip for the indices and about one for its rows,
+//     with every lane busy whatever the width;
+//   - elements are 16 bytes (float4) where V % 4 == 0 and both the plane
+//     and the updates are 16-byte aligned, else 4 bytes: V = 33, the
+//     training path's rowwise_adagrad plane, takes the 4-byte path with
+//     no idle lane.  Its 132-byte rows end inside 32-byte sectors, and
+//     the partial sectors' stores cost more than the rest of the kernel
+//     (on an H100, index_fill_ of the same rows, which reads nothing,
+//     takes most of the time at V = 33 and a small part at V = 32).
+// Masked-out lanes and rows outside the plane write nothing and read no
+// update, so the TPU kernel's masked-out-first sort (which kept its no-op
+// rewrites from clobbering real writes) is not needed.  Masked rows are
+// unique by precondition, so there are no atomics.  The add is
+// __fadd_rn, a plain rounded float32 add, as in the reference.  Offsets
+// are 64-bit: config B's plane passes 2^31 floats.
 #include "hkv_common.cuh"
 
 namespace {
 
+constexpr int kUnroll = 8;   // elements a lane has in flight
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// T is the element moved (float or float4); w is the row width in T.
+template <typename T>
 __global__ void __launch_bounds__(hkv::kWarp * hkv::kWarpsPerBlock)
-scatter_rows_kernel(float* __restrict__ values, const int64_t* __restrict__ rows,
-                    const float* __restrict__ updates, const bool* __restrict__ mask,
-                    int64_t n, int64_t num_rows, int64_t d, int add) {
+scatter_rows_kernel(T* __restrict__ values, const int64_t* __restrict__ rows,
+                    const T* __restrict__ updates, const bool* __restrict__ mask,
+                    int64_t n, int64_t num_rows, int w, int add) {
   const int lane = threadIdx.x % hkv::kWarp;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * hkv::kWarpsPerBlock +
-                    threadIdx.x / hkv::kWarp;
-  if (i >= n || !mask[i]) return;
-  const int64_t r = rows[i];
-  if (r < 0 || r >= num_rows) return;
-  float* dst = values + r * d;
-  const float* src = updates + i * d;
-  if (add) {
-    for (int64_t c = lane; c < d; c += hkv::kWarp) dst[c] = __fadd_rn(dst[c], src[c]);
-  } else {
-    for (int64_t c = lane; c < d; c += hkv::kWarp) dst[c] = src[c];
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * hkv::kWarpsPerBlock +
+                      threadIdx.x / hkv::kWarp) * hkv::kWarp;
+  if (i0 >= n) return;
+  const int cnt = static_cast<int>(n - i0 < hkv::kWarp ? n - i0 : hkv::kWarp);
+  int64_t r = 0;
+  bool ok = false;
+  if (lane < cnt) {
+    const bool m = mask[i0 + lane];
+    r = rows[i0 + lane];
+    ok = m && r >= 0 && r < num_rows;
+  }
+  const unsigned okbits = __ballot_sync(hkv::kFullMask, ok);
+  if (okbits == 0) return;
+  const int64_t dst_row = r * w;               // this lane's row offset, in T
+  const T* __restrict__ src = updates + i0 * w;
+  const int total = cnt * w;                   // the group's elements
+  // element e = base + t*32 + lane lies in row j, column c; each step of
+  // 32 elements moves (j, c) by (dj, dc)
+  int j = lane / w, c = lane % w;
+  const int dj = hkv::kWarp / w, dc = hkv::kWarp % w;
+  for (int base = 0; base < total; base += hkv::kWarp * kUnroll) {
+    T u[kUnroll], d[kUnroll];
+    int64_t off[kUnroll];
+    bool live[kUnroll];
+#pragma unroll
+    for (int t = 0; t < kUnroll; ++t) {
+      const int e = base + t * hkv::kWarp + lane;
+      const int jj = j & (hkv::kWarp - 1);     // j passes 31 only where e >= total
+      off[t] = __shfl_sync(hkv::kFullMask, dst_row, jj) + c;
+      live[t] = e < total && ((okbits >> jj) & 1u);
+      if (live[t]) {
+        u[t] = src[e];
+        if (add) d[t] = values[off[t]];
+      }
+      c += dc;
+      j += dj;
+      if (c >= w) {
+        c -= w;
+        ++j;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kUnroll; ++t)
+      if (live[t]) values[off[t]] = add ? add_rn(d[t], u[t]) : u[t];
   }
 }
 
@@ -41,9 +104,21 @@ scatter_rows_kernel(float* __restrict__ values, const int64_t* __restrict__ rows
 extern "C" int hkv_scatter_rows(void* values, const void* rows, const void* updates,
                                 const void* mask, int64_t n, int64_t num_rows, int64_t d,
                                 int add, void* stream) {
-  scatter_rows_kernel<<<hkv::blocks_for_warps(n), hkv::kWarp * hkv::kWarpsPerBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(values), static_cast<const int64_t*>(rows),
-      static_cast<const float*>(updates), static_cast<const bool*>(mask), n, num_rows, d, add);
+  const unsigned blocks = hkv::blocks_for_warps((n + hkv::kWarp - 1) / hkv::kWarp);
+  const int threads = hkv::kWarp * hkv::kWarpsPerBlock;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(updates) % 16 == 0;
+  if (vec) {
+    scatter_rows_kernel<float4><<<blocks, threads, 0, s>>>(
+        static_cast<float4*>(values), static_cast<const int64_t*>(rows),
+        static_cast<const float4*>(updates), static_cast<const bool*>(mask), n, num_rows,
+        static_cast<int>(d / 4), add);
+  } else {
+    scatter_rows_kernel<float><<<blocks, threads, 0, s>>>(
+        static_cast<float*>(values), static_cast<const int64_t*>(rows),
+        static_cast<const float*>(updates), static_cast<const bool*>(mask), n, num_rows,
+        static_cast<int>(d), add);
+  }
   return static_cast<int>(cudaGetLastError());
 }

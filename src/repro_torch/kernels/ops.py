@@ -25,9 +25,9 @@
                       bucket1; victim_at_rank on claim_scan, gather_values
                       on gather_rows, scatter_values on scatter_rows.  Per
                       insert_or_assign: two upsert_probe (dual) or one
-                      digest_scan (single), one claim_scan and two
-                      scatter_rows launches; return_evicted adds one
-                      gather_rows.
+                      digest_scan (single), one claim_scan (on the miss
+                      lanes; none without a miss) and two scatter_rows
+                      launches; return_evicted adds one gather_rows.
 
 The wrappers run their plain versions on CPU tensors, so the CPU tests
 reach this module too.

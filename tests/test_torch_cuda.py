@@ -77,19 +77,6 @@ def test_upsert_probe_and_claim_scan_kernels_match_plain(dev):
           upsert_scan.claim_scan_plain(s.keys, s.scores, b, r))
 
 
-@pytest.mark.parametrize("add", [False, True])
-def test_scatter_rows_kernel_matches_plain(dev, add):
-    v = torch.randn(8192, 32, device=dev)
-    rows = torch.randperm(8192, device=dev)[:3000]
-    mask = torch.rand(3000, device=dev) < 0.6
-    rows[~mask] = rows[mask][0]
-    upd = torch.randn(3000, 32, device=dev)
-    vk, vp = v.clone(), v.clone()
-    scatter.scatter_rows(vk, rows, upd, mask, add)
-    scatter.scatter_rows_plain(vp, rows, upd, mask, add)
-    assert torch.equal(vk, vp) and not torch.equal(vk, v)
-
-
 @pytest.mark.parametrize("policy", ["lru", "lfu", "custom"])
 def test_kernel_path_matches_plain_path(dev, policy):
     kw = dict(capacity=32 * 128, dim=32, buckets_per_key=2, score_policy=policy, device=dev)
@@ -373,3 +360,148 @@ def test_apply_grads_kernel_path_matches_plain(dev, opt_name):
     ops.update_rows(states[2], tk.cfg, uniq, grads, opt, loc=loc)
     for st in states[1:]:
         assert torch.equal(st.values, states[0].values)
+
+
+def _tie_planes(dev):
+    """Four bucket rows whose victim order rests on its tie-breaks: every
+    slot free (with small scores); every slot live with one score; free
+    slots with stale nonzero scores; duplicate keys and scores."""
+    g = np.random.default_rng(21)
+    keys = g.integers(0, 2**63, size=(4, 128)).astype(np.int64)
+    scores = g.integers(0, 3, size=(4, 128)).astype(np.int64)
+    keys[0] = -1
+    scores[1] = 7
+    keys[2, g.random(128) < 0.5] = -1
+    scores[2] = g.integers(1, 4, size=128) << 40
+    keys[3] = g.choice(np.array([5, -2**63 + 1, -1]), size=128)
+    scores[3] = g.choice(np.array([0, -1]), size=128)
+    return torch.from_numpy(keys).to(dev), torch.from_numpy(scores).to(dev)
+
+
+def test_claim_scan_kernel_on_tie_heavy_rows(dev):
+    """Every rank from -3 to 140 (clipped into [0, 128)) on each row."""
+    keys, scores = _tie_planes(dev)
+    b = torch.arange(4, device=dev).repeat_interleave(144)
+    r = torch.arange(-3, 141, device=dev).repeat(4)
+    got = upsert_scan.claim_scan(keys, scores, b, r)
+    _same(got, upsert_scan.claim_scan_plain(keys, scores, b, r))
+    for i in range(4):   # ranks 0..127 select every slot once
+        assert sorted(got[0][i * 144 + 3:i * 144 + 131].tolist()) == list(range(128))
+
+
+@pytest.mark.parametrize("n", [1, 7, 4099])
+def test_claim_scan_kernel_matches_plain_at_any_length(dev, n):
+    """A half-full table's rows and the tie-heavy ones, random buckets (half
+    of them sorted into runs) and ranks, query counts that do not fill a
+    warp's group of 32."""
+    t = repro_torch.HKVTable.create(capacity=64 * 128, dim=8, buckets_per_key=2,
+                                    score_policy="lfu", device=dev, backend="plain")
+    g = np.random.default_rng(n)
+    for _ in range(2):
+        keys = g.integers(0, 2**63, size=2048).astype(np.int64)
+        t.insert_or_assign(np.concatenate([keys, keys[:512]]), torch.randn(2560, 8, device=dev))
+    tk, ts = _tie_planes(dev)
+    keys = torch.cat([t.state.keys, tk]).contiguous()
+    scores = torch.cat([t.state.scores, ts]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(n)
+    b = torch.randint(0, keys.shape[0], (n,), generator=gen, device=dev)
+    b[::3] = keys.shape[0] - 1 - torch.arange(0, n, 3, device=dev) % 4   # the tie rows
+    b[: n // 2] = b[: n // 2].sort().values   # runs of one bucket: the row is read once a run
+    r = torch.randint(-3, 141, (n,), generator=gen, device=dev)
+    r[::2] = torch.randint(0, 4, (r[::2].numel(),), generator=gen, device=dev)
+    _same(upsert_scan.claim_scan(keys, scores, b, r),
+          upsert_scan.claim_scan_plain(keys, scores, b, r))
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
+@pytest.mark.parametrize("v", [1, 3, 8, 32, 33, 64, 132])
+def test_scatter_rows_kernel_matches_plain(dev, v, add):
+    """Row widths for both element sizes (float4 where V % 4 == 0), a lane
+    count that is not a multiple of the warp's group of 32, masked-out
+    lanes aimed at written rows and rows outside the plane."""
+    n, r_tot = 3001, 8192
+    gen = torch.Generator(device=dev).manual_seed(v)
+    values = torch.randn(r_tot, v, generator=gen, device=dev)
+    rows = torch.randperm(r_tot, generator=gen, device=dev)[:n]
+    mask = torch.rand(n, generator=gen, device=dev) < 0.6
+    off = torch.where(torch.arange(n, device=dev) % 3 == 0, -1, r_tot + 3)
+    rows[~mask] = torch.where(torch.arange(n, device=dev)[~mask] % 2 == 0, rows[mask][0],
+                              off[~mask])
+    rows[mask.nonzero()[-5:, 0]] = r_tot + 7   # masked in but outside the plane
+    upd = torch.randn(n, v, generator=gen, device=dev)
+    vk, vp = values.clone(), values.clone()
+    scatter.scatter_rows(vk, rows, upd, mask, add)
+    scatter.scatter_rows_plain(vp, rows, upd, mask, add)
+    assert torch.equal(vk, vp) and not torch.equal(vk, values)
+
+
+@pytest.mark.parametrize("which", ["updates", "values"])
+@pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
+def test_scatter_rows_kernel_unaligned_views(dev, which, add):
+    """A contiguous view 4 bytes past a 16-byte boundary takes the 4-byte
+    path at V = 32 and writes the same rows."""
+    n, r_tot, v = 1000, 4096, 32
+    gen = torch.Generator(device=dev).manual_seed(1 + add)
+
+    def unaligned(rows_):
+        buf = torch.randn(rows_ * v + 1, generator=gen, device=dev)
+        t = buf[1:].view(rows_, v)
+        assert t.data_ptr() % 16 != 0 and t.is_contiguous()
+        return t
+
+    upd = unaligned(n) if which == "updates" else torch.randn(n, v, generator=gen, device=dev)
+    values = unaligned(r_tot) if which == "values" else torch.randn(r_tot, v, generator=gen,
+                                                                    device=dev)
+    rows = torch.randperm(r_tot, generator=gen, device=dev)[:n]
+    mask = torch.rand(n, generator=gen, device=dev) < 0.7
+    want = values.clone()
+    scatter.scatter_rows_plain(want, rows, upd, mask, add)
+    scatter.scatter_rows(values, rows, upd, mask, add)
+    assert torch.equal(values, want)
+
+
+@pytest.mark.parametrize("misses", [5, 0], ids=["few_misses", "no_miss"])
+def test_upserts_with_few_or_no_misses_match_plain(dev, misses):
+    """insert_or_assign, find_or_insert and lookup_train on 'auto' and
+    'plain' with mostly resident keys: equal results and state, and one
+    claim_scan launch where the batch has a miss lane, none where it has
+    none."""
+    from repro_torch.embedding import HKVEmbedding
+
+    g = np.random.default_rng(31 + misses)
+    ek = HKVEmbedding(capacity=16 * 128, dim=32, backend="auto")
+    ep = HKVEmbedding(capacity=16 * 128, dim=32, backend="plain")
+    tk, tp = ek.create(device=dev), ep.create(device=dev)
+    fill = g.integers(0, 2**31, size=(16 * 128 * 3 // 4,)).astype(np.int64)
+    tk.insert_or_assign(fill, torch.zeros(fill.size, 32, device=dev))
+    tp.insert_or_assign(fill, torch.zeros(fill.size, 32, device=dev))
+
+    def batch():
+        live = tk.state.keys[tk.state.keys != -1].cpu().numpy()
+        keys = g.choice(live, size=1500)
+        keys[1:1 + misses] = 2**31 + g.permutation(1000)[:misses]   # never inserted
+        keys[::97] = -1
+        return keys
+
+    def state_equal():
+        for name in ("keys", "digests", "scores", "values"):
+            assert torch.equal(getattr(tk.state, name), getattr(tp.state, name)), name
+
+    for op in ("insert_or_assign", "find_or_insert"):
+        keys, vals = batch(), torch.randn(1500, 32, device=dev)
+        _build.reset_counts()
+        rk = getattr(tk, op)(keys, vals)
+        assert _build.launch_counts["claim_scan"] == (1 if misses else 0), op
+        rp = getattr(tp, op)(keys, vals)
+        assert torch.equal(rk.status, rp.status), op
+        assert int((rk.status >= 2).sum()) == misses, op
+        if op == "find_or_insert":
+            assert torch.equal(rk.values, rp.values)
+        state_equal()
+    toks = torch.from_numpy(batch().reshape(60, 25)).to(dev)
+    _build.reset_counts()
+    tk, rows_k = ek.lookup_train(tk, toks)
+    assert _build.launch_counts["claim_scan"] == (1 if misses else 0)
+    tp, rows_p = ep.lookup_train(tp, toks)
+    assert torch.equal(rows_k, rows_p)
+    state_equal()

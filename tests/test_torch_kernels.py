@@ -158,28 +158,72 @@ def test_upsert_probe_plain_matches_jax(lam, use_digest):
         assert (got[3] == 1).any() and (got[3] == 0).any()
 
 
-@pytest.mark.parametrize("lam", LAMBDAS)
-def test_claim_scan_plain_matches_jax(lam):
-    rng, cfg, state, _ = _filled(lam, True)
-    b, s = cfg.num_buckets, cfg.slots_per_bucket
-    buckets = rng.integers(0, b, size=N).astype(np.int32)
-    rank = np.concatenate([rng.integers(0, 4, size=N // 2), rng.integers(0, s, size=N // 2)])
-    rank = rank.astype(np.int32)
-    ps = convert.state_from_arrays(state, device="cpu")
+TIE_KINDS = ("all_empty", "equal_scores", "stale_empty_scores", "duplicate_keys")
+
+
+def _tie_row(kind, rng):
+    """One bucket row (keys, scores as uint64 [128]) where the victim order
+    rests on its tie-breaks."""
+    s = 128
+    keys = rng.integers(0, 2**64 - 1, size=s, dtype=np.uint64)
+    if kind == "all_empty":             # every slot free: (score, slot) order
+        return np.full(s, EMPTY), rng.integers(0, 3, size=s).astype(np.uint64)
+    if kind == "equal_scores":          # every slot live, one score: (key, slot)
+        return keys, np.full(s, 7, np.uint64)
+    if kind == "stale_empty_scores":    # free slots keep nonzero scores
+        keys[rng.random(s) < 0.5] = EMPTY
+        return keys, rng.integers(1, 4, size=s).astype(np.uint64) << np.uint64(40)
+    assert kind == "duplicate_keys"     # equal keys (and scores) within the row
+    keys = rng.choice(np.array([5, 2**63 + 1, EMPTY], np.uint64), size=s)
+    return keys, rng.choice(np.array([0, 2**64 - 1], np.uint64), size=s)
+
+
+def _claim_inputs(case):
+    """(key_hi, key_lo, score_hi, score_lo planes, buckets, ranks) for one
+    case: a table filled to λ with random buckets and ranks both small and
+    across the row, or two tie-heavy rows at every rank 0-127."""
+    if isinstance(case, float):
+        rng, cfg, state, _ = _filled(case, True)
+        buckets = rng.integers(0, cfg.num_buckets, size=N).astype(np.int32)
+        rank = np.concatenate([rng.integers(0, 4, size=N // 2), rng.integers(0, 128, size=N // 2)])
+        planes = (state.key_hi, state.key_lo, state.score_hi, state.score_lo)
+        return planes, buckets, rank.astype(np.int32)
+    rng = np.random.default_rng(TIE_KINDS.index(case))
+    rows = [_tie_row(case, rng) for _ in range(2)]
+    planes = []
+    for a in (np.stack([k for k, _ in rows]), np.stack([c for _, c in rows])):
+        planes += [jnp.asarray((a >> np.uint64(32)).astype(np.uint32)),
+                   jnp.asarray((a & np.uint64(0xFFFFFFFF)).astype(np.uint32))]
+    return (tuple(planes), np.repeat(np.arange(2, dtype=np.int32), 128),
+            np.tile(np.arange(128, dtype=np.int32), 2))
+
+
+@pytest.mark.parametrize("case", [*LAMBDAS, *TIE_KINDS])
+def test_claim_scan_plain_matches_jax(case):
+    planes, buckets, rank = _claim_inputs(case)
+    kh, kl, sh, sl = planes
+    jstate = jtable.HKVState(key_hi=kh, key_lo=kl, digests=np.zeros(kh.shape, np.uint8),
+                             score_hi=sh, score_lo=sl, values=np.zeros((kh.size, 1), np.float32),
+                             clock_hi=0, clock_lo=0, epoch=0)
+    ps = convert.state_from_arrays(jstate, device="cpu")
     tb, tr = torch.from_numpy(buckets.astype(np.int64)), torch.from_numpy(rank.astype(np.int64))
     slot, occ, score, key = pus.claim_scan(ps.keys, ps.scores, tb, tr)
-    w = jus.claim_scan(state.key_hi, state.key_lo, state.score_hi, state.score_lo,
-                       jnp.asarray(buckets), jnp.asarray(rank), interpret=True)
+    w = jus.claim_scan(*planes, jnp.asarray(buckets), jnp.asarray(rank), interpret=True)
     np.testing.assert_array_equal(slot.numpy(), np.asarray(w[0]))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(w[1]))
     np.testing.assert_array_equal(_np(score), _u64(w[2], w[3]))
     np.testing.assert_array_equal(_np(key), _u64(w[4], w[5]))
-    jslot, jocc, jsc, jkey = jmerge._jnp_victim_at_rank(state, cfg, jnp.asarray(buckets),
+    jcfg = jtable.HKVConfig(capacity=kh.size, dim=1)
+    jslot, jocc, jsc, jkey = jmerge._jnp_victim_at_rank(jstate, jcfg, jnp.asarray(buckets),
                                                         jnp.asarray(rank))
     np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
     np.testing.assert_array_equal(occ.numpy().astype(bool), np.asarray(jocc))
     np.testing.assert_array_equal(_np(key), _u64(jkey.hi, jkey.lo))
-    assert (occ == 0).any() == (lam < 1.0)
+    if isinstance(case, float):
+        assert (occ == 0).any() == (case < 1.0)
+    else:   # every slot of each row is selected once over the 128 ranks
+        for b in range(2):
+            assert sorted(slot.numpy()[b * 128:(b + 1) * 128]) == list(range(128))
 
 
 @pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
