@@ -16,6 +16,12 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    PyTorch library call where one computes the same function, and beside
    the kernel's bound (the larger of its bytes over the HBM rate and its
    operations over the int32 rate, both counted from this run's inputs).
+   upsert_probe is held and timed in each mode: its whole function
+   ("both", against the bound of every key and score of both rows), the
+   match mode on find's queries (against the digest lines and candidate
+   keys it needs), and the target mode with no query, on every lane and on
+   a lane gate one tenth on (against the keys of the rows it works on and
+   the scores of the rows of both-full queries).
 2. kernel path vs plain path: a reduced table (2^20 slots, 65,536-key
    batches) is driven past λ = 1.0 through the public insert_or_assign and
    find on both backends (dual bucket, lru and lfu); then every op of the
@@ -30,10 +36,12 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    batches to λ 0.5, 1.0, and past it (the last batches must report EVICTED
    and REJECTED); find on resident keys and on a mix with misses, checked
    against the keys the script knows are resident; throughput of both ops,
-   median of timed runs, at λ 0.5 and 1.0.  The λ 1.0 breakdown's upsert
-   records the buckets and ranks its victim stage gets (its miss lanes), and
-   claim_scan is then timed on them against the plain version, after the
-   launch counts are read.
+   median of timed runs, at λ 0.5 and 1.0.  The breakdown of an
+   insert_or_assign of fresh keys times upsert_probe's match pass (locate)
+   and target pass (select_target, with its gate's lane count) apart.  The
+   λ 1.0 breakdown's upsert records the buckets and ranks its victim stage
+   gets (its miss lanes), and claim_scan is then timed on them against the
+   plain version, after the launch counts are read.
 4. the rest of the op surface at config B's full size, with the counts
    set to 0 just before and read just after: a single-bucket table (the
    HKVConfig default) takes insert_or_assign to λ 0.5, 1.0 and past it
@@ -46,20 +54,23 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    timed runs) and its launches checked against the routing table in
    ``repro_torch/core/ops.py``: an upserting op launches claim_scan once
    if its batch has a miss lane (a status inserted, evicted or rejected)
-   and not at all otherwise.
+   and not at all otherwise; a dual-bucket one launches upsert_probe twice
+   (the match pass, and the target pass gated to the miss lanes, which
+   launches without a miss too and then works on no lane).
 5. the training path at config B's full size, with the counts set to 0
    just before and read just after each entry point: an HKVEmbedding of
    config B (2^27 slots, dim 32, rowwise_adagrad so V = 33, dual bucket,
    LRU) prefilled to λ 1.0 takes 5 DLRM steps of 32,768 samples x 26
    Zipfian fields (lookup_train, the forward and backward pass, the dense
    update, apply_grads, whose launches must be one update_scan); each
-   step's victim stage must get exactly the batch's distinct keys that
-   contains() did not find before the step, and lookup_train launches
-   claim_scan once if there are any; then the fused gradient step is timed
-   against the composed one (digest_scan per bucket, gather_rows, the
-   optimizer, scatter_rows) on the last step's gradients, and scatter_rows
-   is held against its plain version and timed at V = 33 on the phase's
-   value plane; and a 2^20-slot twin takes the same steps on 'auto' and
+   step's victim stage and the lane gate of its target pass must hold
+   exactly the batch's distinct keys that contains() did not find before
+   the step, and lookup_train launches claim_scan once if there are any;
+   then the fused gradient step is timed against the composed one
+   (digest_scan per bucket, gather_rows, the optimizer, scatter_rows) on
+   the last step's gradients, and scatter_rows and find_scan are held
+   against their plain versions and timed at V = 33 on the phase's value
+   plane; and a 2^20-slot twin takes the same steps on 'auto' and
    'plain', equal in keys, digests, scores and statuses, and within 1e-5
    in values and loss (the gradient sums of repeated tokens are float32
    atomics on the card).
@@ -115,6 +126,9 @@ SWEEP_KINDS = {"always": (False, OPS_U64_CMP),
 # few ulps; duplicates' sums in assign_add / accum_or_assign are atomics
 DUP_SUM_ATOL = 1e-5
 SEED = 20260417
+# back-to-back calls in a stream timing (the kernel's device time without
+# the host work of one call)
+STREAM_CALLS = 10
 # update_scan's optimizers, in the order phase 1 runs them (one extra value
 # plane per row width: V = 64 for sgdm and adagrad, 33 for rowwise_adagrad),
 # and the float operations each does on a row, a column at a time
@@ -126,7 +140,10 @@ TRAIN_LR = 0.05                    # the dense update of the DLRM example
 STATUS_NAMES = ("invalid", "updated", "inserted", "evicted", "rejected")
 # launches of one op on backend 'auto' on the card, by bucket mode: the
 # routing table of repro_torch/core/ops.py.  claim_scan runs on the miss
-# lanes only: an op whose batch has none launches it 0 times (Smoke.route)
+# lanes only: an op whose batch has none launches it 0 times (Smoke.route).
+# A dual upsert's two upsert_probe launches are the match pass and the
+# target pass; the target pass is gated to the miss lanes (no host read),
+# so it launches on every upsert
 UPSERT = {1: {"digest_scan": 1, "claim_scan": 1, "scatter_rows": 2},
           2: {"upsert_probe": 2, "claim_scan": 1, "scatter_rows": 2}}
 ROUTES = {
@@ -242,8 +259,11 @@ class Smoke:
     def values(self, n: int):
         return self.torch.randn((n, DIM), generator=self.gen, device=self.dev)
 
-    def time_ms(self, fn, runs: int, warmup: int = 1) -> float:
-        """Median of `runs` timed calls (CUDA events on the card)."""
+    def time_ms(self, fn, runs: int, warmup: int = 1, calls: int = 1) -> float:
+        """Median of `runs` timings (CUDA events on the card) of `calls`
+        back-to-back calls, over `calls`.  One call between the events
+        counts its host work too (a wrapper's checks, allocations and
+        launch), which a stream of calls hides behind the kernels."""
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -253,14 +273,16 @@ class Smoke:
             if self.dev.type == "cuda":
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 a.record()
-                fn()
+                for _ in range(calls):
+                    fn()
                 b.record()
                 b.synchronize()
-                times.append(a.elapsed_time(b))
+                times.append(a.elapsed_time(b) / calls)
             else:
                 t0 = time.perf_counter()
-                fn()
-                times.append((time.perf_counter() - t0) * 1e3)
+                for _ in range(calls):
+                    fn()
+                times.append((time.perf_counter() - t0) * 1e3 / calls)
         return statistics.median(times)
 
     def hot_bucket_keys(self, num_buckets: int, n: int, bucket: int):
@@ -309,23 +331,29 @@ class Smoke:
         return bool((status >= 2).any())   # a lane inserted, evicted or rejected
 
     @contextlib.contextmanager
-    def victim_lanes(self):
+    def stage_lanes(self):
         """Record the lanes each upsert's victim stage (claim_scan on the
-        card) gets.  The kernel and plain stage sets are wrapped where the
-        ops look them up; the closure is unchanged."""
+        card) gets, and the lane gate of its select stage (upsert_probe's
+        target pass): yields {"victim": [lane counts], "target": [gates]}.
+        The kernel and plain stage sets are wrapped where the ops look them
+        up; the closure is unchanged."""
         from repro_torch.core import merge
         from repro_torch.kernels import ops as kops
 
-        calls = []
+        calls = {"victim": [], "target": []}
 
         def wrap(make):
             def stages(*args):
                 st = make(*args)
 
                 def victim_at_rank(state, cfg, buckets, rank):
-                    calls.append(buckets.shape[0])
+                    calls["victim"].append(buckets.shape[0])
                     return st.victim_at_rank(state, cfg, buckets, rank)
-                return st._replace(victim_at_rank=victim_at_rank)
+
+                def select_target(state, cfg, probe, lanes):
+                    calls["target"].append(lanes)
+                    return st.select_target(state, cfg, probe, lanes)
+                return st._replace(victim_at_rank=victim_at_rank, select_target=select_target)
             return stages
 
         saved = kops.kernel_stages, merge.plain_stages
@@ -543,26 +571,51 @@ class Smoke:
         got, want = self.fs.find_scan(*args), self.fs.find_scan_plain(*args)
         self.check_equal("find_scan", got, want, tag)
         self.record("find_scan", **{f"ms@{lam}": self.time_ms(lambda: self.fs.find_scan(*args), runs),
+                                    f"ms_stream@{lam}": self.time_ms(
+                                        lambda: self.fs.find_scan(*args), runs, calls=STREAM_CALLS),
                                     f"plain_ms@{lam}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
                                     **self.find_work(st, p, q, want, lam)})
 
-        # upsert_probe: the locate pass, and the select pass (zero queries)
+        # upsert_probe: the TPU kernel's whole function (mode "both", timed
+        # against the bound of every key and score of both rows), and the
+        # two modes the closure calls: match on the main path's queries,
+        # target with no query, on every lane and on a lane gate that is
+        # mostly off (the closure's miss lanes)
         args = (*planes, p.bucket1, p.bucket2, p.digest, q)
         self.check_equal("upsert_probe", self.us.upsert_probe(*args),
-                         self.us.upsert_probe_plain(*args), tag + " locate")
-        zargs = (*planes, p.bucket1, p.bucket2, torch.zeros_like(p.digest), torch.zeros_like(q))
-        self.check_equal("upsert_probe", self.us.upsert_probe(*zargs),
-                         self.us.upsert_probe_plain(*zargs), tag + " select")
-        # least work: every key and score of both rows (occupancy and the
-        # minimum need them all, and the full-key match then needs no
-        # digest), read once a distinct row; per slot an occupancy test, a
-        # minimum step and a key equality, each one unsigned 64-bit compare
+                         self.us.upsert_probe_plain(*args), tag + " both")
+        match = self.us.upsert_probe_plain(*args, mode="match")
+        self.check_equal("upsert_probe", self.us.upsert_probe(*args, mode="match")[:3],
+                         match[:3], tag + " match")
+        targs = (*planes, p.bucket1, p.bucket2)
+        gate = torch.rand(n, generator=self.gen, device=self.dev) < 0.1
+        for lanes, ctx in ((None, "target"), (gate, "target gated")):
+            self.check_equal("upsert_probe",
+                             self.us.upsert_probe(*targs, mode="target", lanes=lanes)[3:],
+                             self.us.upsert_probe_plain(*targs, mode="target", lanes=lanes)[3:],
+                             f"{tag} {ctx}")
+        # least work of the whole function: every key and score of both
+        # rows (occupancy and the minimum need them all, and the full-key
+        # match then needs no digest), read once a distinct row; per slot an
+        # occupancy test, a minimum step and a key equality, each one
+        # unsigned 64-bit compare
         rows = torch.unique(torch.cat([p.bucket1, p.bucket2])).numel()
         self.record("upsert_probe", **{
             f"ms@{lam}": self.time_ms(lambda: self.us.upsert_probe(*args), runs),
             f"plain_ms@{lam}": self.time_ms(lambda: self.us.upsert_probe_plain(*args), 2),
             f"bytes@{lam}": rows * 16 * s + n * (4 + 4 + 8) + n * 16,
-            f"ops@{lam}": 2 * n * s * 3 * OPS_U64_CMP})
+            f"ops@{lam}": 2 * n * s * 3 * OPS_U64_CMP,
+            f"ms_match@{lam}": self.time_ms(lambda: self.us.upsert_probe(*args, mode="match"),
+                                            runs),
+            f"ms_match_stream@{lam}": self.time_ms(
+                lambda: self.us.upsert_probe(*args, mode="match"), runs, calls=STREAM_CALLS),
+            **self.match_work(st, p, q, match, f"_match@{lam}"),
+            f"ms_target@{lam}": self.time_ms(
+                lambda: self.us.upsert_probe(*targs, mode="target"), runs),
+            **self.target_work(st, p, None, f"_target@{lam}"),
+            f"ms_target_gated@{lam}": self.time_ms(
+                lambda: self.us.upsert_probe(*targs, mode="target", lanes=gate), runs),
+            **self.target_work(st, p, gate, f"_target_gated@{lam}")})
 
         # claim_scan: target buckets with small canonical ranks, and the full range
         buckets = torch.randint(0, b, (n,), generator=self.gen, device=self.dev)
@@ -642,6 +695,44 @@ class Smoke:
         return {f"bytes@{lam}": (n * (4 + 4 + 1 + 8) + rows * 128 + cand * 8 + hits * (8 + v * 4)
                                  + n * (4 + 4 + 4 + 8 + v * 4)),
                 f"ops@{lam}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP}
+
+    def match_work(self, st, p, q, plain_out, key) -> dict:
+        """Least bytes and operations of upsert_probe's match mode: as
+        find_work, without the EMPTY rule (an EMPTY key is probed like any
+        other), without score and value, and with three int32 outputs."""
+        torch = self.torch
+        found, hit_sel = plain_out[0].bool(), plain_out[1].bool()
+        n = q.shape[0]
+        second = ~(found & ~hit_sel) & (p.bucket2 != p.bucket1)   # probed after bucket1
+        probed_b = torch.cat([p.bucket1, p.bucket2[second]])
+        probed_q = torch.cat([torch.arange(n, device=self.dev), torch.nonzero(second).flatten()])
+        cand = int((st.digests[probed_b] == p.digest[probed_q][:, None]).sum())
+        rows = torch.unique(probed_b).numel()
+        return {f"bytes{key}": n * (4 + 4 + 1 + 8) + rows * 128 + cand * 8 + n * 12,
+                f"ops{key}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP}
+
+    def target_work(self, st, p, lanes, key) -> dict:
+        """Least bytes and operations of upsert_probe's target mode on the
+        lanes of the gate `lanes` (every lane without one): the gate, the
+        two 4-byte bucket indices of each gated lane, the keys of each
+        distinct row of the lanes whose two candidates are two rows,
+        the scores of each distinct row of the ones whose rows are both
+        full, and the int32 output; per slot an occupancy test, and at full
+        rows a minimum step, each one unsigned 64-bit compare."""
+        torch, u64 = self.torch, self.u64
+        n, s = p.bucket1.shape[0], st.keys.shape[1]
+        on = torch.ones_like(p.bucket1, dtype=torch.bool) if lanes is None else lanes
+        work = on & (p.bucket1 != p.bucket2)
+        b1, b2 = p.bucket1[work], p.bucket2[work]
+        occ = (st.keys != u64.EMPTY).sum(dim=1)
+        full = (occ[b1] == s) & (occ[b2] == s)
+        rows = torch.unique(torch.cat([b1, b2])).numel()
+        full_rows = torch.unique(torch.cat([b1[full], b2[full]])).numel()
+        m, f = b1.numel(), int(full.sum())
+        return {f"bytes{key}": (n if lanes is not None else 0) + int(on.sum()) * 8
+                + rows * 8 * s + full_rows * 8 * s + n * 4,
+                f"ops{key}": (m + f) * 2 * s * OPS_U64_CMP,
+                f"lanes{key}": m}
 
     def checksum(self, values) -> int:
         """A bit-exact checksum of a value plane: the sum of its 32-bit
@@ -1063,12 +1154,14 @@ class Smoke:
         from repro_torch.kernels import ops as kops
 
         torch = self.torch
-        spans = []
+        spans, gates = [], []
 
         def timed(name, fn):
             def run(*args):
                 if name == "victim_at_rank" and lam == 1.0:   # (buckets, rank) of the misses
                     self.claim_main = (args[2].clone(), args[3].clone())
+                if name == "select_target":   # the target pass's lane gate
+                    gates.append(args[3])
                 a = self.mark()
                 out = fn(*args)
                 spans.append((name, a, self.mark()))
@@ -1089,8 +1182,11 @@ class Smoke:
         for name, x, y in spans:
             per[name] = per.get(name, 0.0) + self.elapsed_ms(x, y)
         rest = total - sum(per.values())
+        label = {"locate": "locate (upsert_probe match pass)",
+                 "select_target": f"select_target (upsert_probe target pass on "
+                                  f"{int(gates[0].sum())} miss lanes of {n})"}
         log(f"phase 3: λ={lam} insert_or_assign breakdown: total {total:.3f} ms; "
-            + "; ".join(f"{k} {v:.3f} ms" for k, v in per.items())
+            + "; ".join(f"{label.get(k, k)} {v:.3f} ms" for k, v in per.items())
             + f"; orchestration {rest:.3f} ms")
         # the closure's host read of its miss count: a sum over the batch's
         # lanes and the copy to the host, host clock, on an idle stream
@@ -1342,11 +1438,15 @@ class Smoke:
         apply_grads; returns (loss, ms of each part, the embedding grads).
         `misses`: the batch's distinct keys not resident before the step,
         which lookup_train's victim stage must get, and nothing else."""
-        with self.victim_lanes() as lanes:
+        with self.stage_lanes() as lanes:
             (table, rows), t_lookup = self.counted("lookup_train", emb.lookup_train, table, toks,
                                                    has_miss=misses > 0)
-        require(lanes == ([misses] if misses else []),
-                f"lookup_train: the victim stage got {lanes} lanes, the batch has {misses} misses")
+        require(lanes["victim"] == ([misses] if misses else []),
+                f"lookup_train: the victim stage got {lanes['victim']} lanes, the batch has "
+                f"{misses} misses")
+        target = [int(g.sum()) for g in lanes["target"]]
+        require(target == [misses], f"lookup_train: the target pass got {target} lanes, the "
+                f"batch has {misses} misses")
         self.sync()
         a = self.mark()
         rows = rows.detach().requires_grad_(True)
@@ -1376,7 +1476,7 @@ class Smoke:
         table = emb.create(device=self.dev)
         require(table.state.values.shape == (sz.capacity, DIM + 1) and cfg.dim == DIM,
                  "config B's table is not [capacity, 33]")
-        self.fill(table, 1.0)
+        resident = self.fill(table, 1.0)[0]
         log(f"phase 5: HKVEmbedding of config B: capacity {table.capacity}, dim {emb.dim}, "
             f"{emb.optimizer.name} (V = {table.state.values.shape[1]}), dual bucket, "
             f"{emb.score_policy}; prefilled to λ = {table.load_factor():.6f}")
@@ -1399,8 +1499,8 @@ class Smoke:
             n_uniq = int((uniq != self.u64.EMPTY).sum())
             require(0 < trained <= n_uniq, f"phase 5 step {step}: {trained} rows trained")
             log(f"phase 5 step {step}: {toks.numel()} keys ({n_uniq} unique, {found} found "
-                f"before the step, {trained} trained; claim_scan got {misses} lanes of the "
-                f"{toks.numel()}); lookup_train {ms['lookup_train']:.3f} ms, "
+                f"before the step, {trained} trained; the upsert_probe target pass and "
+                f"claim_scan got {misses} lanes of the {toks.numel()}); lookup_train {ms['lookup_train']:.3f} ms, "
                 f"forward+backward {ms['forward+backward']:.3f} ms, apply_grads "
                 f"{ms['apply_grads']:.3f} ms (dedupe+segment-sum {t_sum:.3f} ms timed alone, "
                 f"the rest, hashing and update_scan, {ms['apply_grads'] - t_sum:.3f} ms); "
@@ -1427,9 +1527,26 @@ class Smoke:
             log(f"phase 5: {name} gradient step on the last batch's {n_uniq} unique keys: "
                 f"{t:.3f} ms, launches {json.dumps(route)}")
         self.compare_scatter(table.state.values, "V=33 phase 5 plane", "_v33@1.0")
+        self.compare_find_wide(table, resident)
         del table
         self.free()
         self.train_twin(emb, losses)
+
+    def compare_find_wide(self, table, resident):
+        """find_scan at V = 33 on the training plane (4-byte words: a row is
+        132 bytes) against its plain version, timed beside its bound, on
+        find's queries: half of the prefill's last batch, half fresh."""
+        st, cfg = table.state, table.cfg
+        q = self.queries(resident, self.sz.batch)
+        p = self.find_mod.probe_keys(cfg, q)
+        args = (st.digests, st.keys, st.scores, st.values, p.bucket1, p.bucket2, p.digest, q)
+        want = self.fs.find_scan_plain(*args)
+        self.check_equal("find_scan", self.fs.find_scan(*args), want, "1.0 V=33 phase 5 plane")
+        tag = "1.0 V=33"
+        self.record("find_scan", **{
+            f"ms@{tag}": self.time_ms(lambda: self.fs.find_scan(*args), self.sz.timed_runs),
+            f"plain_ms@{tag}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
+            **self.find_work(st, p, q, want, tag)})
 
     def train_twin(self, emb, losses):
         """The same DLRM steps on a 2^20-slot table (a 2^11-slot one in the
@@ -1490,7 +1607,7 @@ class Smoke:
         for lam, (f, i) in self.throughput.items():
             log(f"throughput λ={lam}: find {f:.4f} B-KV/s, insert_or_assign {i:.4f} B-KV/s")
         for name, st in sorted(self.stats.items()):
-            for lam in (0.5, 1.0, "1.0 single"):
+            for lam in (0.5, 1.0, "1.0 single", "1.0 V=33"):
                 if f"ms@{lam}" not in st:
                     continue
                 bound, by = self.bound(st, lam)
@@ -1498,6 +1615,21 @@ class Smoke:
                     f"{st[f'plain_ms@{lam}']:.4f} ms, bound {bound:.4f} ms by {by} (bytes "
                     f"{self.bytes_ms(st, lam):.4f} ms, operations {self.ops_ms(st, lam):.4f} ms)"
                     + (f", library {st[f'library_ms@{lam}']:.4f} ms" if f"library_ms@{lam}" in st else ""))
+        up = self.stats["upsert_probe"]
+        for lam in (0.5, 1.0):
+            by_mode = []
+            for mode in ("match", "target", "target_gated"):
+                key = f"_{mode}@{lam}"
+                bound, by = self.bound({"bytes@": up[f"bytes{key}"], "ops@": up[f"ops{key}"]}, "")
+                lanes = f" on {up[f'lanes{key}']} lanes" if f"lanes{key}" in up else ""
+                by_mode.append(f"{mode}{lanes} {up[f'ms{key}']:.4f} ms (bound {bound:.4f} ms by "
+                               f"{by})")
+            log(f"upsert_probe λ={lam} by mode: both {up[f'ms@{lam}']:.4f} ms, "
+                + ", ".join(by_mode) + f"; match in a stream of {STREAM_CALLS} calls "
+                f"{up[f'ms_match_stream@{lam}']:.4f} ms a call")
+            log(f"find_scan λ={lam} in a stream of {STREAM_CALLS} calls: "
+                f"{self.stats['find_scan'][f'ms_stream@{lam}']:.4f} ms a call, against "
+                f"{self.stats['find_scan'][f'ms@{lam}']:.4f} ms for one call")
         sw = self.stats["sweep_match"]
         for lam in (0.5, 1.0, "1.0 single"):
             by_kind = []

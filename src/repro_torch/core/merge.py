@@ -53,7 +53,9 @@ class UpsertStages(NamedTuple):
     """The replaceable stages of the closure.
 
       locate(state, cfg, keys, probe) -> find.Locate
-      select_target(state, cfg, probe) -> int64 [N] target bucket
+      select_target(state, cfg, probe, lanes) -> int64 [N] target bucket,
+          read only where `lanes` (bool [N], the batch's miss lanes); the
+          kernel stage works on those lanes alone
       victim_at_rank(state, cfg, buckets, rank)
           -> (slot int64, occupied bool, score int64, key int64), each [M]
           for the batch's M miss lanes (not called when M is 0)
@@ -191,18 +193,19 @@ def bucket_stats(keys: torch.Tensor, scores: torch.Tensor):
     return occ.sum(dim=1), fmin.min(dim=1).values
 
 
-def select_target_bucket(state: HKVState, cfg: HKVConfig,
-                         probe: find_mod.Probe) -> torch.Tensor:
+def select_target_bucket(state: HKVState, cfg: HKVConfig, probe: find_mod.Probe,
+                         lanes: torch.Tensor) -> torch.Tensor:
     """Dual-bucket two-phase selection (paper Alg. 3): while either
     candidate has a free slot, the less-occupied bucket; once both are
-    full, the bucket with the lower minimum score.  Ties go to the primary."""
+    full, the bucket with the lower minimum score.  Ties go to the primary.
+    Lanes off the gate `lanes` report the primary, as the kernel stage's."""
     if cfg.buckets_per_key == 1:
         return probe.bucket1
     s = cfg.slots_per_bucket
     occ1, min1 = bucket_stats(state.keys[probe.bucket1], state.scores[probe.bucket1])
     occ2, min2 = bucket_stats(state.keys[probe.bucket2], state.scores[probe.bucket2])
     any_free = (occ1 < s) | (occ2 < s)
-    second = torch.where(any_free, occ2 < occ1, min2 < min1)
+    second = torch.where(any_free, occ2 < occ1, min2 < min1) & lanes
     return torch.where(second, probe.bucket2, probe.bucket1)
 
 
@@ -303,7 +306,7 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
 
     # ---- phase 2: misses -----------------------------------------------------
     miss = rep_mask & ~loc.found
-    target = stages.select_target(state, cfg, probe_s)
+    target = stages.select_target(state, cfg, probe_s, miss)   # read on the misses only
     init_sc = policy.init_score(clock, epoch, count_s, custom_s)
 
     # canonical order: (bucket asc, score desc, key asc); non-misses last

@@ -17,7 +17,10 @@ constexpr int kWarp = 32;
 constexpr int kSlotsPerLane = kSlots / kWarp;
 constexpr int64_t kEmpty = -1;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;    // one query per warp, 256 threads a block
+constexpr int kWarpsPerBlock = 8;    // 256 threads a block
+// Blocks an SM must hold for a latency-bound kernel: 8 x 256 threads is the
+// SM's maximum of 2048, which caps a thread at 32 registers.
+constexpr int kFullOccupancyBlocks = 8;
 
 // One warp matches a query against one bucket row: lane l covers slots
 // 4l..4l+3.  The 128 digests are one coalesced 128-byte load (one 32-bit
@@ -44,8 +47,72 @@ __device__ __forceinline__ int warp_match_row(const uint8_t* __restrict__ digest
   return first_lane * kSlotsPerLane + (__ffs(first_bits) - 1);
 }
 
+// The group probe: a group of kGroup lanes serves one query, so a warp
+// serves kGroupsPerWarp queries and four times as many queries are in
+// flight as with warp_match_row.  Lane g of a group covers slots
+// 16g..16g+15: their digests are one 16-byte load, compared bytewise
+// (__vcmpeq4) with the query's digest; a full key is read only where the
+// digest matched (or all 16, in 16-byte loads, when use_digest is 0).
+// Every lane of the warp calls it together, since the ballot and shuffle
+// take the full mask: a lane whose group has nothing to probe passes
+// active = false and reads nothing.  It treats no key specially (an EMPTY
+// query key may match a free slot when use_digest is 0); callers that
+// want EMPTY to miss pass active = false.  Returns the lowest matching
+// slot, or -1, the same in every lane of the group.
+constexpr int kGroup = 8;
+constexpr int kGroupsPerWarp = kWarp / kGroup;
+constexpr int kSlotsPerGroupLane = kSlots / kGroup;
+
+__device__ __forceinline__ int group_match_row(const uint8_t* __restrict__ digests,
+                                               const int64_t* __restrict__ keys,
+                                               int64_t bucket, uint32_t qdigest,
+                                               int64_t qkey, int use_digest, bool active,
+                                               int lane) {
+  const int g = lane % kGroup;
+  const int leader = lane - g;
+  unsigned mine = 0;
+  if (active) {
+    const int64_t base = bucket * kSlots + g * kSlotsPerGroupLane;
+    if (use_digest) {
+      const uint4 d = *reinterpret_cast<const uint4*>(digests + base);
+      const unsigned words[4] = {d.x, d.y, d.z, d.w};
+      const unsigned rep = qdigest * 0x01010101u;
+      unsigned cand = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // 0xff in each equal byte -> one bit a byte: bit b of the product's
+        // top byte is byte b's low bit (the partial products do not overlap)
+        const unsigned eq = __vcmpeq4(words[i], rep) & 0x01010101u;
+        cand |= ((eq * 0x01020408u) >> 24) << (4 * i);
+      }
+      while (cand) {
+        const int j = __ffs(cand) - 1;
+        cand &= cand - 1;
+        if (keys[base + j] == qkey) mine |= 1u << j;
+      }
+    } else {
+      const longlong2* kp = reinterpret_cast<const longlong2*>(keys + base);
+#pragma unroll
+      for (int i = 0; i < kSlotsPerGroupLane / 2; ++i) {
+        const longlong2 k = kp[i];
+        if (k.x == qkey) mine |= 1u << (2 * i);
+        if (k.y == qkey) mine |= 1u << (2 * i + 1);
+      }
+    }
+  }
+  const unsigned gbits = (__ballot_sync(kFullMask, mine != 0) >> leader) & ((1u << kGroup) - 1);
+  const int first = gbits ? __ffs(gbits) - 1 : 0;
+  const unsigned bits = __shfl_sync(kFullMask, mine, leader + first);
+  return gbits ? first * kSlotsPerGroupLane + (__ffs(bits) - 1) : -1;
+}
+
 inline unsigned blocks_for_warps(int64_t n) {
   return static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+// Blocks for n queries at kGroupsPerWarp queries a warp.
+inline unsigned blocks_for_groups(int64_t n) {
+  return blocks_for_warps((n + kGroupsPerWarp - 1) / kGroupsPerWarp);
 }
 
 }  // namespace hkv

@@ -1,23 +1,35 @@
 // The inserter's two row kernels of an HKV table: upsert_probe and claim_scan.
 //
 // upsert_probe replaces the TPU kernel upsert_probe
-// (src/repro/kernels/upsert_scan.py:98).  One warp per query reads both
-// candidate rows and computes, for each: the key match (digest pre-filter
-// and full 64-bit confirm), the occupancy, and the minimum live score
-// (unsigned 64-bit; empty slots count as +inf, so an empty row reports the
-// all-ones sentinel).  From those: found, hit_sel (0 on a hit in bucket1,
-// else 1), hit_slot (0 on a miss) and the dual-bucket target tgt_sel: while
-// either row has a free slot the less occupied one, once both are full the
-// one with the lower minimum score, ties to bucket1 (paper Alg. 3).
+// (src/repro/kernels/upsert_scan.py:98): per query, over both candidate
+// rows, the key match (found, hit_sel: 0 on a hit in bucket1, else 1;
+// hit_slot: 0 on a miss) and the dual-bucket target tgt_sel: while either
+// row has a free slot the less occupied one, once both are full the one
+// with the lower minimum live score (unsigned 64-bit), ties to bucket1
+// (paper Alg. 3).  The upsert asks for the two halves at two stages, so
+// the kernel computes only the outputs its mode asks for:
+//   - match (the locate stage) probes like a reader, with the group probe
+//     of find_scan (hkv::group_match_row, a quarter warp a query): the
+//     digest line of bucket1, keys only where the digest matched, bucket2
+//     only after a miss in bucket1 (hit1 wins, so the outputs are those of
+//     probing both), no scores.  Unlike find_scan, an EMPTY query key is
+//     probed like any other (the locate stage masks it by key validity);
+//   - target (the select stage) matches nothing and reads no digest: half
+//     a warp reads each row's 1 KB of keys (four 16-byte loads in flight a
+//     lane) for the occupancies, and the scores only when both rows are
+//     full, the only case where the minimum decides.  A lane gate (the
+//     closure's miss lanes) skips the rest: an off lane reads nothing and
+//     reports 0, as does a query whose two candidates are one row;
+//   - both is the TPU kernel's whole function: match, then target.
+// A warp serves four queries in every mode: the groups probe them at once,
+// then the target pass takes them one after another with the whole warp.
 //
-// Bound: bytes.  Occupancy and the minimum need every key and score of
-// both rows, 2 x (1024 + 1024) bytes a query, and a few compares a slot
-// (the kernel also reads the 128-byte digest line, which a full-key match
-// over every slot could do without).  Lane l loads slots 4l..4l+3 of each plane as two 16-byte words, so
-// each row plane is one fully coalesced 1 KB warp transaction; occupancy is
-// one warp add and the minimum a 5-step shuffle reduction on 64-bit words
-// (__reduce_min_sync is 32-bit only).
-//
+// Bound: bytes.  Match: the digest lines of the probed rows and the
+// candidate keys (as find_scan).  Target: every key of both rows, 2 KB a
+// query, and at full rows every score, 2 KB more; a few compares a slot.
+// Each is a dependent random read of a whole row, so a warp keeps both
+// rows in flight.
+
 // claim_scan replaces the TPU kernel claim_scan
 // (src/repro/kernels/upsert_scan.py:189): the slot of rank r of a target row
 // under the total victim order (occupied, score, key, slot), compared as
@@ -31,8 +43,8 @@
 //   - one warp owns a group of 32 queries: their bucket and rank words
 //     come in one coalesced load each, and lane j collects query j's
 //     outputs for one coalesced store of each at the end;
-//   - lane l holds slots 4l..4l+3 of the row (two 16-byte loads a plane,
-//     as upsert_probe reads it); the next query's row is loaded before
+//   - lane l holds slots 4l..4l+3 of the row (two 16-byte loads a
+//     plane); the next query's row is loaded before
 //     this one is selected, so the warp has a row in flight while it
 //     computes, and not at all when it is the same bucket: the upsert
 //     hands its misses over in canonical order, bucket ascending, so a
@@ -61,75 +73,97 @@ using u64 = unsigned long long;
 
 __device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
 
-struct RowProbe {
-  int slot;            // first matching slot, -1 if none
-  int occ;             // live slots
-  u64 min_score;       // unsigned minimum live score, all-ones if none
-};
-
-__device__ __forceinline__ RowProbe warp_probe_row(const uint8_t* __restrict__ digests,
-                                                   const int64_t* __restrict__ keys,
-                                                   const int64_t* __restrict__ scores,
-                                                   int64_t bucket, uint32_t qdigest,
-                                                   int64_t qkey, int use_digest, int lane) {
-  const int64_t base = bucket * hkv::kSlots;
-  const int s0 = lane * hkv::kSlotsPerLane;
-  const uint32_t dword = reinterpret_cast<const uint32_t*>(digests + base)[lane];
-  const longlong2* kp = reinterpret_cast<const longlong2*>(keys + base + s0);
-  const longlong2* sp = reinterpret_cast<const longlong2*>(scores + base + s0);
-  const longlong2 k01 = kp[0], k23 = kp[1], c01 = sp[0], c23 = sp[1];
-  const long long k[4] = {k01.x, k01.y, k23.x, k23.y};
-  const long long c[4] = {c01.x, c01.y, c23.x, c23.y};
-  unsigned mine = 0;
-  int occ = 0;
-  u64 mn = ~0ull;
-#pragma unroll
-  for (int j = 0; j < hkv::kSlotsPerLane; ++j) {
-    const bool live = k[j] != hkv::kEmpty;
-    occ += live;
-    if (live) mn = umin64(mn, static_cast<u64>(c[j]));
-    const bool cand = !use_digest || ((dword >> (8 * j)) & 0xffu) == qdigest;
-    if (cand && k[j] == qkey) mine |= 1u << j;
-  }
-  RowProbe r;
-  r.occ = __reduce_add_sync(hkv::kFullMask, occ);
-#pragma unroll
-  for (int off = hkv::kWarp / 2; off > 0; off >>= 1)
-    mn = umin64(mn, __shfl_xor_sync(hkv::kFullMask, mn, off));
-  r.min_score = mn;
-  const unsigned ballot = __ballot_sync(hkv::kFullMask, mine != 0);
-  if (ballot == 0) {
-    r.slot = -1;
-  } else {
-    const int first_lane = __ffs(ballot) - 1;
-    const unsigned bits = __shfl_sync(hkv::kFullMask, mine, first_lane);
-    r.slot = first_lane * hkv::kSlotsPerLane + (__ffs(bits) - 1);
-  }
-  return r;
+// Unsigned 64-bit minimum over the warp in two 32-bit reductions.
+__device__ __forceinline__ u64 warp_min_u64(u64 v) {
+  const unsigned hi = static_cast<unsigned>(v >> 32);
+  const unsigned mhi = __reduce_min_sync(hkv::kFullMask, hi);
+  const unsigned mlo = __reduce_min_sync(hkv::kFullMask, hi == mhi ? static_cast<unsigned>(v)
+                                                                   : 0xffffffffu);
+  return (static_cast<u64>(mhi) << 32) | mlo;
 }
 
-__global__ void __launch_bounds__(hkv::kWarp * hkv::kWarpsPerBlock)
+// The dual-bucket target of one query, by the whole warp (warp-uniform
+// result): lanes 0-15 hold bucket1's row, lanes 16-31 bucket2's, 8 slots
+// a lane.  Scores are read only when both rows are full.
+__device__ __forceinline__ int warp_select_target(const int64_t* __restrict__ keys,
+                                                  const int64_t* __restrict__ scores,
+                                                  int64_t bucket1, int64_t bucket2, int lane) {
+  constexpr int kHalf = hkv::kWarp / 2;
+  constexpr int kPer = hkv::kSlots / kHalf;   // 8 slots, four 16-byte words a plane
+  const bool second = lane >= kHalf;
+  const int64_t base = (second ? bucket2 : bucket1) * hkv::kSlots + (lane % kHalf) * kPer;
+  const longlong2* kp = reinterpret_cast<const longlong2*>(keys + base);
+  longlong2 k[kPer / 2];
+#pragma unroll
+  for (int i = 0; i < kPer / 2; ++i) k[i] = kp[i];
+  int live = 0;
+#pragma unroll
+  for (int i = 0; i < kPer / 2; ++i) live += (k[i].x != hkv::kEmpty) + (k[i].y != hkv::kEmpty);
+  const int occ1 = static_cast<int>(__reduce_add_sync(hkv::kFullMask, second ? 0 : live));
+  const int occ2 = static_cast<int>(__reduce_add_sync(hkv::kFullMask, second ? live : 0));
+  if (occ1 < hkv::kSlots || occ2 < hkv::kSlots) return occ2 < occ1 ? 1 : 0;
+  // both rows full: every slot is live, so the row minimum is the live one
+  const longlong2* sp = reinterpret_cast<const longlong2*>(scores + base);
+  u64 mn = ~0ull;
+#pragma unroll
+  for (int i = 0; i < kPer / 2; ++i) {
+    const longlong2 c = sp[i];
+    mn = umin64(mn, umin64(static_cast<u64>(c.x), static_cast<u64>(c.y)));
+  }
+  const u64 min1 = warp_min_u64(second ? ~0ull : mn);
+  const u64 min2 = warp_min_u64(second ? mn : ~0ull);
+  return min2 < min1 ? 1 : 0;
+}
+
+enum ProbeMode { kBoth = 0, kMatch = 1, kTarget = 2 };
+
+template <int kMode>
+__global__ void __launch_bounds__(hkv::kWarp * hkv::kWarpsPerBlock, hkv::kFullOccupancyBlocks)
 upsert_probe_kernel(const uint8_t* __restrict__ digests, const int64_t* __restrict__ keys,
                     const int64_t* __restrict__ scores, const int64_t* __restrict__ bucket1,
                     const int64_t* __restrict__ bucket2, const uint8_t* __restrict__ qdigest,
-                    const int64_t* __restrict__ qkeys, int32_t* __restrict__ found,
-                    int32_t* __restrict__ hit_sel, int32_t* __restrict__ hit_slot,
-                    int32_t* __restrict__ tgt_sel, int64_t n, int use_digest) {
+                    const int64_t* __restrict__ qkeys, const bool* __restrict__ gate,
+                    int32_t* __restrict__ found, int32_t* __restrict__ hit_sel,
+                    int32_t* __restrict__ hit_slot, int32_t* __restrict__ tgt_sel, int64_t n,
+                    int use_digest) {
   const int lane = threadIdx.x % hkv::kWarp;
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * hkv::kWarpsPerBlock +
-                    threadIdx.x / hkv::kWarp;
-  if (q >= n) return;
-  const int64_t qk = qkeys[q];
-  const uint32_t qd = qdigest[q];
-  const RowProbe r1 = warp_probe_row(digests, keys, scores, bucket1[q], qd, qk, use_digest, lane);
-  const RowProbe r2 = warp_probe_row(digests, keys, scores, bucket2[q], qd, qk, use_digest, lane);
-  if (lane == 0) {
-    const bool hit1 = r1.slot >= 0, hit2 = r2.slot >= 0;
-    found[q] = (hit1 || hit2) ? 1 : 0;
-    hit_sel[q] = hit1 ? 0 : 1;
-    hit_slot[q] = hit1 ? r1.slot : (hit2 ? r2.slot : 0);
-    const bool any_free = r1.occ < hkv::kSlots || r2.occ < hkv::kSlots;
-    tgt_sel[q] = any_free ? (r2.occ < r1.occ) : (r2.min_score < r1.min_score);
+  const int g = lane % hkv::kGroup;
+  const int64_t q0 = (static_cast<int64_t>(blockIdx.x) * hkv::kWarpsPerBlock +
+                      threadIdx.x / hkv::kWarp) * hkv::kGroupsPerWarp;
+  if (q0 >= n) return;  // whole warps leave together
+  const int64_t q = q0 + lane / hkv::kGroup;
+  const bool in = q < n;
+  // the target pass works on the gated lanes only (all without a gate)
+  const bool on = kMode != kMatch && in && (gate == nullptr || gate[q]);
+  const bool need = kMode == kTarget ? on : in;
+  const int64_t b1 = need ? bucket1[q] : 0;
+  const int64_t b2 = need ? bucket2[q] : 0;
+  if (kMode != kTarget) {
+    const int64_t qk = in ? qkeys[q] : 0;
+    const uint32_t qd = in ? qdigest[q] : 0u;
+    const int slot1 = hkv::group_match_row(digests, keys, b1, qd, qk, use_digest, in, lane);
+    const bool second = in && slot1 < 0 && b2 != b1;
+    const int slot2 = hkv::group_match_row(digests, keys, b2, qd, qk, use_digest, second, lane);
+    if (in && g == 0) {
+      const bool hit1 = slot1 >= 0, hit2 = slot2 >= 0;
+      found[q] = (hit1 || hit2) ? 1 : 0;
+      hit_sel[q] = hit1 ? 0 : 1;
+      hit_slot[q] = hit1 ? slot1 : (hit2 ? slot2 : 0);
+    }
+  }
+  if (kMode != kMatch) {
+    int tgt = 0;
+#pragma unroll 1
+    for (int i = 0; i < hkv::kGroupsPerWarp; ++i) {
+      const int leader = i * hkv::kGroup;
+      const bool on_i = __shfl_sync(hkv::kFullMask, static_cast<int>(on), leader) != 0;
+      const int64_t c1 = __shfl_sync(hkv::kFullMask, b1, leader);
+      const int64_t c2 = __shfl_sync(hkv::kFullMask, b2, leader);
+      if (!on_i || c1 == c2) continue;   // warp-uniform: target 0, nothing read
+      const int t = warp_select_target(keys, scores, c1, c2, lane);
+      if (lane == leader) tgt = t;
+    }
+    if (in && g == 0) tgt_sel[q] = tgt;
   }
 }
 
@@ -143,15 +177,6 @@ __device__ __forceinline__ void load_row(const int64_t* __restrict__ keys,
   const longlong2 k01 = kp[0], k23 = kp[1], c01 = sp[0], c23 = sp[1];
   k[0] = k01.x; k[1] = k01.y; k[2] = k23.x; k[3] = k23.y;
   c[0] = c01.x; c[1] = c01.y; c[2] = c23.x; c[3] = c23.y;
-}
-
-// Unsigned 64-bit minimum over the warp in two 32-bit reductions.
-__device__ __forceinline__ u64 warp_min_u64(u64 v) {
-  const unsigned hi = static_cast<unsigned>(v >> 32);
-  const unsigned mhi = __reduce_min_sync(hkv::kFullMask, hi);
-  const unsigned mlo = __reduce_min_sync(hkv::kFullMask, hi == mhi ? static_cast<unsigned>(v)
-                                                                   : 0xffffffffu);
-  return (static_cast<u64>(mhi) << 32) | mlo;
 }
 
 // The slot of rank r within the candidate slots `cand` (this lane's 4-bit
@@ -266,16 +291,20 @@ claim_scan_kernel(const int64_t* __restrict__ keys, const int64_t* __restrict__ 
 
 extern "C" int hkv_upsert_probe(const void* digests, const void* keys, const void* scores,
                                 const void* bucket1, const void* bucket2, const void* qdigest,
-                                const void* qkeys, void* found, void* hit_sel, void* hit_slot,
-                                void* tgt_sel, int64_t n, int use_digest, void* stream) {
-  upsert_probe_kernel<<<hkv::blocks_for_warps(n), hkv::kWarp * hkv::kWarpsPerBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+                                const void* qkeys, const void* gate, void* found, void* hit_sel,
+                                void* hit_slot, void* tgt_sel, int64_t n, int use_digest,
+                                int mode, void* stream) {
+  auto kernel = mode == kMatch    ? upsert_probe_kernel<kMatch>
+                : mode == kTarget ? upsert_probe_kernel<kTarget>
+                                  : upsert_probe_kernel<kBoth>;
+  kernel<<<hkv::blocks_for_groups(n), hkv::kWarp * hkv::kWarpsPerBlock, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(digests), static_cast<const int64_t*>(keys),
       static_cast<const int64_t*>(scores), static_cast<const int64_t*>(bucket1),
       static_cast<const int64_t*>(bucket2), static_cast<const uint8_t*>(qdigest),
-      static_cast<const int64_t*>(qkeys), static_cast<int32_t*>(found),
-      static_cast<int32_t*>(hit_sel), static_cast<int32_t*>(hit_slot),
-      static_cast<int32_t*>(tgt_sel), n, use_digest);
+      static_cast<const int64_t*>(qkeys), static_cast<const bool*>(gate),
+      static_cast<int32_t*>(found), static_cast<int32_t*>(hit_sel),
+      static_cast<int32_t*>(hit_slot), static_cast<int32_t*>(tgt_sel), n, use_digest);
   return static_cast<int>(cudaGetLastError());
 }
 

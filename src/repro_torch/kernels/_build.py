@@ -34,8 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # The argument types of every C entry point: P = pointer, I = int64, i = int,
 # f = float.
 _SIGNATURES = {
-    "hkv_find_scan": "PPPPPPPPPPPPPIIiP",
-    "hkv_upsert_probe": "PPPPPPPPPPPIiP",
+    "hkv_find_scan": "PPPPPPPPPPPPPIIiiP",
+    "hkv_upsert_probe": "PPPPPPPPPPPPIiiP",
     "hkv_claim_scan": "PPPPPPPPIP",
     "hkv_scatter_rows": "PPPPIIIiP",
     "hkv_gather_rows": "PPPPIIiP",

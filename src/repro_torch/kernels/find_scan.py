@@ -52,8 +52,8 @@ def find_scan(digests, keys, scores, values, bucket1, bucket2, qdigest, qkeys,
     b, s = keys.shape
     n, v = qkeys.shape[0], values.shape[1]
     _build.check(s == 128, "find_scan: the kernel takes 128 slots per bucket")
-    for name, t, dt, shape, align in (   # digest lines are read in 4-byte words
-            ("digests", digests, torch.uint8, (b, s), 4), ("keys", keys, torch.int64, (b, s), 8),
+    for name, t, dt, shape, align in (   # digest lines and keys are read in 16-byte words
+            ("digests", digests, torch.uint8, (b, s), 16), ("keys", keys, torch.int64, (b, s), 16),
             ("scores", scores, torch.int64, (b, s), 8),
             ("values", values, torch.float32, (b * s, v), 4),
             ("bucket1", bucket1, torch.int64, (n,), 8), ("bucket2", bucket2, torch.int64, (n,), 8),
@@ -64,7 +64,10 @@ def find_scan(digests, keys, scores, values, bucket1, bucket2, qdigest, qkeys,
     slot = torch.empty_like(found)
     score = torch.empty(n, dtype=torch.int64, device=dev)
     vals = torch.empty((n, v), dtype=values.dtype, device=dev)
+    # rows move in 16-byte words where every row starts on a 16-byte
+    # boundary of both planes, else in 4-byte words (V = 33, a view at an offset)
+    vec = v % 4 == 0 and values.data_ptr() % 16 == 0 and vals.data_ptr() % 16 == 0
     if n:
         _build.launch(NAME, digests, keys, scores, values, bucket1, bucket2, qdigest,
-                      qkeys, found, sel, slot, score, vals, n, v, int(use_digest))
+                      qkeys, found, sel, slot, score, vals, n, v, int(use_digest), int(vec))
     return found, sel, slot, score, vals

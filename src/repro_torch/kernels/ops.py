@@ -20,14 +20,17 @@
   bucket_stats_kernel per-bucket occupancy and minimum live score, one
                       bucket_stats launch (no op calls it);
   kernel_stages       the inserter's stages for ``core.merge.upsert``:
-                      dual-bucket mode locates and selects on upsert_probe,
-                      single-bucket mode locates on digest_scan and targets
-                      bucket1; victim_at_rank on claim_scan, gather_values
-                      on gather_rows, scatter_values on scatter_rows.  Per
-                      insert_or_assign: two upsert_probe (dual) or one
-                      digest_scan (single), one claim_scan (on the miss
-                      lanes; none without a miss) and two scatter_rows
-                      launches; return_evicted adds one gather_rows.
+                      dual-bucket mode locates on upsert_probe's match mode
+                      and selects on its target mode, gated to the miss
+                      lanes; single-bucket mode locates on digest_scan and
+                      targets bucket1; victim_at_rank on claim_scan,
+                      gather_values on gather_rows, scatter_values on
+                      scatter_rows.  Per insert_or_assign: two upsert_probe
+                      (dual; the target pass launches without a miss too,
+                      and works on no lane) or one digest_scan (single),
+                      one claim_scan (on the miss lanes; none without a
+                      miss) and two scatter_rows launches; return_evicted
+                      adds one gather_rows.
 
 The wrappers run their plain versions on CPU tensors, so the CPU tests
 reach this module too.
@@ -159,23 +162,21 @@ def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStage
     def locate(state: HKVState, _cfg, keys, probe: find_mod.Probe) -> find_mod.Locate:
         if cfg.buckets_per_key == 1:
             return locate_kernel(state, cfg, keys, probe)
-        found, hit_sel, hit_slot, _tgt = upsert_probe(
+        found, hit_sel, hit_slot, _ = upsert_probe(
             state.digests, state.keys, state.scores, probe.bucket1, probe.bucket2,
-            probe.digest, keys, use_digest=cfg.use_digest)
+            probe.digest, keys, use_digest=cfg.use_digest, mode="match")
         hit = found.to(torch.bool)
         bucket = torch.where(hit & (hit_sel == 1), probe.bucket2, probe.bucket1)
         slot = hit_slot.to(torch.int64)
         return find_mod.Locate(found=hit & probe.valid, bucket=bucket, slot=slot,
                                row=bucket * s + slot)
 
-    def select_target(state: HKVState, _cfg, probe: find_mod.Probe) -> torch.Tensor:
+    def select_target(state: HKVState, _cfg, probe: find_mod.Probe,
+                      lanes: torch.Tensor) -> torch.Tensor:
         if cfg.buckets_per_key == 1:
             return probe.bucket1
-        # a stats-only pass: the match result is unused
-        _f, _hs, _sl, tgt = upsert_probe(
-            state.digests, state.keys, state.scores, probe.bucket1, probe.bucket2,
-            torch.zeros_like(probe.digest), torch.zeros_like(probe.bucket1),
-            use_digest=cfg.use_digest)
+        *_, tgt = upsert_probe(state.digests, state.keys, state.scores, probe.bucket1,
+                               probe.bucket2, mode="target", lanes=lanes)
         return torch.where(tgt == 1, probe.bucket2, probe.bucket1)
 
     def victim_at_rank(state: HKVState, _cfg, buckets, rank):

@@ -1,15 +1,22 @@
-"""The port's batch closure runs victim_at_rank on the miss lanes only.
+"""The port's batch closure runs victim_at_rank and the target pass on the
+miss lanes only.
 
 `repro_torch.core.merge.upsert` hands the victim stage (claim_scan on the
 card) the canonical prefix of miss lanes and pads its outputs back to the
-batch; the JAX package's closure runs it on every lane.  For every score
-policy, both bucket modes and tables at λ 0.5 and 1.0, batches with
-duplicates, EMPTY padding and mostly resident keys, and a batch with no
-miss at all, run through both closures:
+batch, and hands the select stage (upsert_probe's target mode on the card)
+the miss lanes as a lane gate; the JAX package's closure runs both on every
+lane.  For every score policy, both bucket modes and tables at λ 0.5 and
+1.0, batches with duplicates, EMPTY padding and mostly resident keys, and a
+batch with no miss at all, run through both closures:
 
-- the stage (the plain victim_at_rank, wrapped to record its lanes) gets
-  exactly the batch's distinct miss keys, counted independently from the
-  JAX package's locate on the same state, and is not called without one;
+- the stages (wrapped to record their lanes) get exactly the batch's
+  distinct miss keys, counted independently from the JAX package's locate
+  on the same state; the victim stage is not called without one, and the
+  select stage's gate is then all off;
+- through the kernel stages (the wrappers' plain versions on the CPU),
+  a dual-bucket upsert calls upsert_probe once in match mode on every lane
+  and once in target mode gated to those miss lanes, and a single-bucket
+  one never;
 - statuses, pre-op found, post-op locations, the eviction stream and the
   full state equal the JAX package's bit for bit.
 """
@@ -27,6 +34,7 @@ from repro.core import u64 as ju64  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import merge as pmerge  # noqa: E402
 from repro_torch.core import table as ptable  # noqa: E402
+from repro_torch.kernels import ops as pkops  # noqa: E402
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
 POLICIES = ("lru", "lfu", "epoch_lru", "epoch_lfu", "custom")
@@ -40,20 +48,26 @@ def _eq(got, want, ctx):
 class Pair:
     """One table state on both sides, and the port's recording stages."""
 
-    def __init__(self, policy, dual, lam, seed):
+    def __init__(self, policy, dual, lam, seed, kernel=False):
         self.policy = policy
         self.rng = np.random.default_rng(seed)
         kw = dict(capacity=CAPACITY, dim=DIM, buckets_per_key=2 if dual else 1,
                   score_policy=policy)
         self.jcfg, self.pcfg = jtable.HKVConfig(**kw), ptable.HKVConfig(**kw)
         self.jstate = jtable.create(self.jcfg)
-        self.lanes = []
+        self.lanes, self.target_lanes = [], []
+        base = (pkops.kernel_stages(self.pcfg, torch.device("cpu")) if kernel
+                else pmerge.plain_stages())
 
         def victim_at_rank(state, cfg, buckets, rank):
             self.lanes.append(buckets.shape[0])
-            return pmerge.plain_victim_at_rank(state, cfg, buckets, rank)
+            return base.victim_at_rank(state, cfg, buckets, rank)
 
-        self.stages = pmerge.plain_stages()._replace(victim_at_rank=victim_at_rank)
+        def select_target(state, cfg, probe, lanes):
+            self.target_lanes.append(int(lanes.sum()))
+            return base.select_target(state, cfg, probe, lanes)
+
+        self.stages = base._replace(victim_at_rank=victim_at_rank, select_target=select_target)
         fill = self.rng.integers(1, 2**63, size=int(lam * CAPACITY) if lam < 1 else 3 * CAPACITY,
                                  dtype=np.uint64)
         for chunk in np.array_split(fill, 4):
@@ -91,6 +105,7 @@ class Pair:
         want_lanes = self.miss_count(keys)
         jr = self._jax_upsert(keys, vals, cs)
         self.lanes.clear()
+        self.target_lanes.clear()
         pr = pmerge.upsert(self.pstate, self.pcfg, torch.from_numpy(keys.view(np.int64).copy()),
                            torch.from_numpy(vals), stages=self.stages, return_evicted=True,
                            custom_scores=None if cs is None
@@ -98,6 +113,8 @@ class Pair:
         self.jstate = jr.state
         assert self.lanes == ([want_lanes] if want_lanes else []), \
             f"{ctx}: victim_at_rank got {self.lanes}, the batch has {want_lanes} distinct misses"
+        assert self.target_lanes == [want_lanes], \
+            f"{ctx}: select_target's gate holds {self.target_lanes}, the batch has {want_lanes} misses"
         _eq(pr.status.numpy(), jr.status, f"{ctx}: status")
         _eq(pr.found.numpy(), jr.found, f"{ctx}: found")
         loc = convert.locate_to_arrays(pr.loc)
@@ -132,3 +149,37 @@ def test_victim_stage_gets_the_miss_lanes_only(policy, dual, lam):
     keys = rng.choice(p.resident(), size=BATCH)
     keys[::9] = EMPTY
     assert p.step(keys, "no-miss batch") == 0
+
+
+@pytest.mark.parametrize("lam", (0.5, 1.0))
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_target_pass_gets_the_miss_lanes_only(policy, dual, lam, monkeypatch):
+    p = Pair(policy, dual, lam, seed=500 + 10 * POLICIES.index(policy) + 2 * dual + int(lam),
+             kernel=True)
+    calls = []
+    probe = pkops.upsert_probe
+
+    def recording_probe(*args, mode="both", lanes=None, **kw):
+        calls.append((mode, args[3].shape[0] if lanes is None else int(lanes.sum())))
+        out = probe(*args, mode=mode, lanes=lanes, **kw)
+        if lanes is not None:   # an off lane reports tgt_sel 0
+            assert not out[3][~lanes].any()
+        return out
+
+    monkeypatch.setattr(pkops, "upsert_probe", recording_probe)
+    rng = p.rng
+    for step in range(3):
+        res = p.resident()
+        if step < 2:   # mostly resident keys, a few fresh, duplicates, EMPTY padding
+            keys = np.concatenate([rng.choice(res, size=BATCH - BATCH // 8),
+                                   rng.integers(1, 2**64 - 2, size=BATCH // 8, dtype=np.uint64)])
+            keys[rng.integers(0, BATCH, size=BATCH // 4)] = rng.choice(keys, size=BATCH // 4)
+        else:          # no miss
+            keys = rng.choice(res, size=BATCH)
+        keys[rng.integers(0, BATCH, size=6)] = EMPTY
+        calls.clear()
+        misses = p.step(keys, f"batch {step}")
+        assert (misses > 0) == (step < 2)
+        assert calls == ([("match", BATCH), ("target", misses)] if dual else []), \
+            f"batch {step}: upsert_probe calls {calls}, the batch has {misses} misses"

@@ -505,3 +505,91 @@ def test_upserts_with_few_or_no_misses_match_plain(dev, misses):
     tp, rows_p = ep.lookup_train(tp, toks)
     assert torch.equal(rows_k, rows_p)
     state_equal()
+
+
+LENGTHS = [1, 3, 4, 5, 7, 4099]   # the ragged edges of four queries a warp
+
+
+def _probe_queries(t, n, seed):
+    """n queries on table `t`: live keys and random ones alternating, EMPTY
+    on every 7th lane from lane 2; every 5th lane from lane 4 has its two
+    candidates in one bucket.  Returns (q, bucket1, bucket2, digest)."""
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    live = t.state.keys[t.state.keys != -1]
+    q = torch.randint(0, 2**62, (n,), generator=g, device=t.device)
+    q[::2] = live[torch.randint(0, live.numel(), (q[::2].numel(),), generator=g,
+                                device=t.device)]
+    q[2::7] = -1
+    p = find_mod.probe_keys(t.cfg, q)
+    b2 = p.bucket2.clone()
+    b2[4::5] = p.bucket1[4::5]
+    return q, p.bucket1, b2, p.digest
+
+
+@pytest.mark.parametrize("use_digest", [True, False], ids=["digest", "nodigest"])
+@pytest.mark.parametrize("full", [True, False], ids=["full_rows", "half_full"])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_upsert_probe_modes_match_plain(dev, n, full, use_digest):
+    """Every mode of the kernel equals the plain version on rows full (past
+    λ 1.0) and not (λ about 0.5), with EMPTY lanes, lanes whose candidates
+    are one bucket, and live keys also written into their other candidate
+    row (hit1 must win); the target mode with no gate and with a gate all
+    off, all on and mixed."""
+    t = _table(dev, batches=6 if full else 1)
+    q, b1, b2, qd = _probe_queries(t, n, seed=n + 2 * full)
+    keys, digests = t.state.keys.clone(), t.state.digests.clone()
+    loc = find_mod.locate(t.state, t.cfg, q)
+    both = torch.nonzero(loc.found & (b1 != b2)).flatten()[:16]
+    other = torch.where(loc.bucket[both] == b1[both], b2[both], b1[both])
+    keys[other, 127], digests[other, 127] = q[both], qd[both]
+    planes = (digests, keys, t.state.scores)
+    for mode in ("both", "match"):
+        args = (*planes, b1, b2, qd, q)
+        got = upsert_scan.upsert_probe(*args, use_digest=use_digest, mode=mode)
+        want = upsert_scan.upsert_probe_plain(*args, use_digest=use_digest, mode=mode)
+        _same(got[:3], want[:3])
+        if mode == "both":
+            _same(got[3:], want[3:])
+            if n > 100:   # some keys hit; past λ 1.0 some in bucket2, and below it
+                # (one batch into empty rows, all in bucket1) some targets are
+                # bucket2 (full lfu rows tie on their minimum count: bucket1)
+                assert got[0].any()
+                assert got[1][got[0] == 1].any() if full else got[3].any()
+    g = torch.Generator(device=dev).manual_seed(n)
+    gates = {"none": None, "off": torch.zeros(n, dtype=torch.bool, device=dev),
+             "on": torch.ones(n, dtype=torch.bool, device=dev),
+             "mixed": torch.rand(n, generator=g, device=dev) < 0.3}
+    for name, lanes in gates.items():
+        got = upsert_scan.upsert_probe(*planes, b1, b2, mode="target", lanes=lanes)
+        want = upsert_scan.upsert_probe_plain(*planes, b1, b2, mode="target", lanes=lanes)
+        assert got[:3] == (None, None, None)
+        _same(got[3:], want[3:])
+        if name == "off":
+            assert not got[3].any()
+
+
+@pytest.mark.parametrize("layout", ["v32", "v33", "v32_unaligned"])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_find_scan_kernel_rows_at_any_length(dev, n, layout):
+    """find_scan at V = 32 (16-byte words), V = 33 (the training plane's
+    width) and V = 32 on a view 4 bytes past a 16-byte boundary (both
+    4-byte words), with and without the digest filter, EMPTY lanes and
+    lanes whose candidates are one bucket."""
+    v = 33 if layout == "v33" else 32
+    t = _table(dev)
+    q, b1, b2, qd = _probe_queries(t, n, seed=3 * n)
+    r_tot = t.state.values.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(n)
+    if layout == "v32_unaligned":
+        values = torch.randn(r_tot * v + 1, generator=gen, device=dev)[1:].view(r_tot, v)
+        assert values.data_ptr() % 16 != 0 and values.is_contiguous()
+    else:
+        values = torch.randn(r_tot, v, generator=gen, device=dev)
+    s = t.state
+    for use_digest in (True, False):
+        args = (s.digests, s.keys, s.scores, values, b1, b2, qd, q)
+        got = find_scan.find_scan(*args, use_digest=use_digest)
+        _same(got, find_scan.find_scan_plain(*args, use_digest=use_digest))
+        assert not got[0][q == -1].any() and not got[4][got[0] == 0].any()
+        if n > 100:
+            assert got[0].any() and got[1].any()

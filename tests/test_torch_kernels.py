@@ -136,24 +136,51 @@ def test_find_scan_plain_matches_jax(lam, dual, use_digest):
     assert not pr.slot.numpy()[pad].any()
 
 
+PROBE_OUTPUTS = {"both": (0, 1, 2, 3), "match": (0, 1, 2), "target": (3,)}
+
+
+@pytest.mark.parametrize("mode", tuple(PROBE_OUTPUTS))
 @pytest.mark.parametrize("use_digest", [True, False], ids=["digest", "nodigest"])
 @pytest.mark.parametrize("lam", LAMBDAS)
-def test_upsert_probe_plain_matches_jax(lam, use_digest):
+def test_upsert_probe_plain_matches_jax(lam, use_digest, mode):
+    """Each mode's outputs equal the same outputs of the JAX kernel (its
+    whole function) on queries with EMPTY padding and some lanes whose two
+    candidates are one bucket; the outputs a mode does not ask for are None."""
     rng, cfg, state, resident = _filled(lam, True, use_digest)
     qkeys = _queries(rng, resident)
     k, probe, jin, tin = _probe_inputs(cfg, qkeys)
+    same = np.arange(N) % 11 == 3            # bucket2 == bucket1 on these lanes
+    b2 = np.where(same, np.asarray(jin[0]), np.asarray(jin[1]))
+    jin = (jin[0], jnp.asarray(b2, jin[1].dtype), *jin[2:])
+    tin = (tin[0], torch.from_numpy(b2.astype(np.int64)), *tin[2:])
     ps = convert.state_from_arrays(state, device="cpu")
-    got = pus.upsert_probe(ps.digests, ps.keys, ps.scores, *tin, use_digest=use_digest)
+    q = tin[2:] if mode != "target" else (None, None)   # the target pass reads no query
+    got = pus.upsert_probe(ps.digests, ps.keys, ps.scores, *tin[:2], *q,
+                           use_digest=use_digest, mode=mode)
     want = jus.upsert_probe(state.digests, state.key_hi, state.key_lo, state.score_hi,
                             state.score_lo, *jin, use_digest=use_digest, interpret=True)
-    for name, g, w in zip(("found", "hit_sel", "hit_slot", "tgt_sel"), got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    # the select pass: zero query keys, only tgt_sel used — the jnp D1/D2 rule
-    target = jmerge._select_target_bucket(state, cfg, probe)
-    pt_probe = pfind.Probe(tin[0], tin[1], tin[2], tin[3] != -1)
+    names = ("found", "hit_sel", "hit_slot", "tgt_sel")
+    for i, name in enumerate(names):
+        if i in PROBE_OUTPUTS[mode]:
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]), err_msg=name)
+        else:
+            assert got[i] is None, f"{mode}: {name} was not asked for"
+    if mode != "target":
+        assert got[0].sum() > 0 and (got[0] == 0).sum() > 0
+        return
+    # the select stage: the target pass on a lane gate, the jnp D1/D2 rule
+    # on the gated lanes and bucket1 elsewhere
+    gate = torch.from_numpy(rng.random(N) < 0.5)
+    target = np.asarray(jmerge._select_target_bucket(state, cfg, probe))
+    pt_probe = pfind.Probe(tin[0], torch.from_numpy(np.asarray(probe.bucket2).astype(np.int64)),
+                           tin[2], tin[3] != -1)
     stages = pkops.kernel_stages(_port_cfg(cfg), torch.device("cpu"))
-    np.testing.assert_array_equal(stages.select_target(ps, None, pt_probe).numpy(),
-                                  np.asarray(target))
+    np.testing.assert_array_equal(stages.select_target(ps, None, pt_probe, gate).numpy(),
+                                  np.where(gate.numpy(), target, np.asarray(probe.bucket1)))
+    *_, gated = pus.upsert_probe(ps.digests, ps.keys, ps.scores, *tin[:2], mode="target",
+                                 lanes=gate)
+    np.testing.assert_array_equal(gated.numpy(), np.where(gate.numpy(), np.asarray(want[3]), 0))
+    assert not gated[same].any()
     if lam == 1.0:  # the D2 (full-bucket) branch decided some targets
         assert (got[3] == 1).any() and (got[3] == 0).any()
 
