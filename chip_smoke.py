@@ -77,8 +77,14 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
-plane made for the check) and bucket_stats; phase 2 also replays
-update_rows (fused, composed, through an OpSession) on both backends.
+plane made for the check; and on a 2^20-slot table past λ 1.0, at dims
+257, 512 and 896 and on bfloat16 planes at dim 32) and bucket_stats; a
+bfloat16 value plane of config B's size on the λ 1.0 table's key planes
+takes find_scan, gather_rows (whole rows and 16 columns) and scatter_rows
+(set and add); phase 5 holds gather_rows on its V = 33 plane whole and cut
+to its 32 embedding columns (lookup_train's readback).  Phase 2 also
+replays update_rows (fused, composed, through an OpSession) on both
+backends.
 
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or without the repository around it)
@@ -93,6 +99,8 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -134,6 +142,9 @@ STREAM_CALLS = 10
 # and the float operations each does on a row, a column at a time
 OPTIMIZERS = ("sgd", "sgdm", "adagrad", "rowwise_adagrad")
 FLOPS_PER_COL = {"sgd": 2, "sgdm": 4, "adagrad": 7, "rowwise_adagrad": 4}
+# update_scan's dims past the 8 columns a lane held until PR 16's redesign
+# (qwen2-0.5b's d_model is 896), held on a 2^20-slot table (phase 1)
+WIDE_DIMS = (257, 512, 896)
 NUM_SPARSE = 26                    # DLRM fields (phase 5)
 DENSE_FEATURES = 13
 TRAIN_LR = 0.05                    # the dense update of the DLRM example
@@ -190,6 +201,19 @@ def require(cond: bool, msg: str) -> None:
     """A check that holds under ``python -O`` too."""
     if not cond:
         raise AssertionError(msg)
+
+
+def kernel_name(ptxas_line: str) -> str:
+    """The demangled kernel (with its template arguments) that a ptxas
+    "Compiling entry function" line names."""
+    m = re.search(r"'(_Z\w+)'", ptxas_line)
+    if m is None:
+        return ptxas_line.strip()
+    name = m.group(1)
+    if shutil.which("c++filt"):
+        name = subprocess.run(["c++filt", name], capture_output=True, text=True).stdout.strip()
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip()
 
 
 def main(argv: list[str]) -> int:
@@ -393,7 +417,9 @@ class Smoke:
             log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
             for entry in self._build.build_log:
                 for line in entry.splitlines():
-                    if "registers" in line or line.startswith("[nvcc") or "spill" in line:
+                    if "Compiling entry function" in line:
+                        log("  " + kernel_name(line))
+                    elif "registers" in line or line.startswith("[nvcc") or "spill" in line:
                         log("  " + line.strip())
         t0 = time.perf_counter()
         self.phase_kernels()
@@ -443,8 +469,9 @@ class Smoke:
             log(f"phase 1: λ = {table.load_factor():.6f}")
             self.compare_kernels(table, resident, lam)
             self.compare_new_kernels(table, resident, str(lam))
-            self.compare_update_scan(table, resident, lam)
+            self.compare_update_scan(table, resident, lam, main=True)
             self.compare_bucket_stats(table, lam)
+        self.compare_bf16(table, resident)
         del table
         self.free()
         table = self.config_b(buckets_per_key=1)
@@ -453,6 +480,7 @@ class Smoke:
         self.compare_new_kernels(table, resident, "1.0 single")
         del table
         self.free()
+        self.compare_update_wide()
 
     def free(self):
         if self.dev.type == "cuda":
@@ -474,20 +502,7 @@ class Smoke:
         q = self.queries(resident, n)
         p = self.find_mod.probe_keys(cfg, q)
 
-        # gather_rows: rows of resident and missing keys, half masked
-        r_tot, v = st.values.shape
-        rows = torch.randint(0, r_tot, (n,), generator=self.gen, device=self.dev)
-        mask = torch.rand(n, generator=self.gen, device=self.dev) < 0.5
-        got = self.ga.gather_rows(st.values, rows, mask)
-        self.check_equal("gather_rows", (got,), (self.ga.gather_rows_plain(st.values, rows, mask),), tag)
-        m = int(mask.sum())
-        self.record("gather_rows", **{
-            f"ms@{tag}": self.time_ms(lambda: self.ga.gather_rows(st.values, rows, mask), runs),
-            f"plain_ms@{tag}": self.time_ms(
-                lambda: self.ga.gather_rows_plain(st.values, rows, mask), 2),
-            f"library_ms@{tag}": self.time_ms(
-                lambda: torch.where(mask[:, None], st.values.index_select(0, rows), 0), runs),
-            f"bytes@{tag}": n * (4 + 1) + m * v * 4 + n * v * 4, f"ops@{tag}": 0})
+        self.compare_gather(st.values, tag)
 
         # digest_scan: each candidate bucket row (one in single mode)
         for b in (p.bucket1, p.bucket2) if cfg.buckets_per_key == 2 else (p.bucket1,):
@@ -542,6 +557,74 @@ class Smoke:
         del epochs, epoch_scores
         self.free()
 
+    def compare_gather(self, values, tag: str, width=None):
+        """gather_rows of the first `width` columns (all by default) of
+        `values` against its plain version: rows of resident and missing
+        keys, half masked, the main path's 2^20 lanes; timed beside
+        index_select and the mask, and its bound (the indices, mask and
+        the masked rows' `width` columns read, the output written)."""
+        torch, n, runs = self.torch, self.sz.batch, self.sz.timed_runs
+        r_tot, v = values.shape
+        w = v if width is None else width
+        rows = torch.randint(0, r_tot, (n,), generator=self.gen, device=self.dev)
+        mask = torch.rand(n, generator=self.gen, device=self.dev) < 0.5
+        got = self.ga.gather_rows(values, rows, mask, width)
+        self.check_equal("gather_rows", (got,),
+                         (self.ga.gather_rows_plain(values, rows, mask, width),), tag)
+        m, es = int(mask.sum()), values.element_size()
+        cols = values[:, :w]
+        self.record("gather_rows", **{
+            f"ms@{tag}": self.time_ms(lambda: self.ga.gather_rows(values, rows, mask, width), runs),
+            f"ms_stream@{tag}": self.time_ms(
+                lambda: self.ga.gather_rows(values, rows, mask, width), runs, calls=STREAM_CALLS),
+            f"plain_ms@{tag}": self.time_ms(
+                lambda: self.ga.gather_rows_plain(values, rows, mask, width), 2),
+            f"library_ms@{tag}": self.time_ms(
+                lambda: torch.where(mask[:, None], cols.index_select(0, rows), 0), runs),
+            f"bytes@{tag}": n * (4 + 1) + m * w * es + n * w * es, f"ops@{tag}": 0})
+
+    def compare_bf16(self, table, resident):
+        """A bfloat16 value plane of config B's size (2^27 rows of 32: 8.6
+        GB) on this table's key planes (dual, λ 1.0): find_scan, gather_rows
+        (whole rows and their first 16 columns) and scatter_rows (set and
+        add) against their plain versions; find_scan and gather_rows timed."""
+        torch = self.torch
+        st, cfg = table.state, table.cfg
+        values = torch.empty((st.values.shape[0], DIM), dtype=torch.bfloat16,
+                             device=self.dev).normal_(generator=self.gen)
+        tag = "1.0 bf16"
+        q = self.queries(resident, self.sz.batch)
+        p = self.find_mod.probe_keys(cfg, q)
+        args = (st.digests, st.keys, st.scores, values, p.bucket1, p.bucket2, p.digest, q)
+        want = self.fs.find_scan_plain(*args)
+        self.check_equal("find_scan", self.fs.find_scan(*args), want, tag)
+        self.record("find_scan", **{
+            f"ms@{tag}": self.time_ms(lambda: self.fs.find_scan(*args), self.sz.timed_runs),
+            f"plain_ms@{tag}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
+            **self.find_work(st, p, q, want, tag, values)})
+        self.compare_gather(values, tag)
+        self.compare_gather(values, tag + " width 16", width=16)
+        self.compare_scatter(values, tag, "_bf16@1.0")
+        del values
+        self.free()
+
+    def compare_update_wide(self):
+        """update_scan at dims 257, 512 and 896 (float32 planes), and at
+        dim 32 on bfloat16 planes, on a 2^20-slot dual table past λ 1.0:
+        at 2^20 rows adagrad's plane at dim 896 (V = 1792) is 7.5 GB."""
+        from repro_torch import HKVTable
+
+        table = HKVTable.create(capacity=self.sz.small_capacity, dim=DIM, buckets_per_key=2,
+                                score_policy="lru", device=self.dev)
+        resident = self.fill(table, 1.0)[0]
+        log(f"phase 1: update_scan table of {table.capacity} slots, λ = "
+            f"{table.load_factor():.6f}")
+        for dim in WIDE_DIMS:
+            self.compare_update_scan(table, resident, f"dim {dim}", dim=dim)
+        self.compare_update_scan(table, resident, "bf16", dtype=self.torch.bfloat16)
+        del table
+        self.free()
+
     def digest_work(self, st, bucket, qdigest, tag) -> dict:
         """Least bytes and operations of one digest_scan launch: the query
         inputs (4-byte bucket index, digest, key), the digest line of each
@@ -574,7 +657,7 @@ class Smoke:
                                     f"ms_stream@{lam}": self.time_ms(
                                         lambda: self.fs.find_scan(*args), runs, calls=STREAM_CALLS),
                                     f"plain_ms@{lam}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
-                                    **self.find_work(st, p, q, want, lam)})
+                                    **self.find_work(st, p, q, want, lam, st.values)})
 
         # upsert_probe: the TPU kernel's whole function (mode "both", timed
         # against the bound of every key and score of both rows), and the
@@ -655,7 +738,7 @@ class Smoke:
         mask = torch.rand(n, generator=self.gen, device=self.dev) < 0.9
         rows_i[~mask] = torch.where(torch.arange(n, device=self.dev)[~mask] % 2 == 0,
                                     rows_i[mask][0], r_tot + 5)   # must not write
-        upd = torch.randn((n, v), generator=self.gen, device=self.dev)
+        upd = torch.randn((n, v), generator=self.gen, device=self.dev).to(values.dtype)
         for add in (False, True):
             vp = values.clone()
             self.sc.scatter_rows(values, rows_i, upd, mask, add)
@@ -672,19 +755,20 @@ class Smoke:
                 lambda: self.sc.scatter_rows_plain(values, rows_i, upd, mask, False), 2),
             f"library_ms{key}": self.time_ms(lambda: values.index_put_((rows_m,), upd_m), runs),
             f"fill_ms{key}": self.time_ms(lambda: values.index_fill_(0, rows_m, 0.5), runs),
-            f"bytes{key}": n * (4 + 1) + m * v * 4 * 2, f"ops{key}": 0})
+            f"bytes{key}": n * (4 + 1) + m * v * values.element_size() * 2, f"ops{key}": 0})
         self.free()
 
-    def find_work(self, st, p, q, plain_out, lam) -> dict:
+    def find_work(self, st, p, q, plain_out, lam, values) -> dict:
         """Least bytes and operations of find_scan on these queries.  Bytes:
         the query inputs (4-byte bucket indices); the digest line of every
         probed row (none for an EMPTY key, bucket2 only after a miss in
-        bucket1); the keys whose digest matched; the score and value row of
-        each hit; and the outputs.  Operations: 128 digest bytes a probed
-        row, four to a 32-bit compare, and one 64-bit equality a candidate."""
+        bucket1); the keys whose digest matched; the score and value row
+        (of `values`' elements) of each hit; and the outputs.  Operations:
+        128 digest bytes a probed row, four to a 32-bit compare, and one
+        64-bit equality a candidate."""
         torch = self.torch
         found, sel = plain_out[0].bool(), plain_out[1].bool()
-        n, v = q.shape[0], st.values.shape[1]
+        n, row = q.shape[0], values.shape[1] * values.element_size()
         valid = q != self.u64.EMPTY
         second = valid & ~(found & ~sel) & (p.bucket2 != p.bucket1)   # probed after bucket1
         probed_b = torch.cat([p.bucket1[valid], p.bucket2[second]])
@@ -692,8 +776,8 @@ class Smoke:
         cand = int((st.digests[probed_b] == p.digest[probed_q][:, None]).sum())
         rows = torch.unique(probed_b).numel()
         hits = int(found.sum())
-        return {f"bytes@{lam}": (n * (4 + 4 + 1 + 8) + rows * 128 + cand * 8 + hits * (8 + v * 4)
-                                 + n * (4 + 4 + 4 + 8 + v * 4)),
+        return {f"bytes@{lam}": (n * (4 + 4 + 1 + 8) + rows * 128 + cand * 8 + hits * (8 + row)
+                                 + n * (4 + 4 + 4 + 8 + row)),
                 f"ops@{lam}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP}
 
     def match_work(self, st, p, q, plain_out, key) -> dict:
@@ -741,21 +825,25 @@ class Smoke:
         flat = values.view(-1).view(torch.int32)
         return sum(int(c.sum(dtype=torch.int64)) for c in flat.split(2**28))
 
-    def compare_update_scan(self, table, resident, lam):
+    def compare_update_scan(self, table, resident, tag, dim=DIM, dtype=None, main=False):
         """update_scan against its plain version for every optimizer and
         both bucket modes, on this table's key planes, with the main path's
         query count (a DLRM step's keys): unique keys, half resident, some
-        EMPTY and some with the gate off.  The value plane of each row width
-        is the table's own (V = 32) or one made for the check and filled with
-        uniform [0, 1) floats (adagrad accumulators must be >= 0); it is not
-        cloned: the rows a hit may touch are saved, the kernel runs, those
-        rows are read and the saved ones put back, and a checksum shows the
-        rest of the plane unchanged; then the plain version runs the same
-        way."""
+        EMPTY and some with the gate off; at `dim`, on value planes of
+        `dtype` (the table's own).  The value plane of each row width is
+        the table's own (`main`: config B's V = 32) or one made for the
+        check and filled with uniform [0, 1) values (adagrad accumulators
+        must be >= 0); it is not cloned: the rows a hit may touch are saved,
+        the kernel runs, those rows are read and the saved ones put back,
+        and a checksum shows the rest of the plane unchanged; then the plain
+        version runs the same way.  Every case is timed; rowwise_adagrad in
+        dual mode (config B's optimizer) also against its plain version and
+        its bound.  `tag` suffixes the recorded numbers."""
         from repro_torch.embedding.sparse_opt import SparseOptimizer
 
         torch, sz, u64 = self.torch, self.sz, self.u64
         st, cfg = table.state, table.cfg
+        dtype = st.values.dtype if dtype is None else dtype
         n = sz.train_batch * NUM_SPARSE
         q = torch.cat([resident[: n // 2], self.fresh_keys(n - n // 2)])
         q = q[torch.randperm(n, generator=self.gen, device=self.dev)]
@@ -763,74 +851,80 @@ class Smoke:
         p = self.find_mod.probe_keys(cfg, q)
         valid = p.valid.clone()
         valid[::13] = False
-        grads = torch.randn((n, DIM), generator=self.gen, device=self.dev)
+        grads = torch.randn((n, dim), generator=self.gen, device=self.dev).to(dtype)
         # the rows a hit may touch: resident in either candidate bucket
         # (single mode touches a subset: those in bucket1)
         loc = self.find_mod.locate(st, cfg, q)
         rows = loc.row[loc.found & valid]
         hit1 = loc.found & (loc.bucket == p.bucket1)
-        planes = {st.values.shape[1]: st.values}
+        own = {st.values.shape[1]: st.values} if main else {}
+        planes = dict(own)
         for opt_name in OPTIMIZERS:
             opt = SparseOptimizer(opt_name, lr=0.05)
-            v = DIM + opt.aux_dim(DIM)
+            v = dim + opt.aux_dim(dim)
             if v not in planes:
                 values = None   # one extra plane at a time: drop the last first
-                planes = {st.values.shape[1]: st.values}
+                planes = dict(own)
                 self.free()
                 planes[v] = torch.rand((st.values.shape[0], v), generator=self.gen,
-                                       device=self.dev)
+                                       device=self.dev, dtype=dtype)
             values = planes[v]
             for mode in ("dual", "single"):
                 b2 = p.bucket2 if mode == "dual" else p.bucket1
                 args = (st.digests, st.keys, values, p.bucket1, b2, p.digest, q, valid, grads,
-                        opt, DIM)
+                        opt, dim)
                 saved = values[rows].clone()
                 before = self.checksum(values)
                 fk = self.up.update_scan(*args)
                 got = values[rows].clone()
                 values[rows] = saved
                 require(self.checksum(values) == before,
-                        f"update_scan {opt_name} {mode} λ={lam}: a row outside the hits moved")
+                        f"update_scan {opt_name} {mode} {tag}: a row outside the hits moved")
                 fp = self.up.update_scan_plain(*args)
                 want = values[rows].clone()
                 values[rows] = saved
                 self.check_equal("update_scan", (fk, got), (fp, want),
-                                 f"{lam} {opt_name} {mode}")
+                                 f"{tag} {opt_name} {mode}")
                 require(0 < int(fk.sum()) < n, "update_scan: no hits or no misses")
                 t = self.time_ms(lambda: self.up.update_scan(*args), sz.timed_runs)
                 values[rows] = saved
-                self.record("update_scan", **{f"ms_{opt_name}_{mode}@{lam}": t})
+                self.record("update_scan", **{f"ms_{opt_name}_{mode}@{tag}": t})
                 if opt_name != "rowwise_adagrad" or mode != "dual":
                     continue
                 # config B's optimizer in dual mode: the main path's launch
                 self.record("update_scan", **{
-                    f"ms@{lam}": t,
-                    f"plain_ms@{lam}": self.time_ms(lambda: self.up.update_scan_plain(*args), 2),
-                    **self.update_work(st, p, q, valid, hit1, fk.bool(), v, opt_name, lam)})
+                    f"ms@{tag}": t,
+                    f"ms_stream@{tag}": self.time_ms(lambda: self.up.update_scan(*args),
+                                                     sz.timed_runs, calls=STREAM_CALLS),
+                    f"plain_ms@{tag}": self.time_ms(lambda: self.up.update_scan_plain(*args), 2),
+                    **self.update_work(st, p, q, valid, hit1, fk.bool(), values, dim, opt_name,
+                                       tag)})
                 values[rows] = saved
         del planes, values
         self.free()
 
-    def update_work(self, st, p, q, valid, hit1, found, v, opt_name, lam) -> dict:
+    def update_work(self, st, p, q, valid, hit1, found, values, dim, opt_name, tag) -> dict:
         """Least bytes and operations of update_scan on these queries.
         Bytes: each lane's inputs (4-byte bucket indices, key, digest,
         gate) and found word; the digest line of every probed row (bucket2
         only after a miss in bucket1); the keys whose digest matched; and on
-        a hit its gradient row and the value row read and written.
-        Operations: the digest compares and key equalities in int32, the
-        optimizer's float operations on each hit row."""
+        a hit its gradient row and the value row read and written (in the
+        plane's element size).  Operations: the digest compares and key
+        equalities in int32, the optimizer's float operations on each hit
+        row."""
         torch = self.torch
         n = q.shape[0]
+        es, v = values.element_size(), values.shape[1]
         second = valid & ~hit1 & (p.bucket2 != p.bucket1)
         probed_b = torch.cat([p.bucket1[valid], p.bucket2[second]])
         probed_q = torch.cat([torch.nonzero(valid).flatten(), torch.nonzero(second).flatten()])
         cand = int((st.digests[probed_b] == p.digest[probed_q][:, None]).sum())
         rows = torch.unique(probed_b).numel()
         hits = int(found.sum())
-        return {f"bytes@{lam}": (n * (4 + 4 + 8 + 1 + 1 + 4) + rows * 128 + cand * 8
-                                 + hits * (DIM * 4 + 2 * v * 4)),
-                f"ops@{lam}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP,
-                f"flops@{lam}": hits * DIM * FLOPS_PER_COL[opt_name]}
+        return {f"bytes@{tag}": (n * (4 + 4 + 8 + 1 + 1 + 4) + rows * 128 + cand * 8
+                                 + hits * (dim * es + 2 * v * es)),
+                f"ops@{tag}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP,
+                f"flops@{tag}": hits * dim * FLOPS_PER_COL[opt_name]}
 
     def compare_bucket_stats(self, table, lam):
         """bucket_stats against its plain version over the whole table, and
@@ -1528,6 +1622,9 @@ class Smoke:
                 f"{t:.3f} ms, launches {json.dumps(route)}")
         self.compare_scatter(table.state.values, "V=33 phase 5 plane", "_v33@1.0")
         self.compare_find_wide(table, resident)
+        # lookup_train's readback: the 32 embedding columns of the V = 33 rows
+        self.compare_gather(table.state.values, "1.0 V=33 width 32", width=DIM)
+        self.compare_gather(table.state.values, "1.0 V=33")
         del table
         self.free()
         self.train_twin(emb, losses)
@@ -1546,7 +1643,7 @@ class Smoke:
         self.record("find_scan", **{
             f"ms@{tag}": self.time_ms(lambda: self.fs.find_scan(*args), self.sz.timed_runs),
             f"plain_ms@{tag}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
-            **self.find_work(st, p, q, want, tag)})
+            **self.find_work(st, p, q, want, tag, st.values)})
 
     def train_twin(self, emb, losses):
         """The same DLRM steps on a 2^20-slot table (a 2^11-slot one in the
@@ -1607,11 +1704,15 @@ class Smoke:
         for lam, (f, i) in self.throughput.items():
             log(f"throughput λ={lam}: find {f:.4f} B-KV/s, insert_or_assign {i:.4f} B-KV/s")
         for name, st in sorted(self.stats.items()):
-            for lam in (0.5, 1.0, "1.0 single", "1.0 V=33"):
+            for lam in (0.5, 1.0, "1.0 single", "1.0 V=33", "1.0 V=33 width 32", "1.0 bf16",
+                        "1.0 bf16 width 16", *(f"dim {d}" for d in WIDE_DIMS), "bf16"):
                 if f"ms@{lam}" not in st:
                     continue
                 bound, by = self.bound(st, lam)
-                log(f"kernel {name} λ={lam}: {st[f'ms@{lam}']:.4f} ms, plain "
+                where = f"λ={lam}" if str(lam)[0].isdigit() else lam
+                stream = (f" ({st[f'ms_stream@{lam}']:.4f} ms a call in a stream of "
+                          f"{STREAM_CALLS})" if f"ms_stream@{lam}" in st else "")
+                log(f"kernel {name} {where}: {st[f'ms@{lam}']:.4f} ms{stream}, plain "
                     f"{st[f'plain_ms@{lam}']:.4f} ms, bound {bound:.4f} ms by {by} (bytes "
                     f"{self.bytes_ms(st, lam):.4f} ms, operations {self.ops_ms(st, lam):.4f} ms)"
                     + (f", library {st[f'library_ms@{lam}']:.4f} ms" if f"library_ms@{lam}" in st else ""))
@@ -1644,8 +1745,10 @@ class Smoke:
             log(f"op {name} ({mode}) from λ {lam:.6f}: {t:.3f} ms ({rate}; median of "
                 f"{self.sz.timed_runs})")
         up = self.stats["update_scan"]
-        for lam in (0.5, 1.0):
-            log(f"update_scan λ={lam} by optimizer and mode: " + ", ".join(
+        for lam in (0.5, 1.0, *(f"dim {d}" for d in WIDE_DIMS), "bf16"):
+            where = (f"λ={lam} (config B, dim {DIM})" if isinstance(lam, float) else
+                     f"{lam} (2^20-slot table, λ 1.0" + (f", dim {DIM})" if lam == "bf16" else ")"))
+            log(f"update_scan {where} by optimizer and mode: " + ", ".join(
                 f"{o} {m} {up[f'ms_{o}_{m}@{lam}']:.4f} ms" for o in OPTIMIZERS
                 for m in ("dual", "single")))
         if self.train_cmp:
@@ -1663,7 +1766,8 @@ class Smoke:
             f"{sr['plain_ms_v33@1.0']:.4f} ms, library {sr['library_ms_v33@1.0']:.4f} ms, the "
             f"stores alone (index_fill_) {sr['fill_ms_v33@1.0']:.4f} ms, bound {bound:.4f} ms by "
             f"{by}; at V=32 (phase 1, λ=1.0) {sr['ms@1.0']:.4f} ms, the stores alone "
-            f"{sr['fill_ms@1.0']:.4f} ms")
+            f"{sr['fill_ms@1.0']:.4f} ms; on the bfloat16 V=32 plane {sr['ms_bf16@1.0']:.4f} ms, "
+            f"library {sr['library_ms_bf16@1.0']:.4f} ms")
         for lam in (0.5, 1.0):
             log(f"claim_scan λ={lam}: every query on one cached row {cs[f'ms_one_row@{lam}']:.4f} ms "
                 f"against {cs[f'ms@{lam}']:.4f} ms spread over the table; its own s*s compare loop "

@@ -16,7 +16,12 @@ named as the JAX result's fields: ``stream_to_arrays`` (an
 reference), ``export_to_arrays`` (an ``ExportResult``); and a JAX
 ``SweepPredicate`` (kind and four uint32 operands) comes across with
 ``predicate_from_arrays``.  The value plane is carried whole, aux
-optimizer columns included (V = dim + aux).
+optimizer columns included (V = dim + aux), bit for bit in its own dtype:
+a float32 plane as it is, and a bfloat16 one through a ``uint16`` view on
+both sides (numpy has no bfloat16 of its own; the JAX package's is
+``ml_dtypes.bfloat16``, and torch reads no numpy array of that dtype).
+``ml_dtypes`` is imported only where a bfloat16 tensor goes out to numpy,
+so the port needs it only on a machine that holds the JAX package too.
 
 ``dlrm_params_from_jax`` carries the reference DLRM's parameter dict
 (``bottom1``, ``bottom2``, ``top1``, ``top2`` as numpy arrays) into a state
@@ -51,6 +56,26 @@ def _split(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
             (words & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
 
+def values_from_numpy(a) -> torch.Tensor:
+    """A numpy value plane or batch -> a CPU tensor of the same dtype and
+    bits (an ``ml_dtypes.bfloat16`` array becomes ``torch.bfloat16``)."""
+    a = np.array(a)   # a writable copy: a JAX array's numpy view is read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def values_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A value tensor -> numpy, bit for bit (``torch.bfloat16`` becomes
+    ``ml_dtypes.bfloat16``, imported here only)."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return x.contiguous().view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
 def state_from_arrays(arrays: Any, device=None) -> HKVState:
     """A JAX-layout state (mapping or object with the FIELDS) -> HKVState
     on `device` (default: the card)."""
@@ -61,7 +86,7 @@ def state_from_arrays(arrays: Any, device=None) -> HKVState:
         keys=_join(get("key_hi"), get("key_lo")).to(device),
         digests=torch.from_numpy(get("digests").astype(np.uint8)).to(device),
         scores=_join(get("score_hi"), get("score_lo")).to(device),
-        values=torch.from_numpy(np.array(get("values"))).to(device),
+        values=values_from_numpy(get("values")).to(device),
         clock=(int(get("clock_hi")) << 32) | int(get("clock_lo")),
         epoch=int(get("epoch")),
     )
@@ -75,7 +100,7 @@ def state_to_arrays(state: HKVState) -> dict[str, np.ndarray]:
         "key_hi": key_hi, "key_lo": key_lo,
         "digests": state.digests.cpu().numpy(),
         "score_hi": score_hi, "score_lo": score_lo,
-        "values": state.values.detach().cpu().numpy(),
+        "values": values_to_numpy(state.values),
         "clock_hi": np.uint32(state.clock >> 32),
         "clock_lo": np.uint32(state.clock & 0xFFFFFFFF),
         "epoch": np.uint32(state.epoch),
@@ -89,7 +114,7 @@ def _words(prefix: str, x: torch.Tensor) -> dict[str, np.ndarray]:
 
 def stream_to_arrays(stream) -> dict[str, np.ndarray]:
     """EvictionStream -> the JAX EvictionStream's fields as numpy."""
-    return {**_words("key", stream.keys), "values": stream.values.detach().cpu().numpy(),
+    return {**_words("key", stream.keys), "values": values_to_numpy(stream.values),
             **_words("score", stream.scores), "mask": stream.mask.cpu().numpy()}
 
 
@@ -102,7 +127,7 @@ def locate_to_arrays(loc) -> dict[str, np.ndarray]:
 
 def export_to_arrays(res) -> dict[str, np.ndarray]:
     """ops.ExportResult -> the JAX ExportResult's fields as numpy."""
-    return {**_words("key", res.keys), "values": res.values.detach().cpu().numpy(),
+    return {**_words("key", res.keys), "values": values_to_numpy(res.values),
             **_words("score", res.scores), "mask": res.mask.cpu().numpy()}
 
 

@@ -235,6 +235,11 @@ class HKVTable:
         return find_mod.probe_keys(self.cfg, self.keys(keys))
 
     def _rows(self, values: Any) -> torch.Tensor:
+        if isinstance(values, np.ndarray) and values.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16 (the JAX package's), which torch cannot read
+            from repro_torch.convert import values_from_numpy
+
+            values = values_from_numpy(values)
         return torch.as_tensor(values, device=self.device)
 
     def _opt_keys(self, x: Optional[Any]) -> Optional[torch.Tensor]:

@@ -22,23 +22,26 @@
 //     them bytewise; keys are read only where the digest matched, and the
 //     second row only after a miss in the first;
 //   - one lane of the group reads the hit's score; the group's 8 lanes copy
-//     the value row, 16 bytes a lane (V = 32: one 128-byte row in one
-//     vector load and store a lane) where the wrapper found V*4 a multiple
-//     of 16 and both planes 16-byte aligned, else in 4-byte words (V = 33,
-//     the training plane).
+//     the value row in units of 16 bytes (float32 at V = 32: one 128-byte
+//     row in one vector load and store a lane) where the wrapper found the
+//     row's bytes a multiple of 16 and both planes 16-byte aligned, else in
+//     4-byte or, for a bfloat16 row of odd width, 2-byte units (V = 33, the
+//     training plane, takes 4-byte units).  The copy never looks at the
+//     element type, so float32 and bfloat16 planes are copied bit for bit.
 #include "hkv_common.cuh"
 
 namespace {
 
-template <bool kVec>
+// U is the copy unit (uint4, uint32_t or uint16_t); v is the row width in U.
+template <typename U>
 __global__ void __launch_bounds__(hkv::kWarp * hkv::kWarpsPerBlock, hkv::kFullOccupancyBlocks)
 find_scan_kernel(const uint8_t* __restrict__ digests, const int64_t* __restrict__ keys,
-                 const int64_t* __restrict__ scores, const float* __restrict__ values,
+                 const int64_t* __restrict__ scores, const U* __restrict__ values,
                  const int64_t* __restrict__ bucket1, const int64_t* __restrict__ bucket2,
                  const uint8_t* __restrict__ qdigest, const int64_t* __restrict__ qkeys,
                  int32_t* __restrict__ found, int32_t* __restrict__ sel_out,
                  int32_t* __restrict__ slot_out, int64_t* __restrict__ score_out,
-                 float* __restrict__ vals_out, int64_t n, int64_t v, int use_digest) {
+                 U* __restrict__ vals_out, int64_t n, int64_t v, int use_digest) {
   const int lane = threadIdx.x % hkv::kWarp;
   const int g = lane % hkv::kGroup;
   const int64_t q0 = (static_cast<int64_t>(blockIdx.x) * hkv::kWarpsPerBlock +
@@ -67,23 +70,14 @@ find_scan_kernel(const uint8_t* __restrict__ digests, const int64_t* __restrict_
     score_out[q] = hit ? scores[row] : 0;
   }
   // a row is narrow (V < 2^31 columns); only its offset needs 64 bits
-  const int width = static_cast<int>(kVec ? v / 4 : v);
-  if (kVec) {
-    float4* dst = reinterpret_cast<float4*>(vals_out + q * v);
-    if (hit) {
-      const float4* src = reinterpret_cast<const float4*>(values + row * v);
-      for (int d = g; d < width; d += hkv::kGroup) dst[d] = src[d];
-    } else {
-      for (int d = g; d < width; d += hkv::kGroup) dst[d] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+  const int width = static_cast<int>(v);
+  U* dst = vals_out + q * v;
+  if (hit) {
+    const U* src = values + row * v;
+    for (int d = g; d < width; d += hkv::kGroup) dst[d] = src[d];
   } else {
-    float* dst = vals_out + q * v;
-    if (hit) {
-      const float* src = values + row * v;
-      for (int d = g; d < width; d += hkv::kGroup) dst[d] = src[d];
-    } else {
-      for (int d = g; d < width; d += hkv::kGroup) dst[d] = 0.0f;
-    }
+    const U zero{};
+    for (int d = g; d < width; d += hkv::kGroup) dst[d] = zero;
   }
 }
 
@@ -92,16 +86,19 @@ find_scan_kernel(const uint8_t* __restrict__ digests, const int64_t* __restrict_
 extern "C" int hkv_find_scan(const void* digests, const void* keys, const void* scores,
                              const void* values, const void* bucket1, const void* bucket2,
                              const void* qdigest, const void* qkeys, void* found, void* sel,
-                             void* slot, void* score, void* vals, int64_t n, int64_t v,
-                             int use_digest, int vec, void* stream) {
-  auto kernel = vec ? find_scan_kernel<true> : find_scan_kernel<false>;
-  kernel<<<hkv::blocks_for_groups(n), hkv::kWarp * hkv::kWarpsPerBlock, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(digests), static_cast<const int64_t*>(keys),
-      static_cast<const int64_t*>(scores), static_cast<const float*>(values),
-      static_cast<const int64_t*>(bucket1), static_cast<const int64_t*>(bucket2),
-      static_cast<const uint8_t*>(qdigest), static_cast<const int64_t*>(qkeys),
-      static_cast<int32_t*>(found), static_cast<int32_t*>(sel), static_cast<int32_t*>(slot),
-      static_cast<int64_t*>(score), static_cast<float*>(vals), n, v, use_digest);
-  return static_cast<int>(cudaGetLastError());
+                             void* slot, void* score, void* vals, int64_t n, int64_t row_bytes,
+                             int use_digest, int unit, void* stream) {
+  if (unit <= 0 || row_bytes % unit != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = hkv::with_unit(unit, [&](auto u) {
+    using U = decltype(u);
+    find_scan_kernel<U><<<hkv::blocks_for_groups(n), hkv::kWarp * hkv::kWarpsPerBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(digests), static_cast<const int64_t*>(keys),
+        static_cast<const int64_t*>(scores), static_cast<const U*>(values),
+        static_cast<const int64_t*>(bucket1), static_cast<const int64_t*>(bucket2),
+        static_cast<const uint8_t*>(qdigest), static_cast<const int64_t*>(qkeys),
+        static_cast<int32_t*>(found), static_cast<int32_t*>(sel), static_cast<int32_t*>(slot),
+        static_cast<int64_t*>(score), static_cast<U*>(vals), n, row_bytes / unit, use_digest);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }

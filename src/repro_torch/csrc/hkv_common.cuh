@@ -2,12 +2,13 @@
 //
 // Table layout (see repro_torch/core/table.py): digests uint8 [B, 128],
 // keys and scores int64 [B, 128] holding unsigned 64-bit words, values
-// float32 [B*128, V].  EMPTY is the all-ones key (-1 as int64).  Every
-// row or element offset is computed in 64 bits: at the paper's config B
-// (2^27 rows of 32 floats) a value offset passes 2^31.
+// float32 or bfloat16 [B*128, V].  EMPTY is the all-ones key (-1 as
+// int64).  Every row or element offset is computed in 64 bits: at the
+// paper's config B (2^27 rows of 32 floats) a value offset passes 2^31.
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hkv {
@@ -104,6 +105,36 @@ __device__ __forceinline__ int group_match_row(const uint8_t* __restrict__ diges
   const int first = gbits ? __ffs(gbits) - 1 : 0;
   const unsigned bits = __shfl_sync(kFullMask, mine, leader + first);
   return gbits ? first * kSlotsPerGroupLane + (__ffs(bits) - 1) : -1;
+}
+
+// Value elements.  A kernel that only copies values moves them in units of
+// 16, 4 or 2 bytes, whatever the element (the wrapper picks the widest
+// unit that divides every row and both planes' alignment), so a copy is
+// bit-exact by construction.  A kernel that computes on values reads each
+// element into float32, computes there, and rounds a bfloat16 result to
+// nearest even once, where it is stored.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Calls f(U{}) with U the copy unit of `unit` bytes (16, 4 or 2); false for
+// any other size.
+template <typename F>
+inline bool with_unit(int unit, F&& f) {
+  switch (unit) {
+    case 16: f(uint4{}); return true;
+    case 4: f(uint32_t{}); return true;
+    case 2: f(uint16_t{}); return true;
+    default: return false;
+  }
 }
 
 inline unsigned blocks_for_warps(int64_t n) {

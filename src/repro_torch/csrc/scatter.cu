@@ -20,33 +20,49 @@
 //     for add, the destination read) before any is stored, so a group
 //     costs one round trip for the indices and about one for its rows,
 //     with every lane busy whatever the width;
-//   - elements are 16 bytes (float4) where V % 4 == 0 and both the plane
-//     and the updates are 16-byte aligned, else 4 bytes: V = 33, the
-//     training path's rowwise_adagrad plane, takes the 4-byte path with
-//     no idle lane.  Its 132-byte rows end inside 32-byte sectors, and
-//     the partial sectors' stores cost more than the rest of the kernel
-//     (on an H100, index_fill_ of the same rows, which reads nothing,
-//     takes most of the time at V = 33 and a small part at V = 32).
+//   - elements are copy units of 16 bytes where the row's bytes are a
+//     multiple of 16 and both the plane and the updates are 16-byte
+//     aligned, else 4 bytes, or 2 for a bfloat16 row of odd width (the
+//     wrapper decides).  V = 33, the training path's rowwise_adagrad plane,
+//     takes 4-byte units with no idle lane.  Its 132-byte rows end inside
+//     32-byte sectors, and the partial sectors' stores cost more than the
+//     rest of the kernel (on an H100, index_fill_ of the same rows, which
+//     reads nothing, takes most of the time at V = 33 and a small part at
+//     V = 32).
 // Masked-out lanes and rows outside the plane write nothing and read no
 // update, so the TPU kernel's masked-out-first sort (which kept its no-op
 // rewrites from clobbering real writes) is not needed.  Masked rows are
-// unique by precondition, so there are no atomics.  The add is
-// __fadd_rn, a plain rounded float32 add, as in the reference.  Offsets
-// are 64-bit: config B's plane passes 2^31 floats.
+// unique by precondition, so there are no atomics.  Without add a unit is
+// copied as it is, bit for bit.  The add takes each element of a unit
+// apart: float32 adds with __fadd_rn, a plain rounded float32 add as in
+// the reference; bfloat16 adds in float32 and rounds once to bfloat16
+// (__float2bfloat16_rn), which is the correctly rounded bfloat16 sum (a
+// float32 sum of two bfloat16 values rounded again to bfloat16 suffers no
+// double-rounding error, as 24 >= 2 * 8 + 2), so it equals index_add_ on
+// unique rows.  Offsets are 64-bit: config B's plane passes 2^31 floats.
 #include "hkv_common.cuh"
 
 namespace {
 
 constexpr int kUnroll = 8;   // elements a lane has in flight
 
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                     __fadd_rn(a.w, b.w));
+// The elementwise rounded sum of two units of E elements each.
+template <typename E, typename U>
+__device__ __forceinline__ U add_rn(U a, U b) {
+  constexpr int k = sizeof(U) / sizeof(E);
+  const E* x = reinterpret_cast<const E*>(&a);
+  const E* y = reinterpret_cast<const E*>(&b);
+  U s;
+  E* z = reinterpret_cast<E*>(&s);
+#pragma unroll
+  for (int i = 0; i < k; ++i)
+    z[i] = hkv::from_float<E>(__fadd_rn(hkv::to_float(x[i]), hkv::to_float(y[i])));
+  return s;
 }
 
-// T is the element moved (float or float4); w is the row width in T.
-template <typename T>
+// T is the copy unit (uint4, uint32_t or uint16_t) and E the element
+// (float or bf16); w is the row width in T.
+template <typename T, typename E>
 __global__ void __launch_bounds__(hkv::kWarp * hkv::kWarpsPerBlock)
 scatter_rows_kernel(T* __restrict__ values, const int64_t* __restrict__ rows,
                     const T* __restrict__ updates, const bool* __restrict__ mask,
@@ -95,30 +111,36 @@ scatter_rows_kernel(T* __restrict__ values, const int64_t* __restrict__ rows,
     }
 #pragma unroll
     for (int t = 0; t < kUnroll; ++t)
-      if (live[t]) values[off[t]] = add ? add_rn(d[t], u[t]) : u[t];
+      if (live[t]) values[off[t]] = add ? add_rn<E>(d[t], u[t]) : u[t];
   }
 }
 
 }  // namespace
 
 extern "C" int hkv_scatter_rows(void* values, const void* rows, const void* updates,
-                                const void* mask, int64_t n, int64_t num_rows, int64_t d,
-                                int add, void* stream) {
+                                const void* mask, int64_t n, int64_t num_rows, int64_t row_bytes,
+                                int add, int elem_bytes, int unit, void* stream) {
+  if (unit <= 0 || row_bytes % unit != 0 || unit < elem_bytes ||
+      (elem_bytes != 4 && elem_bytes != 2) || row_bytes / unit > (int64_t{1} << 25))
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = hkv::blocks_for_warps((n + hkv::kWarp - 1) / hkv::kWarp);
   const int threads = hkv::kWarp * hkv::kWarpsPerBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(updates) % 16 == 0;
-  if (vec) {
-    scatter_rows_kernel<float4><<<blocks, threads, 0, s>>>(
-        static_cast<float4*>(values), static_cast<const int64_t*>(rows),
-        static_cast<const float4*>(updates), static_cast<const bool*>(mask), n, num_rows,
-        static_cast<int>(d / 4), add);
-  } else {
-    scatter_rows_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<float*>(values), static_cast<const int64_t*>(rows),
-        static_cast<const float*>(updates), static_cast<const bool*>(mask), n, num_rows,
-        static_cast<int>(d), add);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool ok = hkv::with_unit(unit, [&](auto u) {
+    using T = decltype(u);
+    auto launch = [&](auto kernel) {
+      kernel<<<blocks, threads, 0, s>>>(
+          static_cast<T*>(values), static_cast<const int64_t*>(rows),
+          static_cast<const T*>(updates), static_cast<const bool*>(mask), n, num_rows,
+          static_cast<int>(row_bytes / unit), add);
+    };
+    if constexpr (sizeof(T) >= sizeof(float)) {
+      if (elem_bytes == 4) {
+        launch(scatter_rows_kernel<T, float>);
+        return;
+      }
+    }
+    launch(scatter_rows_kernel<T, hkv::bf16>);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }

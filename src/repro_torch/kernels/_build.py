@@ -37,11 +37,11 @@ _SIGNATURES = {
     "hkv_find_scan": "PPPPPPPPPPPPPIIiiP",
     "hkv_upsert_probe": "PPPPPPPPPPPPIiiP",
     "hkv_claim_scan": "PPPPPPPPIP",
-    "hkv_scatter_rows": "PPPPIIIiP",
-    "hkv_gather_rows": "PPPPIIiP",
+    "hkv_scatter_rows": "PPPPIIIiiiP",
+    "hkv_gather_rows": "PPPPIIIIiP",
     "hkv_digest_scan": "PPPPPPPIP",
     "hkv_sweep_match": "PPPPIiIIP",
-    "hkv_update_scan": "PPPPPPPPPPIIiiifffP",
+    "hkv_update_scan": "PPPPPPPPPPIIiiifffiP",
     "hkv_bucket_stats": "PPPPPIP",
 }
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
@@ -127,6 +127,27 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"kernel {name} failed to launch: cudaError {err}")
     launch_counts[name] += 1
+
+
+# The value planes the kernels take: float32 and bfloat16.
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_values(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """A value plane or batch: float32 or bfloat16, contiguous, `shape`."""
+    check(t.dtype in VALUE_DTYPES, f"{name}: dtype {t.dtype}, expected float32 or bfloat16")
+    check_tensor(name, t, t.dtype, shape, device, t.element_size())
+
+
+def copy_unit(byte_counts, tensors) -> int:
+    """The widest copy unit (16, 4 or 2 bytes) that divides every row
+    length in `byte_counts` and every tensor's address: value rows move in
+    16-byte words where every row starts on a 16-byte boundary."""
+    for unit in (16, 4, 2):
+        if all(b % unit == 0 for b in byte_counts) and all(
+                t.data_ptr() % unit == 0 for t in tensors):
+            return unit
+    raise ValueError(f"rows of {list(byte_counts)} bytes have no 2-byte copy unit")
 
 
 def check(cond: bool, msg: str) -> None:

@@ -4,7 +4,8 @@ Replaces the TPU kernels ``find_scan_tlp`` and ``find_scan_pipeline``
 (``src/repro/kernels/find_scan.py``), one function on two TPU schedules.
 Per query, over both candidate rows: digest pre-filter, full-key confirm,
 hit in bucket1 wins (a miss reports bucket1, slot 0), the hit slot's score,
-and its value row (zeros on a miss).  An EMPTY query key is a miss.  (The
+and its value row (zeros on a miss), float32 or bfloat16, copied bit for
+bit.  An EMPTY query key is a miss.  (The
 reference kernel lets it match empty slots and its wrapper masks found,
 values and scores afterwards; deciding it here spares that pass.)
 """
@@ -52,10 +53,10 @@ def find_scan(digests, keys, scores, values, bucket1, bucket2, qdigest, qkeys,
     b, s = keys.shape
     n, v = qkeys.shape[0], values.shape[1]
     _build.check(s == 128, "find_scan: the kernel takes 128 slots per bucket")
+    _build.check_values("values", values, (b * s, v), dev)
     for name, t, dt, shape, align in (   # digest lines and keys are read in 16-byte words
             ("digests", digests, torch.uint8, (b, s), 16), ("keys", keys, torch.int64, (b, s), 16),
             ("scores", scores, torch.int64, (b, s), 8),
-            ("values", values, torch.float32, (b * s, v), 4),
             ("bucket1", bucket1, torch.int64, (n,), 8), ("bucket2", bucket2, torch.int64, (n,), 8),
             ("qdigest", qdigest, torch.uint8, (n,), 1), ("qkeys", qkeys, torch.int64, (n,), 8)):
         _build.check_tensor(name, t, dt, shape, dev, align)
@@ -65,9 +66,11 @@ def find_scan(digests, keys, scores, values, bucket1, bucket2, qdigest, qkeys,
     score = torch.empty(n, dtype=torch.int64, device=dev)
     vals = torch.empty((n, v), dtype=values.dtype, device=dev)
     # rows move in 16-byte words where every row starts on a 16-byte
-    # boundary of both planes, else in 4-byte words (V = 33, a view at an offset)
-    vec = v % 4 == 0 and values.data_ptr() % 16 == 0 and vals.data_ptr() % 16 == 0
+    # boundary of both planes, else in 4- or 2-byte words (V = 33, a view
+    # at an offset)
+    row_bytes = v * values.element_size()
+    unit = _build.copy_unit((row_bytes,), (values, vals))
     if n:
         _build.launch(NAME, digests, keys, scores, values, bucket1, bucket2, qdigest,
-                      qkeys, found, sel, slot, score, vals, n, v, int(use_digest), int(vec))
+                      qkeys, found, sel, slot, score, vals, n, row_bytes, int(use_digest), unit)
     return found, sel, slot, score, vals

@@ -105,9 +105,10 @@ def locate_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                            row=bucket * cfg.slots_per_bucket + slot)
 
 
-def gather_rows_kernel(state: HKVState, loc: find_mod.Locate, dim: int) -> torch.Tensor:
-    """The value rows at `loc` (zeros where not found), first `dim` columns."""
-    return gather_rows(state.values, loc.row, loc.found)[:, :dim]
+def gather_rows_kernel(state: HKVState, loc: find_mod.Locate, width: int) -> torch.Tensor:
+    """The value rows at `loc` (zeros where not found), first `width`
+    columns: the kernel reads only those."""
+    return gather_rows(state.values, loc.row, loc.found, width)
 
 
 def sweep_mask_kernel(state: HKVState, pred: SweepPredicate) -> torch.Tensor:

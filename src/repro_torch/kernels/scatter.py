@@ -3,8 +3,12 @@
 
 Replaces ``scatter_rows`` (``src/repro/kernels/scatter.py``), both
 ``add=False`` and ``add=True``: ``values[rows[i]] (+)= updates[i]`` where
-``mask[i]``.  Rows outside the plane are dropped, like the reference's
-``mode="drop"``.  Masked rows must be unique within the batch.
+``mask[i]``, float32 or bfloat16.  Rows outside the plane are dropped,
+like the reference's ``mode="drop"``.  Masked rows must be unique within
+the batch.  Without ``add`` a row is copied bit for bit; with it, each
+element is the correctly rounded sum in the plane's dtype (a bfloat16 sum
+is taken in float32 and rounded once), which is what ``index_add_`` gives
+on unique rows.
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ def scatter_rows(values, rows, updates, mask, add: bool) -> None:
     _build.check(dev.type == "cuda", f"scatter_rows: unsupported device {dev}")
     r, d = values.shape
     n = rows.shape[0]
-    _build.check_tensor("values", values, torch.float32, (r, d), dev)
+    _build.check_values("values", values, (r, d), dev)
+    _build.check_tensor("updates", updates, values.dtype, (n, d), dev, values.element_size())
     _build.check_tensor("rows", rows, torch.int64, (n,), dev)
-    _build.check_tensor("updates", updates, torch.float32, (n, d), dev)
     _build.check_tensor("mask", mask, torch.bool, (n,), dev)
+    es = values.element_size()
+    unit = _build.copy_unit((d * es,), (values, updates))
     if n:
-        _build.launch(NAME, values, rows, updates, mask, n, r, d, int(add))
+        _build.launch(NAME, values, rows, updates, mask, n, r, d * es, int(add), es, unit)

@@ -6,7 +6,9 @@ Per query: digest pre-filter and full-key confirm over both candidate rows
 (hit1 wins), the ``qvalid`` gate, then on a hit the row ``[dim | aux]``
 becomes ``opt.apply(row, grad, dim)`` in place, `opt` being an
 ``embedding.sparse_opt.SparseOptimizer``.  A miss or a gated lane
-writes nothing.  Single-bucket mode passes ``bucket2 = bucket1``.
+writes nothing.  Single-bucket mode passes ``bucket2 = bucket1``.  Any
+dim; float32 or bfloat16 values, with the gradients in the plane's dtype
+(the kernel rounds where the plain version's bfloat16 ops round).
 
 PRECONDITION: the valid query keys are unique within the batch (the
 embedding layer dedupes and sums the gradients first).  With a repeated
@@ -22,7 +24,6 @@ from repro_torch.kernels import _build
 
 NAME = "update_scan"
 OPT_INDEX = {"sgd": 0, "sgdm": 1, "rowwise_adagrad": 2, "adagrad": 3}
-MAX_DIM = 256   # the kernel holds at most 8 columns a lane
 
 
 def update_scan_plain(digests, keys, values, bucket1, bucket2, qdigest, qkeys, qvalid,
@@ -52,20 +53,21 @@ def update_scan(digests, keys, values, bucket1, bucket2, qdigest, qkeys, qvalid,
     b, s = keys.shape
     n, v = qkeys.shape[0], values.shape[1]
     _build.check(s == 128, "update_scan: the kernel takes 128 slots per bucket")
-    _build.check(1 <= dim <= MAX_DIM, f"update_scan: dim {dim} outside [1, {MAX_DIM}]")
+    _build.check(dim >= 1, f"update_scan: dim {dim} < 1")
     _build.check(v == dim + opt.aux_dim(dim),
-                 f"update_scan: rows of {v} floats, {opt.name} at dim {dim} needs "
+                 f"update_scan: rows of {v} elements, {opt.name} at dim {dim} needs "
                  f"{dim + opt.aux_dim(dim)}")
-    for name, t, dt, shape, align in (   # digest lines are read in 4-byte words
-            ("digests", digests, torch.uint8, (b, s), 4), ("keys", keys, torch.int64, (b, s), 8),
-            ("values", values, torch.float32, (b * s, v), 4),
+    _build.check_values("values", values, (b * s, v), dev)
+    es = values.element_size()
+    for name, t, dt, shape, align in (   # digest lines and keys are read in 16-byte words
+            ("digests", digests, torch.uint8, (b, s), 16), ("keys", keys, torch.int64, (b, s), 16),
             ("bucket1", bucket1, torch.int64, (n,), 8), ("bucket2", bucket2, torch.int64, (n,), 8),
             ("qdigest", qdigest, torch.uint8, (n,), 1), ("qkeys", qkeys, torch.int64, (n,), 8),
-            ("qvalid", qvalid, torch.bool, (n,), 1), ("grads", grads, torch.float32, (n, dim), 4)):
+            ("qvalid", qvalid, torch.bool, (n,), 1), ("grads", grads, values.dtype, (n, dim), es)):
         _build.check_tensor(name, t, dt, shape, dev, align)
     found = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         _build.launch(NAME, digests, keys, values, bucket1, bucket2, qdigest, qkeys, qvalid,
                       grads, found, n, v, dim, OPT_INDEX[opt.name], int(use_digest),
-                      opt.lr, opt.eps, opt.momentum)
+                      opt.lr, opt.eps, opt.momentum, es)
     return found

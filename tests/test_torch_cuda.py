@@ -109,14 +109,23 @@ def test_digest_scan_kernel_matches_plain(dev, dual):
               digest_scan.digest_scan_plain(s.digests, s.keys, b, p.digest, q))
 
 
-@pytest.mark.parametrize("width", [32, 6])   # 16-byte rows and 4-byte rows
-def test_gather_rows_kernel_matches_plain(dev, width):
-    v = torch.randn(8192, width, device=dev)
-    rows = torch.randint(-5, 8200, (3000,), device=dev)
-    mask = torch.rand(3000, device=dev) < 0.5
-    got = gather.gather_rows(v, rows, mask)
-    assert torch.equal(got, gather.gather_rows_plain(v, rows.clamp(0, 8191), mask))
-    assert not got[~mask].any()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("v,width", [(32, None), (6, None), (33, 32), (33, None), (32, 5),
+                                     (7, 3)])
+def test_gather_rows_kernel_matches_plain(dev, v, width, dtype):
+    """Copy units of 16, 4 and 2 bytes: V = 32 whole and cut to 5
+    columns, V = 6, V = 33 whole and its 32 leading columns (the training
+    readback), V = 7 cut to 3 (2-byte units at bfloat16); rows past both
+    ends of the plane clipped, a lane count that is not a multiple of 32."""
+    values = torch.randn(8192, v, device=dev).to(dtype)
+    rows = torch.randint(-5, 8200, (3001,), device=dev)
+    mask = torch.rand(3001, device=dev) < 0.5
+    got = gather.gather_rows(values, rows, mask, width)
+    want = gather.gather_rows_plain(values, rows.clamp(0, 8191), mask, width)
+    assert got.dtype == dtype and got.shape == (3001, width or v)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert not got[~mask].any() and got[mask].any()
 
 
 @pytest.mark.parametrize("kind", predicates.KINDS)
@@ -219,12 +228,13 @@ def test_every_op_kernel_path_matches_plain(dev, dual):
     assert all(_build.launch_counts[k] > 0 for k in ("gather_rows", "digest_scan", "sweep_match"))
 
 
-def _update_table(dev, opt, dim, capacity=64 * 128):
+def _update_table(dev, opt, dim, capacity=64 * 128, dtype=torch.float32):
     """A plain-path table on the card past λ = 1.0 with V = dim + aux and
     non-negative rows (adagrad accumulators)."""
     g = np.random.default_rng(8)
     t = repro_torch.HKVTable.create(capacity=capacity, dim=dim, buckets_per_key=2,
-                                    aux_value_dim=opt.aux_dim(dim), device=dev, backend="plain")
+                                    aux_value_dim=opt.aux_dim(dim), value_dtype=dtype,
+                                    device=dev, backend="plain")
     for _ in range(6):
         keys = g.integers(0, 2**64 - 2, size=capacity // 2, dtype=np.uint64)
         t.insert_or_assign(keys, torch.rand(capacity // 2, t.cfg.total_value_dim, device=dev))
@@ -246,21 +256,39 @@ def _update_queries(t, n=4096):
     return q, p, valid
 
 
+WIDE = [(o, d) for o in ("sgd", "sgdm", "rowwise_adagrad", "adagrad") for d in (257, 512, 896)]
+
+
 @pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
 @pytest.mark.parametrize("opt_name,dim", [("sgd", 32), ("sgdm", 32), ("rowwise_adagrad", 32),
                                           ("adagrad", 32), ("rowwise_adagrad", 100),
-                                          ("sgdm", 8)])
+                                          ("sgdm", 8), ("rowwise_adagrad", 3)] + WIDE)
 def test_update_scan_kernel_matches_plain(dev, opt_name, dim, dual):
-    """Every optimizer, V = 32, 33 and 64 at dim 32 (and dims 100 and 8):
-    found and the whole value plane bit-identical to the plain version."""
+    """Every optimizer, V = 32, 33 and 64 at dim 32, dims 100, 8 and 3
+    (below a group's 8 columns), and dims 257, 512 and 896 (the streamed
+    rows): found and the whole value plane bit-identical to the plain
+    version."""
+    _update_case(dev, opt_name, dim, dual, torch.float32)
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("dim", [32, 257])
+@pytest.mark.parametrize("opt_name", ["sgd", "sgdm", "rowwise_adagrad", "adagrad"])
+def test_update_scan_kernel_matches_plain_bf16(dev, opt_name, dim, dual):
+    """A bfloat16 plane: the kernel rounds where the plain version's
+    bfloat16 ops round, so the plane is bit-identical."""
+    _update_case(dev, opt_name, dim, dual, torch.bfloat16)
+
+
+def _update_case(dev, opt_name, dim, dual, dtype):
     from repro_torch.embedding.sparse_opt import SparseOptimizer
     from repro_torch.kernels import update_scan
 
     opt = SparseOptimizer(opt_name, lr=0.05)
-    t = _update_table(dev, opt, dim)
+    t = _update_table(dev, opt, dim, dtype=dtype)
     q, p, valid = _update_queries(t)
     b2 = p.bucket2 if dual else p.bucket1
-    grads = torch.randn(q.numel(), dim, device=dev)
+    grads = torch.randn(q.numel(), dim, device=dev).to(dtype)
     s = t.state
     vk, vp = s.values.clone(), s.values.clone()
     fk = update_scan.update_scan(s.digests, s.keys, vk, p.bucket1, b2, p.digest, q, valid,
@@ -433,6 +461,83 @@ def test_scatter_rows_kernel_matches_plain(dev, v, add):
     scatter.scatter_rows(vk, rows, upd, mask, add)
     scatter.scatter_rows_plain(vp, rows, upd, mask, add)
     assert torch.equal(vk, vp) and not torch.equal(vk, values)
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
+@pytest.mark.parametrize("v", [1, 3, 8, 32, 33])
+def test_scatter_rows_kernel_matches_plain_bf16(dev, v, add):
+    """bfloat16 rows in 16-, 4- and 2-byte units: the copy bit for bit, the
+    add rounded once from float32, as index_add_ rounds on unique rows."""
+    n, r_tot = 3001, 8192
+    gen = torch.Generator(device=dev).manual_seed(100 + v)
+    values = torch.randn(r_tot, v, generator=gen, device=dev).to(torch.bfloat16)
+    rows = torch.randperm(r_tot, generator=gen, device=dev)[:n]
+    mask = torch.rand(n, generator=gen, device=dev) < 0.6
+    rows[~mask] = rows[mask][0]   # masked-out lanes aimed at a written row
+    upd = torch.randn(n, v, generator=gen, device=dev).to(torch.bfloat16)
+    vk, vp = values.clone(), values.clone()
+    scatter.scatter_rows(vk, rows, upd, mask, add)
+    scatter.scatter_rows_plain(vp, rows, upd, mask, add)
+    assert torch.equal(vk.view(torch.int16), vp.view(torch.int16))
+    assert not torch.equal(vk, values)
+
+
+@pytest.mark.parametrize("v", [32, 33, 7])
+def test_find_scan_kernel_matches_plain_bf16(dev, v):
+    """A bfloat16 value plane (16-, 4- and 2-byte units): found, slots,
+    scores and the value rows bit-identical."""
+    t = _table(dev)
+    q, p = _queries(t)
+    s = t.state
+    values = torch.randn(s.values.shape[0], v, device=dev).to(torch.bfloat16)
+    args = (s.digests, s.keys, s.scores, values, p.bucket1, p.bucket2, p.digest, q)
+    got, want = find_scan.find_scan(*args), find_scan.find_scan_plain(*args)
+    _same(got[:4], want[:4])
+    assert got[4].dtype == torch.bfloat16 and torch.equal(got[4].view(torch.int16),
+                                                          want[4].view(torch.int16))
+    assert got[0].any()
+
+
+def test_bf16_table_runs_on_the_card(dev):
+    """A bfloat16 HKVTable on 'auto': insert_or_assign, find, find_or_insert,
+    update_rows (through a session: one update_scan launch) and
+    apply_grads run on the kernels and equal 'plain' bit for bit."""
+    from repro_torch.core import ops
+    from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+
+    opt = SparseOptimizer("rowwise_adagrad", lr=0.05)
+    kw = dict(capacity=16 * 128, dim=32, optimizer=opt, value_dtype=torch.bfloat16)
+    ek, ep = HKVEmbedding(backend="auto", **kw), HKVEmbedding(backend="plain", **kw)
+    tk, tp = ek.create(device=dev), ep.create(device=dev)
+    g = np.random.default_rng(17)
+
+    def same_state():
+        for name in ("keys", "digests", "scores", "values"):
+            a, b = getattr(tk.state, name), getattr(tp.state, name)
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+
+    for _ in range(4):
+        keys = g.integers(0, 4 * 16 * 128, size=1500).astype(np.int64)
+        vals = torch.randn(1500, 32, device=dev).to(torch.bfloat16)
+        assert torch.equal(tk.insert_or_assign(keys, vals).status,
+                           tp.insert_or_assign(keys, vals).status)
+        same_state()
+        _build.reset_counts()
+        fk, fp = tk.find(keys), tp.find(keys)
+        assert _build.launch_counts["find_scan"] == 1
+        assert fk.values.dtype == torch.bfloat16 and torch.equal(fk.values, fp.values)
+        toks = torch.from_numpy(g.integers(0, 4 * 16 * 128, size=(64, 26))).to(dev)
+        tk, rk = ek.lookup_train(tk, toks)
+        tp, rp = ep.lookup_train(tp, toks)
+        assert torch.equal(rk, rp)
+        same_state()
+        uniq = torch.unique(tk.state.keys[tk.state.keys != -1])[:300]
+        grads = torch.randn(300, 32, device=dev).to(torch.bfloat16)
+        _build.reset_counts()
+        ops.update_rows(tk.state, tk.cfg, uniq, grads, opt)
+        assert dict(_build.launch_counts) == {"update_scan": 1}
+        ops.update_rows(tp.state, tp.cfg, uniq, grads, opt, backend="plain")
+        same_state()
 
 
 @pytest.mark.parametrize("which", ["updates", "values"])

@@ -329,6 +329,40 @@ def test_gather_rows_plain_matches_jax(lam):
     assert got[torch.from_numpy(~mask)].eq(0).all() and got[torch.from_numpy(mask)].ne(0).any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [1, 5, 8])
+def test_gather_rows_width_plain_matches_jax(width, dtype):
+    """gather_rows of the first `width` columns (the readback's dim columns
+    of a plane with aux ones) equals the reference's gather_rows, and its
+    jnp reference, sliced to `width`; float32 and bfloat16 planes copied
+    bit for bit."""
+    import ml_dtypes
+
+    rng, cfg, state, _ = _filled(1.0, True)
+    values = np.array(state.values)
+    if dtype == "bfloat16":
+        values = values.astype(ml_dtypes.bfloat16)
+    r = values.shape[0]
+    rows = rng.integers(0, r, size=N).astype(np.int64)
+    rows[::9] = r + 4
+    mask = rng.random(N) < 0.5
+    got = pga.gather_rows(convert.values_from_numpy(values), torch.from_numpy(rows),
+                          torch.from_numpy(mask), width)
+    assert tuple(got.shape) == (N, width)
+    got = convert.values_to_numpy(got)
+    clipped = jnp.asarray(np.clip(rows, 0, r - 1).astype(np.int32))
+    for want in (jga.gather_rows(jnp.asarray(values), clipped, jnp.asarray(mask.astype(np.int32)),
+                                 interpret=True),
+                 jref.gather_rows_ref(jnp.asarray(values), jnp.asarray(rows.astype(np.int32)),
+                                      jnp.asarray(mask))):
+        want = np.asarray(want)[:, :width]
+        assert want.dtype == got.dtype
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    with pytest.raises(ValueError, match="width"):
+        pga.gather_rows(convert.values_from_numpy(values), torch.from_numpy(rows),
+                        torch.from_numpy(mask), values.shape[1] + 1)
+
+
 @pytest.mark.parametrize("kind", ("always", "score_lt", "score_ge", "epoch_lt", "key_range"))
 @pytest.mark.parametrize("lam", LAMBDAS)
 def test_sweep_match_plain_matches_jax(lam, kind):

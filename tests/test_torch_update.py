@@ -46,9 +46,9 @@ DIM = 8
 RTOL = 1e-6
 
 
-def _cfgs(opt_name, dual, capacity=4 * 128, use_digest=True, lr=0.05):
-    kw = dict(capacity=capacity, dim=DIM, buckets_per_key=2 if dual else 1,
-              aux_value_dim=JaxOpt(opt_name).aux_dim(DIM), use_digest=use_digest)
+def _cfgs(opt_name, dual, capacity=4 * 128, use_digest=True, lr=0.05, dim=DIM):
+    kw = dict(capacity=capacity, dim=dim, buckets_per_key=2 if dual else 1,
+              aux_value_dim=JaxOpt(opt_name).aux_dim(dim), use_digest=use_digest)
     return (JaxOpt(opt_name, lr=lr), jtable.HKVConfig(**kw),
             SparseOptimizer(opt_name, lr=lr), HKVConfig(**kw))
 
@@ -83,8 +83,8 @@ def _queries(rng, resident, n_hit=96, n_miss=40, n_pad=12):
     return q
 
 
-def _grads(rng, n):
-    return rng.normal(size=(n, DIM)).astype(np.float32)
+def _grads(rng, n, dim=DIM):
+    return rng.normal(size=(n, dim)).astype(np.float32)
 
 
 def assert_values(got, want, opt_name, dim, ctx):
@@ -100,13 +100,13 @@ def assert_values(got, want, opt_name, dim, ctx):
     assert (np.abs(acc_g - acc_w) <= RTOL * np.abs(acc_w)).all(), f"{ctx}: accumulator"
 
 
-def assert_state(jstate, pstate, opt_name, ctx):
+def assert_state(jstate, pstate, opt_name, ctx, dim=DIM):
     got = convert.state_to_arrays(pstate)
     for f in convert.FIELDS:
         if f != "values":
             np.testing.assert_array_equal(got[f], np.asarray(getattr(jstate, f)),
                                           err_msg=f"{ctx}: {f}")
-    assert_values(got["values"], jstate.values, opt_name, DIM, f"{ctx}: values")
+    assert_values(got["values"], jstate.values, opt_name, dim, f"{ctx}: values")
 
 
 def _probe_args(pcfg, pstate, q):
@@ -187,7 +187,49 @@ def test_miss_and_padding_lanes_write_nothing():
     assert not bool(found.any()) and torch.equal(pstate.values, before)
 
 
-@pytest.mark.parametrize("d", [1, 5, 8, 32, 33, 64, 100])
+# rows wider than the 256 columns the first kernel held; qwen2-0.5b's
+# d_model is 896
+WIDE_DIMS = (257, 512, 896)
+
+
+@pytest.mark.parametrize("dim", WIDE_DIMS)
+@pytest.mark.parametrize("opt_name", OPTIMIZERS)
+def test_wide_rows_match_the_reference(opt_name, dim):
+    """Dims 257, 512 and 896 (a dual table past λ 1.0, hits, misses and
+    padding): update_scan's plain version against the reference's
+    update_scan_ref and its Pallas kernel (tlp, interpret mode); and
+    update_rows (plain, the fused stage, the composed stage) against the
+    reference's jnp update_rows.  Bit-identical, rowwise_adagrad within
+    RTOL."""
+    rng = np.random.default_rng(dim + OPTIMIZERS.index(opt_name))
+    jopt, jcfg, popt, pcfg = _cfgs(opt_name, True, capacity=2 * 128, dim=dim)
+    jstate, pstate = _filled(rng, jcfg, 300)
+    q = _queries(rng, _resident(jstate), n_hit=24, n_miss=6, n_pad=2)
+    g = _grads(rng, q.size, dim)
+    found = pupd.update_scan(*_probe_args(pcfg, pstate, q), torch.from_numpy(g), popt, dim)
+    args = (*_jax_probe_args(jcfg, jstate, q), jnp.asarray(g))
+    for name, (want_found, want_values) in (
+            ("update_scan_ref", jref.update_scan_ref(*args, jopt, dim)),
+            ("update_scan_tlp", jupd.update_scan_tlp(*args, opt=jopt, dim=dim, interpret=True))):
+        np.testing.assert_array_equal(found.numpy(), np.asarray(want_found), err_msg=name)
+        assert_values(pstate.values.numpy(), want_values, opt_name, dim, name)
+    assert 0 < int(found.sum()) < q.size
+
+    want = _jax_update(jstate, jcfg, q, g, jopt)
+    k = repro_torch.normalize_keys(q)
+    for name, run in (
+            ("plain", lambda s: pops.update_rows(s, pcfg, k, torch.from_numpy(g), popt,
+                                                 backend="plain").found),
+            ("fused", lambda s: kops.update_rows_kernel(s, pcfg, k, torch.from_numpy(g),
+                                                        popt).found),
+            ("composed", lambda s: kops.update_composed_kernel(s, pcfg, k, torch.from_numpy(g),
+                                                               popt).found)):
+        pstate = convert.state_from_arrays(jstate, device="cpu")
+        np.testing.assert_array_equal(run(pstate).numpy(), np.asarray(want.found), err_msg=name)
+        assert_state(want.state, pstate, opt_name, name, dim)
+
+
+@pytest.mark.parametrize("d", [1, 5, 8, 32, 33, 64, 100, 257, 896])
 def test_tree_row_sum_is_the_halving_tree(d):
     """The fixed order of rowwise_adagrad's mean: pad to a power of two,
     then column i plus column i + h, h halving (the kernel's butterfly)."""
@@ -198,6 +240,48 @@ def test_tree_row_sum_is_the_halving_tree(d):
         h = len(cols) // 2
         cols = [cols[i] + cols[i + h] for i in range(h)]
     assert torch.equal(tree_row_sum(x), cols[0])
+
+
+def _kernel_order_sum(x: torch.Tensor) -> list:
+    """rowwise_adagrad's row sum in the order of the CUDA update_scan (a
+    group of 8 lanes a row, lane g owning columns g, g+8, ...): each lane
+    takes its columns in bit-reversed order of their tile index through a
+    stack of pending pair sums, then a xor butterfly (4, 2, 1) across the
+    group.  Every add rounds in x's dtype.  Returns the 8 lanes' sums."""
+    n, d = x.shape
+    levels = 0
+    while (8 << levels) < d:
+        levels += 1
+    zero = x.new_zeros(n)
+    lanes = []
+    for g in range(8):
+        stack = [None] * (levels + 1)
+        for j in range(1 << levels):
+            k = int(format(j, f"0{levels}b")[::-1], 2) if levels else 0
+            v = x[:, g + 8 * k] if g + 8 * k < d else zero
+            lvl = 0
+            while (j >> lvl) & 1:
+                v = stack[lvl] + v
+                lvl += 1
+            stack[lvl] = v
+        lanes.append(stack[levels])
+    for off in (4, 2, 1):
+        lanes = [lanes[g] + lanes[g ^ off] for g in range(8)]
+    return lanes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 3, 8, 9, 32, 33, 100, 257, 896])
+def test_kernel_lane_order_is_the_halving_tree(d, dtype):
+    """The kernel's summation order (lane-local bit-reversed pair sums, then
+    the group butterfly, which adds exact zeros below 8 columns) is
+    tree_row_sum's halving tree, bit for bit in every lane, at both
+    dtypes."""
+    x = torch.from_numpy(np.random.default_rng(d).normal(size=(64, d)).astype(np.float32))
+    sq = (x * x).to(dtype)
+    want = tree_row_sum(sq)
+    for g, got in enumerate(_kernel_order_sum(sq)):
+        assert torch.equal(got, want), f"lane {g}"
 
 
 def test_optimizer_roots_are_correctly_rounded():
