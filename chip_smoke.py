@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs four phases; any failure exits non-zero:
+sm_90a (first use), then runs seven phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -12,7 +12,9 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    (gather_rows, digest_scan, sweep_match), each kernel's wrapper and its
    plain PyTorch version run on the same inputs and must agree bit for
    bit (tolerance: exact equality, as the kernels are integer maths and
-   float copies).  Both are timed there with CUDA events, beside one
+   float copies).  digest_scan is held in its single-row form on each
+   candidate row and, on the dual tables, in its dual form (one launch
+   over both rows, merged), and both forms are timed.  Both are timed there with CUDA events, beside one
    PyTorch library call where one computes the same function, and beside
    the kernel's bound (the larger of its bytes over the HBM rate and its
    operations over the int32 rate, both counted from this run's inputs).
@@ -67,13 +69,39 @@ sm_90a (first use), then runs four phases; any failure exits non-zero:
    exactly the batch's distinct keys that contains() did not find before
    the step, and lookup_train launches claim_scan once if there are any;
    then the fused gradient step is timed against the composed one
-   (digest_scan per bucket, gather_rows, the optimizer, scatter_rows) on
+   (one digest_scan, gather_rows, the optimizer, scatter_rows) on
    the last step's gradients, and scatter_rows and find_scan are held
    against their plain versions and timed at V = 33 on the phase's value
    plane; and a 2^20-slot twin takes the same steps on 'auto' and
    'plain', equal in keys, digests, scores and statuses, and within 1e-5
    in values and loss (the gradient sums of repeated tokens are float32
    atomics on the card).
+6. the host-memory value tier, the paper's config D (2^27 slots, dim 64,
+   rowwise_adagrad so V = 65, dual bucket, LRU, value_tier 'hmem'): its
+   value plane (34.9 GB) in pinned host memory, the other planes on the
+   card.  The host link's rate is measured first (a pinned-to-card copy
+   of 1 GiB).  The table is prefilled to λ 1.0; find, find_ptr, contains,
+   insert_or_assign and find_or_insert run in 2^20-key batches, each timed
+   and its launches checked against HMEM_ROUTES (find: one digest_scan
+   over both rows and one gather_rows over the host link, no find_scan);
+   a find must take far less than the plane's bytes over the link (only
+   touched rows cross); gather_rows and scatter_rows (set and add) on the
+   host plane are held against their plain versions and timed beside the
+   bound of their bytes over the measured link rate; then 5 DLRM steps of
+   32,768 samples x 26 Zipfian fields as in phase 5 (apply_grads: the
+   composed step, one digest_scan, gather_rows and scatter_rows).  A
+   2^20-slot 'hmem' twin takes every op on 'auto' and is held bit for bit
+   against an 'hbm' table on 'auto' (duplicated keys' sums within 1e-5).
+7. the tier hierarchy: HKVEmbedding(capacity=2^27, dim=64,
+   hot_capacity=2^24, rowwise_adagrad, dual): a hot tier in HBM at an
+   eighth of the cold tier, whose value plane is config D's in pinned host
+   memory.  It is prefilled past the hot tier's capacity, takes 5 DLRM
+   steps (launches checked against TIERED_ROUTES) and a lookup_serve; the
+   promoted, demoted and dropped counters are printed, and conservation
+   is checked after every op: the hierarchy's distinct keys grow by the
+   batch's new keys less at most the pairs reported dropped (exactly, when
+   none is).  A small twin takes the same steps on 'auto' and 'plain',
+   equal as in phase 5.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -87,17 +115,22 @@ replays update_rows (fused, composed, through an OpSession) on both
 backends.
 
 The last lines are the card's name and power limit, a JSON object with
-one entry per kernel, and the JSON result line.  Without a card (or without the repository around it)
-the script exits non-zero and prints no result.  ``--rehearse`` runs the
-same phases at a tiny size on the CPU through the plain versions, to check
-the script itself; it never prints a result and exits non-zero.
+one entry per kernel, and the JSON result line.  Without a card (or
+without the repository around it) the script exits non-zero and prints no
+result.  ``--rehearse`` runs the same seven phases at a tiny size on the
+CPU through the plain versions (phases 6 and 7 with their planes as plain
+CPU tensors, and without the launch and host-link checks, which need the
+card), to check the script itself; it never prints a result and exits
+non-zero.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -160,8 +193,8 @@ UPSERT = {1: {"digest_scan": 1, "claim_scan": 1, "scatter_rows": 2},
 ROUTES = {
     "insert_or_assign": UPSERT,
     "find": {1: {"find_scan": 1}, 2: {"find_scan": 1}},
-    "find_ptr": {1: {"digest_scan": 1}, 2: {"digest_scan": 2}},
-    "contains": {1: {"digest_scan": 1}, 2: {"digest_scan": 2}},
+    "find_ptr": {1: {"digest_scan": 1}, 2: {"digest_scan": 1}},
+    "contains": {1: {"digest_scan": 1}, 2: {"digest_scan": 1}},
     "insert_and_evict": {m: {**UPSERT[m], "gather_rows": 1} for m in (1, 2)},
     "find_or_insert": {m: {**UPSERT[m], "scatter_rows": 1, "gather_rows": 1} for m in (1, 2)},
     "erase_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
@@ -171,6 +204,25 @@ ROUTES = {
 # find_or_insert, apply_grads one update_scan
 TRAIN_ROUTES = {"lookup_train": ROUTES["find_or_insert"][2],
                 "apply_grads": {"update_scan": 1}}
+# on the 'hmem' tier (phase 6) the readers and updaters locate with
+# digest_scan and move rows over the host link with gather_rows and
+# scatter_rows, as the reference routes that tier
+HMEM_ROUTES = {**ROUTES, "find": {2: {"digest_scan": 1, "gather_rows": 1}}}
+HMEM_TRAIN_ROUTES = {**TRAIN_ROUTES,
+                     "apply_grads": {"digest_scan": 1, "gather_rows": 1, "scatter_rows": 1}}
+# the tier hierarchy (phase 7).  lookup_train: the hot locate (digest_scan),
+# the cold tier's find_rows (digest_scan, gather_rows), the hot upsert at
+# that locate (the target pass, the evicted rows' and the readback's
+# gather_rows, one scatter_rows), and the demotion's insert_and_evict into
+# the cold tier (two upsert_probe passes, gather_rows, two scatter_rows);
+# claim_scan once for the hot tier's miss lanes and at most once more for
+# the cold tier's (Smoke.tiered_route).  apply_grads trains the hot tier
+# (update_scan); lookup_serve reads both tiers without promoting.
+TIERED_ROUTES = {"lookup_train": {"digest_scan": 2, "gather_rows": 4, "upsert_probe": 3,
+                                  "scatter_rows": 3},
+                 "apply_grads": {"update_scan": 1},
+                 "lookup_serve": {"find_scan": 1, "digest_scan": 1, "gather_rows": 1}}
+CONFIG_D_DIM = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,14 +234,17 @@ class Sizes:
     hot_keys: int            # keys aimed at one bucket, to force rejections
     timed_runs: int
     replay_steps: int        # phase 2's every-op replay, per mode and policy
-    train_batch: int         # DLRM samples a step (phase 5; 26 keys each)
+    train_batch: int         # DLRM samples a step (phases 5-7; 26 keys each)
     train_steps: int
+    hot_capacity: int        # phase 7's hot tier (its cold tier: `capacity` slots)
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
-             hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5)
+             hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5,
+             hot_capacity=2**24)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
-             hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3)
+             hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3,
+             hot_capacity=2**9)
 DIM = 32
 
 
@@ -280,8 +335,8 @@ class Smoke:
         self.next_key += n
         return (idx * 0x2545F4914F6CDD1D + 0x1D8E4E27C47D124F) & (2**63 - 1)
 
-    def values(self, n: int):
-        return self.torch.randn((n, DIM), generator=self.gen, device=self.dev)
+    def values(self, n: int, dim: int = DIM):
+        return self.torch.randn((n, dim), generator=self.gen, device=self.dev)
 
     def time_ms(self, fn, runs: int, warmup: int = 1, calls: int = 1) -> float:
         """Median of `runs` timings (CUDA events on the card) of `calls`
@@ -437,6 +492,13 @@ class Smoke:
         t0 = time.perf_counter()
         self.phase_train()
         log(f"phase 5 (the training path at config B) passed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        self.phase_hmem()
+        log(f"phase 6 (config D, the host-memory value tier) passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        self.phase_tiered()
+        log(f"phase 7 (the tier hierarchy) passed in {time.perf_counter() - t0:.1f} s")
         self.report()
 
     def config_b(self, backend="auto", buckets_per_key=2):
@@ -453,7 +515,7 @@ class Smoke:
         for _ in range(4 * table.capacity // self.sz.batch + 8):
             if table.load_factor() >= target:
                 break
-            keys, vals = self.fresh_keys(self.sz.batch), self.values(self.sz.batch)
+            keys, vals = self.fresh_keys(self.sz.batch), self.values(self.sz.batch, table.dim)
             status = table.insert_or_assign(keys, vals).status
         require(table.load_factor() >= target, f"the table did not reach λ = {target}")
         return keys, vals, status
@@ -504,7 +566,9 @@ class Smoke:
 
         self.compare_gather(st.values, tag)
 
-        # digest_scan: each candidate bucket row (one in single mode)
+        # digest_scan: the single-row form on each candidate bucket row (one
+        # in single mode), and on a dual table the dual form, which find_ptr,
+        # contains and the 'hmem' tier's locate launch once over both rows
         for b in (p.bucket1, p.bucket2) if cfg.buckets_per_key == 2 else (p.bucket1,):
             args = (st.digests, st.keys, b, p.digest, q)
             self.check_equal("digest_scan", self.ds.digest_scan(*args),
@@ -512,8 +576,21 @@ class Smoke:
         args = (st.digests, st.keys, p.bucket1, p.digest, q)
         self.record("digest_scan", **{
             f"ms@{tag}": self.time_ms(lambda: self.ds.digest_scan(*args), runs),
+            f"ms_stream@{tag}": self.time_ms(lambda: self.ds.digest_scan(*args), runs,
+                                             calls=STREAM_CALLS),
             f"plain_ms@{tag}": self.time_ms(lambda: self.ds.digest_scan_plain(*args), 2),
-            **self.digest_work(st, p.bucket1, p.digest, tag)})
+            **self.digest_work(st, p.bucket1, p.digest, f"@{tag}")})
+        if cfg.buckets_per_key == 2:
+            dual = (*args, p.bucket2)
+            want = self.ds.digest_scan_plain(*dual)
+            self.check_equal("digest_scan", self.ds.digest_scan(*dual), want, tag + " dual form")
+            self.record("digest_scan", **{
+                f"ms_dual@{tag}": self.time_ms(lambda: self.ds.digest_scan(*dual), runs),
+                f"ms_dual_stream@{tag}": self.time_ms(lambda: self.ds.digest_scan(*dual), runs,
+                                                      calls=STREAM_CALLS),
+                f"plain_ms_dual@{tag}": self.time_ms(lambda: self.ds.digest_scan_plain(*dual), 2),
+                **self.digest_work(st, p.bucket1, p.digest, f"_dual@{tag}",
+                                   bucket2=p.bucket2, hit1=want[1].bool() & (want[2] == 0))})
 
         # sweep_match: every predicate kind over all slots.  LRU scores
         # carry no epoch (their high half is 0), so epoch_lt runs on the
@@ -625,17 +702,28 @@ class Smoke:
         del table
         self.free()
 
-    def digest_work(self, st, bucket, qdigest, tag) -> dict:
+    def digest_work(self, st, bucket, qdigest, key, bucket2=None, hit1=None) -> dict:
         """Least bytes and operations of one digest_scan launch: the query
         inputs (4-byte bucket index, digest, key), the digest line of each
-        distinct probed row, the keys whose digest matched, and the two
-        int32 outputs; 128 digest bytes a query, four to a 32-bit compare,
-        and one 64-bit equality a candidate."""
+        distinct probed row, the keys whose digest matched, and the int32
+        outputs; 128 digest bytes a probed row, four to a 32-bit compare,
+        and one 64-bit equality a candidate.  The dual form (`bucket2`)
+        probes bucket2 only after a miss in bucket1 (`hit1`), where it is
+        another row, and writes three outputs."""
+        torch = self.torch
         n = bucket.shape[0]
-        cand = int((st.digests[bucket] == qdigest[:, None]).sum())
-        rows = self.torch.unique(bucket).numel()
-        return {f"bytes@{tag}": n * (4 + 1 + 8) + rows * 128 + cand * 8 + n * 8,
-                f"ops@{tag}": n * 128 // 4 + cand * OPS_U64_CMP}
+        probed_b, probed_q, outs = bucket, torch.arange(n, device=self.dev), 8
+        if bucket2 is not None:
+            second = ~hit1 & (bucket2 != bucket)
+            probed_b = torch.cat([bucket, bucket2[second]])
+            probed_q = torch.cat([probed_q, torch.nonzero(second).flatten()])
+            n_in, outs = n * (4 + 4 + 1 + 8), 12
+        else:
+            n_in = n * (4 + 1 + 8)
+        cand = int((st.digests[probed_b] == qdigest[probed_q][:, None]).sum())
+        rows = torch.unique(probed_b).numel()
+        return {f"bytes{key}": n_in + rows * 128 + cand * 8 + n * outs,
+                f"ops{key}": probed_b.numel() * 128 // 4 + cand * OPS_U64_CMP}
 
     def compare_kernels(self, table, resident, lam: float):
         torch, sz = self.torch, self.sz
@@ -996,22 +1084,29 @@ class Smoke:
             self.replay_update_rows(opt_name)
 
     def assert_same(self, a, b, ctx):
-        require(self.torch.equal(a, b), f"kernel path and plain path differ: {ctx}")
+        """Equal tensors; an 'hmem' plane (on the host) is compared with its
+        twin's plane brought to the host."""
+        require(self.torch.equal(a, b.to(a.device)), f"the two paths differ: {ctx}")
 
-    def replay_every_op(self, buckets_per_key: int, policy: str):
+    def replay_every_op(self, buckets_per_key: int, policy: str, twin: bool = False,
+                        dim: int = DIM, aux: int = 0):
         """Every op of the public HKVTable on 'auto' (the kernels) and
         'plain', on a reduced table; every result and the full state are
-        compared after every op."""
+        compared after every op.  With `twin`: an 'hmem' table on 'auto'
+        against an 'hbm' table on 'auto' (phase 6)."""
         from repro_torch import HKVTable
         from repro_torch.core import ops
 
         torch, sz, u64 = self.torch, self.sz, self.u64
-        kw = dict(capacity=sz.small_capacity, dim=DIM, buckets_per_key=buckets_per_key,
-                  score_policy=policy, device=self.dev)
-        tk, tp = HKVTable.create(backend="auto", **kw), HKVTable.create(backend="plain", **kw)
+        kw = dict(capacity=sz.small_capacity, dim=dim, buckets_per_key=buckets_per_key,
+                  score_policy=policy, aux_value_dim=aux, device=self.dev)
+        backend_p = "auto" if twin else "plain"
+        tk = HKVTable.create(backend="auto", value_tier="hmem" if twin else "hbm", **kw)
+        tp = HKVTable.create(backend=backend_p, **kw)
         n = sz.small_batch
         space = self.fresh_keys(2 * sz.small_capacity)
-        tag = f"{'dual' if buckets_per_key == 2 else 'single'} {policy}"
+        tag = (f"{'dual' if buckets_per_key == 2 else 'single'} {policy}"
+               + (" hmem vs hbm" if twin else ""))
 
         def batch(unique=False):
             if unique:
@@ -1051,27 +1146,29 @@ class Smoke:
 
         seen = set()
         for step in range(sz.replay_steps):
-            keys, vals = batch(), self.values(n)
+            keys, vals = batch(), self.values(n, dim)
             if step % 3 == 2:   # a burst aimed at one bucket
                 keys[: sz.hot_keys] = self.hot_bucket_keys(tk.cfg.num_buckets, sz.hot_keys, step)
             r = both("insert_and_evict", keys, vals, custom())
             seen.update(torch.unique(r.status).tolist())
-            both("insert_or_assign", batch(), self.values(n), custom())
+            both("insert_or_assign", batch(), self.values(n, dim), custom())
             mix = torch.cat([keys[: n // 2], batch()[n // 2:]])
-            both("find_or_insert", mix, self.values(n), custom(), return_evicted=step % 2 == 0)
-            both("ingest", batch(), self.values(n), custom())
+            both("find_or_insert", mix, self.values(n, dim), custom(),
+                 return_evicted=step % 2 == 0)
+            both("ingest", batch(), self.values(n, dim), custom())
             for name in ("find", "find_rows", "find_ptr", "contains"):
                 both(name, mix)
             loc = tp.find_ptr(mix)
             for fn in (ops.find, ops.find_rows):   # at a caller's locate: gather_rows
                 same(tuple(fn(tk.state, tk.cfg, mix, loc, backend="auto")),
-                     tuple(fn(tp.state, tp.cfg, mix, loc, backend="plain")), f"{tag} {fn.__name__}(loc)")
-            both("assign", mix, self.values(n), update_scores=policy != "custom")
+                     tuple(fn(tp.state, tp.cfg, mix, loc, backend=backend_p)),
+                     f"{tag} {fn.__name__}(loc)")
+            both("assign", mix, self.values(n, dim), update_scores=policy != "custom")
             u = batch(unique=True)
-            both("assign_add", u, self.values(n))
+            both("assign_add", u, self.values(n, dim))
             both("assign_scores", mix, torch.randint(0, 2**40, (n,), generator=self.gen,
                                                      device=self.dev))
-            both("accum_or_assign", u, self.values(n), custom())
+            both("accum_or_assign", u, self.values(n, dim), custom())
             both("erase", batch()[: n // 8])
             both("export_batch", 0, tk.num_buckets)
             if step % 4 == 3:
@@ -1083,7 +1180,7 @@ class Smoke:
         # this is the replay's last op, so the exact checks above stand
         d = batch()
         d[n // 2:] = d[: n // 2]
-        vals, cs = self.values(n), custom()
+        vals, cs = self.values(n, dim), custom()
         sk = tk.accum_or_assign(d, vals, cs).status
         sp = tp.accum_or_assign(d, vals, cs).status
         self.assert_same(sk, sp, f"{tag} accum_or_assign with duplicates: status")
@@ -1091,21 +1188,22 @@ class Smoke:
         tp.assign_add(d, vals)
         for name in ("keys", "digests", "scores"):
             self.assert_same(getattr(tk.state, name), getattr(tp.state, name), f"{tag} dup {name}")
-        err = (tk.state.values - tp.state.values).abs().max().item()
+        err = (tk.state.values - tp.state.values.to(tk.state.values.device)).abs().max().item()
         require(err <= DUP_SUM_ATOL, f"{tag}: duplicate sums differ by {err}")
-        log(f"phase 2 replay {tag}: {sz.replay_steps} steps of every op, λ = "
+        log(f"phase {6 if twin else 2} replay {tag}: {sz.replay_steps} steps of every op, λ = "
             f"{tk.load_factor():.4f}, insert_and_evict statuses "
             f"{sorted(STATUS_NAMES[i] for i in seen)}; duplicate sums within {err:.3g}")
         require({3} <= seen, f"{tag}: the replay never evicted")
         del tk, tp
 
-    def replay_update_rows(self, opt_name: str):
+    def replay_update_rows(self, opt_name: str, twin: bool = False, dim: int = DIM):
         """update_rows on 'auto' (update_scan, or gather_rows at a shared
         locate) and 'plain', on a reduced dual-bucket table with aux
         columns: fused through ops.update_rows, composed through
         update_composed_kernel, and through an OpSession (a RowUpdate alone,
         and one sharing a contains' locate).  Found and the full state are
-        equal after every update."""
+        equal after every update.  With `twin`: an 'hmem' table on 'auto'
+        (the composed step) against an 'hbm' one on 'auto' (update_scan)."""
         from repro_torch import HKVTable, RowUpdate
         from repro_torch.core import ops
         from repro_torch.embedding.sparse_opt import SparseOptimizer
@@ -1113,14 +1211,16 @@ class Smoke:
 
         torch, sz, u64 = self.torch, self.sz, self.u64
         opt = SparseOptimizer(opt_name, lr=0.05)
-        kw = dict(capacity=sz.small_capacity, dim=DIM, buckets_per_key=2,
-                  aux_value_dim=opt.aux_dim(DIM), device=self.dev)
-        tk, tp = HKVTable.create(backend="auto", **kw), HKVTable.create(backend="plain", **kw)
+        kw = dict(capacity=sz.small_capacity, dim=dim, buckets_per_key=2,
+                  aux_value_dim=opt.aux_dim(dim), device=self.dev)
+        backend_p = "auto" if twin else "plain"
+        tk = HKVTable.create(backend="auto", value_tier="hmem" if twin else "hbm", **kw)
+        tp = HKVTable.create(backend=backend_p, **kw)
         n = sz.small_batch
         space = self.fresh_keys(2 * sz.small_capacity)
         for i in range(0, space.numel(), n):   # past λ 1.0
             keys = space[i:i + n]
-            vals = torch.rand((keys.numel(), DIM), generator=self.gen, device=self.dev)
+            vals = torch.rand((keys.numel(), dim), generator=self.gen, device=self.dev)
             self.assert_same(tk.insert_or_assign(keys, vals).status,
                              tp.insert_or_assign(keys, vals).status, f"{opt_name} fill")
 
@@ -1136,19 +1236,19 @@ class Smoke:
 
         trained = 0
         for step in range(sz.replay_steps // 2):
-            u, g = unique_batch(), torch.randn((n, DIM), generator=self.gen, device=self.dev)
+            u, g = unique_batch(), torch.randn((n, dim), generator=self.gen, device=self.dev)
             fk = ops.update_rows(tk.state, tk.cfg, u, g, opt).found
-            fp = ops.update_rows(tp.state, tp.cfg, u, g, opt, backend="plain").found
+            fp = ops.update_rows(tp.state, tp.cfg, u, g, opt, backend=backend_p).found
             self.assert_same(fk, fp, f"update_rows {opt_name} fused found")
             state(f"step {step} fused")
             trained += int(fk.sum())
-            u, g = unique_batch(), torch.randn((n, DIM), generator=self.gen, device=self.dev)
+            u, g = unique_batch(), torch.randn((n, dim), generator=self.gen, device=self.dev)
             fk = kops.update_composed_kernel(tk.state, tk.cfg, u, g, opt).found
-            fp = ops.update_rows(tp.state, tp.cfg, u, g, opt, backend="plain").found
+            fp = ops.update_rows(tp.state, tp.cfg, u, g, opt, backend=backend_p).found
             self.assert_same(fk, fp, f"update_rows {opt_name} composed found")
             state(f"step {step} composed")
             for shared in (False, True):
-                u, g = unique_batch(), torch.randn((n, DIM), generator=self.gen, device=self.dev)
+                u, g = unique_batch(), torch.randn((n, dim), generator=self.gen, device=self.dev)
                 refs = []
                 for t in (tk, tp):
                     sess = t.session()
@@ -1160,9 +1260,10 @@ class Smoke:
                                  f"update_rows {opt_name} session found")
                 state(f"step {step} session{' shared' if shared else ''}")
         require(trained > 0, f"update_rows {opt_name}: nothing trained")
-        log(f"phase 2 update_rows {opt_name}: {sz.replay_steps // 2} rounds of fused, composed "
-            f"and session updates equal on both backends; {trained} rows trained by the fused "
-            f"path, λ = {tk.load_factor():.4f}")
+        log(f"phase {6 if twin else 2} update_rows {opt_name}"
+            + (" ('hmem' vs 'hbm', both 'auto')" if twin else "")
+            + f": {sz.replay_steps // 2} rounds of fused, composed and session updates equal on "
+            f"both; {trained} rows trained by the fused path, λ = {tk.load_factor():.4f}")
         del tk, tp
 
     # phase 3 --------------------------------------------------------------
@@ -1310,7 +1411,7 @@ class Smoke:
         mix = torch.cat([keys[: keys.numel() // 2], fresh])
         r = table.find(mix)
         half = keys.numel() // 2
-        require(r.values.shape == (mix.numel(), DIM) and bool(torch.isfinite(r.values).all()),
+        require(r.values.shape == (mix.numel(), table.dim) and bool(torch.isfinite(r.values).all()),
                 f"{ctx}: find values of the wrong shape or not finite")
         require(torch.equal(r.found[:half], ok[:half]), f"{ctx}: found disagrees with the statuses")
         require(not bool(r.found[half:].any()), f"{ctx}: a never-inserted key was found")
@@ -1319,8 +1420,8 @@ class Smoke:
 
     # phase 4 --------------------------------------------------------------
 
-    def op(self, table, name, *args, **kwargs):
-        """One public op on `table`, its launches checked against ROUTES."""
+    def op(self, table, name, *args, routes=ROUTES, **kwargs):
+        """One public op on `table`, its launches checked against `routes`."""
         counts = self._build.launch_counts
         before = dict(counts)
         out = getattr(table, name)(*args, **kwargs)
@@ -1328,14 +1429,14 @@ class Smoke:
         got = {k: v - before.get(k, 0) for k, v in counts.items() if v != before.get(k, 0)}
         mode = table.cfg.buckets_per_key
         self.op_launches[f"{name} ({'dual' if mode == 2 else 'single'})"] = got
-        want = ROUTES[name][mode]
+        want = routes[name][mode]
         if "claim_scan" in want:
             want = self.route(want, self.has_miss(out.status))
         if self.dev.type == "cuda":
             require(got == want, f"{name}: launches {got}, the routing table says {want}")
         return out
 
-    def time_op(self, table, name, inputs) -> float:
+    def time_op(self, table, name, inputs, label: str = "") -> float:
         """Median over `inputs` of one timed call each (stream timestamps)."""
         lam = table.load_factor()
         times = []
@@ -1347,7 +1448,7 @@ class Smoke:
             self.sync()
             times.append(self.elapsed_ms(a, b))
         t = statistics.median(times)
-        mode = "dual" if table.cfg.buckets_per_key == 2 else "single"
+        mode = ("dual" if table.cfg.buckets_per_key == 2 else "single") + label
         self.op_times.append((name, mode, lam, t))
         return t
 
@@ -1401,6 +1502,10 @@ class Smoke:
         ok = (r.status >= 1) & (r.status <= 3)
         resident = keys[ok][: n // 2]
         mix = torch.cat([resident, self.fresh_keys(n - resident.numel())])
+        self.check_pointers(table, keys, r.status, "dual λ=1.0")
+        for name in ("find_ptr", "contains"):   # one digest_scan over both rows
+            self.op(table, name, mix)
+            self.time_op(table, name, [(mix,)] * runs)
         init = self.values(n)
         f = self.op(table, "find_or_insert", mix, init)
         h = resident.numel()
@@ -1509,10 +1614,13 @@ class Smoke:
         labels = torch.from_numpy(rng.integers(0, 2, size=batch).astype(np.float32))
         return toks.to(self.dev), dense_x.to(self.dev), labels.to(self.dev)
 
-    def counted(self, name, fn, *args, has_miss: bool = True):
+    def counted(self, name, fn, *args, has_miss: bool = True, routes=TRAIN_ROUTES,
+                launches=None, tiered: bool = False):
         """One entry point, its launches counted from 0 and checked against
-        TRAIN_ROUTES (on the card; claim_scan only where the batch has a
-        miss lane), and its time between stream marks."""
+        `routes` (on the card; claim_scan only where the batch has a miss
+        lane, or on a tiered table per `tiered_route`), and its time between
+        stream marks; the launches are added to `launches` (phase 5's count
+        by default)."""
         self._build.reset_counts()
         self.sync()
         a = self.mark()
@@ -1520,27 +1628,51 @@ class Smoke:
         b = self.mark()
         self.sync()
         got = dict(self._build.launch_counts)
+        launches = self.launches_train if launches is None else launches
         for k, v in got.items():
-            self.launches_train[k] = self.launches_train.get(k, 0) + v
-        want = self.route(TRAIN_ROUTES[name], has_miss)
+            launches[k] = launches.get(k, 0) + v
         if self.dev.type == "cuda":
-            require(got == want, f"{name}: launches {got}, the training path's route is {want}")
+            want = routes[name]
+            if tiered and name == "lookup_train":
+                want = self.tiered_route(got, has_miss)
+            elif "claim_scan" in want:
+                want = self.route(want, has_miss)
+            require(got == want, f"{name}: launches {got}, the route is {want}")
         return out, self.elapsed_ms(a, b)
 
-    def dlrm_step(self, emb, table, model, toks, dense_x, labels, misses: int):
+    @staticmethod
+    def tiered_route(got, hot_miss: bool) -> dict:
+        """The tiered lookup_train's launches: TIERED_ROUTES's, with
+        claim_scan once if the hot tier had a miss lane and at most once
+        more for the demotion's upsert into the cold tier, whose miss lanes
+        only that upsert knows."""
+        want = dict(TIERED_ROUTES["lookup_train"])
+        claims = got.get("claim_scan", 0)
+        require(claims - int(hot_miss) in (0, 1),
+                f"tiered lookup_train: claim_scan launched {claims} times, the hot tier had "
+                f"{'a' if hot_miss else 'no'} miss lane")
+        if claims:
+            want["claim_scan"] = claims
+        return want
+
+    def dlrm_step(self, emb, table, model, toks, dense_x, labels, misses: int,
+                  routes=TRAIN_ROUTES, launches=None, tiered: bool = False):
         """lookup_train, forward and backward with the dense update,
         apply_grads; returns (loss, ms of each part, the embedding grads).
         `misses`: the batch's distinct keys not resident before the step,
-        which lookup_train's victim stage must get, and nothing else."""
+        which lookup_train's victim stage must get, and nothing else (on a
+        flat table; a tiered one's stages also run for its cold tier)."""
         with self.stage_lanes() as lanes:
-            (table, rows), t_lookup = self.counted("lookup_train", emb.lookup_train, table, toks,
-                                                   has_miss=misses > 0)
-        require(lanes["victim"] == ([misses] if misses else []),
-                f"lookup_train: the victim stage got {lanes['victim']} lanes, the batch has "
-                f"{misses} misses")
-        target = [int(g.sum()) for g in lanes["target"]]
-        require(target == [misses], f"lookup_train: the target pass got {target} lanes, the "
-                f"batch has {misses} misses")
+            (table, rows), t_lookup = self.counted(
+                "lookup_train", emb.lookup_train, table, toks, has_miss=misses > 0,
+                routes=routes, launches=launches, tiered=tiered)
+        if not tiered:
+            require(lanes["victim"] == ([misses] if misses else []),
+                    f"lookup_train: the victim stage got {lanes['victim']} lanes, the batch "
+                    f"has {misses} misses")
+            target = [int(g.sum()) for g in lanes["target"]]
+            require(target == [misses], f"lookup_train: the target pass got {target} lanes, "
+                    f"the batch has {misses} misses")
         self.sync()
         a = self.mark()
         rows = rows.detach().requires_grad_(True)
@@ -1550,19 +1682,63 @@ class Smoke:
         b = self.mark()
         self.sync()
         grads = rows.grad
-        _, t_apply = self.counted("apply_grads", emb.apply_grads, table, toks, grads)
+        _, t_apply = self.counted("apply_grads", emb.apply_grads, table, toks, grads,
+                                  routes=routes, launches=launches)
         return loss.detach(), {"lookup_train": t_lookup, "forward+backward": self.elapsed_ms(a, b),
                                "apply_grads": t_apply}, grads
 
-    def phase_train(self):
-        """The training path at config B, full width (see the module note)."""
+    def train_loop(self, emb, table, dim: int, tag: str, routes=TRAIN_ROUTES, launches=None,
+                   tiered: bool = False, after_step=None):
+        """The DLRM steps of phases 5-7 on `table`: each step's batch, its
+        misses (distinct keys not resident before it), dlrm_step, a log line
+        and `after_step(step)`; the launches go to `launches` (phase 5's by
+        default) and are logged.  Returns (losses, the last step's unique
+        keys and summed gradients, and their count)."""
         import numpy as np
 
-        from repro_torch.configs.hkv_dlrm import PAPER_CONFIGS
-        from repro_torch.kernels import ops as kops
         from repro_torch.models.dlrm import DLRM
 
         torch, sz = self.torch, self.sz
+        launches = self.launches_train if launches is None else launches
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        model = DLRM(dim, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
+        rng = np.random.default_rng(SEED)
+        losses = []
+        for step in range(sz.train_steps):
+            toks, dense_x, labels = self.train_batch(rng, sz.train_batch)
+            keys = emb.keys_of(toks)
+            hit = (table.hot if tiered else table).contains(keys)
+            found = int(hit.sum())
+            misses = torch.unique(keys[~hit & (keys != self.u64.EMPTY)]).numel()
+            loss, ms, grads = self.dlrm_step(emb, table, model, toks, dense_x, labels, misses,
+                                             routes=routes, launches=launches, tiered=tiered)
+            require(bool(torch.isfinite(loss)), f"{tag} step {step}: loss is not finite")
+            losses.append(float(loss))
+            uniq, g_sum = emb.sum_grads(toks, grads)
+            t_sum = self.time_ms(lambda: emb.sum_grads(toks, grads), 1)
+            trained = int((table.hot if tiered else table).contains(uniq).sum())
+            n_uniq = int((uniq != self.u64.EMPTY).sum())
+            require(0 < trained <= n_uniq, f"{tag} step {step}: {trained} rows trained")
+            log(f"{tag} step {step}: {toks.numel()} keys ({n_uniq} unique, {found} found "
+                f"{'in the hot tier ' if tiered else ''}before the step, {trained} trained; "
+                f"{misses} distinct misses"
+                + ("" if tiered else ", the lanes the upsert_probe target pass and claim_scan got")
+                + f"); lookup_train {ms['lookup_train']:.3f} ms, "
+                f"forward+backward {ms['forward+backward']:.3f} ms, apply_grads "
+                f"{ms['apply_grads']:.3f} ms (dedupe+segment-sum {t_sum:.3f} ms timed alone, "
+                f"the rest {ms['apply_grads'] - t_sum:.3f} ms); loss {float(loss):.6f}"
+                + ("" if tiered else f"; λ {table.load_factor():.6f}"))
+            if after_step is not None:
+                after_step(step)
+        log(f"{tag}: kernel launches over {sz.train_steps} steps: {json.dumps(launches)}")
+        return losses, uniq, g_sum, n_uniq
+
+    def phase_train(self):
+        """The training path at config B, full width (see the module note)."""
+        from repro_torch.configs.hkv_dlrm import PAPER_CONFIGS
+        from repro_torch.kernels import ops as kops
+
+        sz = self.sz
         self.free()
         self.launches_train = {}
         cfg = PAPER_CONFIGS["B"]
@@ -1574,33 +1750,7 @@ class Smoke:
         log(f"phase 5: HKVEmbedding of config B: capacity {table.capacity}, dim {emb.dim}, "
             f"{emb.optimizer.name} (V = {table.state.values.shape[1]}), dual bucket, "
             f"{emb.score_policy}; prefilled to λ = {table.load_factor():.6f}")
-        gen = torch.Generator(device=self.dev).manual_seed(SEED)
-        model = DLRM(DIM, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
-        rng = np.random.default_rng(SEED)
-        losses = []
-        for step in range(sz.train_steps):
-            toks, dense_x, labels = self.train_batch(rng, sz.train_batch)
-            keys = emb.keys_of(toks)
-            hit = table.contains(keys)
-            found = int(hit.sum())
-            misses = torch.unique(keys[~hit & (keys != self.u64.EMPTY)]).numel()
-            loss, ms, grads = self.dlrm_step(emb, table, model, toks, dense_x, labels, misses)
-            require(bool(torch.isfinite(loss)), f"phase 5 step {step}: loss is not finite")
-            losses.append(float(loss))
-            uniq, g_sum = emb.sum_grads(toks, grads)
-            t_sum = self.time_ms(lambda: emb.sum_grads(toks, grads), 1)
-            trained = int(table.contains(uniq).sum())
-            n_uniq = int((uniq != self.u64.EMPTY).sum())
-            require(0 < trained <= n_uniq, f"phase 5 step {step}: {trained} rows trained")
-            log(f"phase 5 step {step}: {toks.numel()} keys ({n_uniq} unique, {found} found "
-                f"before the step, {trained} trained; the upsert_probe target pass and "
-                f"claim_scan got {misses} lanes of the {toks.numel()}); lookup_train {ms['lookup_train']:.3f} ms, "
-                f"forward+backward {ms['forward+backward']:.3f} ms, apply_grads "
-                f"{ms['apply_grads']:.3f} ms (dedupe+segment-sum {t_sum:.3f} ms timed alone, "
-                f"the rest, hashing and update_scan, {ms['apply_grads'] - t_sum:.3f} ms); "
-                f"loss {float(loss):.6f}; λ {table.load_factor():.6f}")
-        log(f"phase 5: kernel launches over {sz.train_steps} steps: "
-            f"{json.dumps(self.launches_train)}")
+        losses, uniq, g_sum, n_uniq = self.train_loop(emb, table, DIM, "phase 5")
         if self.dev.type == "cuda":
             require(self.launches_train.get("update_scan") == sz.train_steps,
                     "phase 5: apply_grads did not run one update_scan a step")
@@ -1610,7 +1760,7 @@ class Smoke:
         for name, fn, route in (
                 ("fused", kops.update_rows_kernel, {"update_scan": 1}),
                 ("composed", kops.update_composed_kernel,
-                 {"digest_scan": 2, "gather_rows": 1, "scatter_rows": 1})):
+                 {"digest_scan": 1, "gather_rows": 1, "scatter_rows": 1})):
             self._build.reset_counts()
             fn(table.state, tcfg, uniq, g_sum, opt)
             self.sync()
@@ -1645,9 +1795,10 @@ class Smoke:
             f"plain_ms@{tag}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
             **self.find_work(st, p, q, want, tag, st.values)})
 
-    def train_twin(self, emb, losses):
+    def train_twin(self, emb, losses, tag: str = "phase 5"):
         """The same DLRM steps on a 2^20-slot table (a 2^11-slot one in the
-        rehearsal) through 'auto' and 'plain' on this device."""
+        rehearsal; tiered: a cold tier of that size under a hot tier of an
+        eighth) through 'auto' and 'plain' on this device."""
         import copy
 
         import numpy as np
@@ -1656,14 +1807,20 @@ class Smoke:
 
         torch, sz = self.torch, self.sz
         small = dataclasses.replace(emb, capacity=sz.small_capacity)
+        if emb.is_tiered:
+            small = dataclasses.replace(small, hot_capacity=sz.small_capacity // 8)
         ek, ep = small, dataclasses.replace(small, backend="plain")
         tk, tp = ek.create(device=self.dev), ep.create(device=self.dev)
+
+        def states(t):
+            return (t.hot.state, t.cold.state) if emb.is_tiered else (t.state,)
+
         for i in range(0, 2 * sz.small_capacity, sz.small_batch):   # past λ 1.0
-            keys, vals = self.fresh_keys(sz.small_batch), self.values(sz.small_batch)
+            keys, vals = self.fresh_keys(sz.small_batch), self.values(sz.small_batch, emb.dim)
             self.assert_same(tk.insert_or_assign(keys, vals).status,
-                             tp.insert_or_assign(keys, vals).status, "twin prefill")
+                             tp.insert_or_assign(keys, vals).status, f"{tag} twin prefill")
         gen = torch.Generator(device=self.dev).manual_seed(SEED + 1)
-        mk = DLRM(DIM, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
+        mk = DLRM(emb.dim, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
         mp = copy.deepcopy(mk)
         rng = np.random.default_rng(SEED + 1)
         worst = 0.0
@@ -1673,7 +1830,7 @@ class Smoke:
             init = ek.default_rows(keys)
             self.assert_same(tk.snapshot().find_or_insert(keys, init).status,
                              tp.snapshot().find_or_insert(keys, init).status,
-                             f"twin step {step} statuses")
+                             f"{tag} twin step {step} statuses")
             out = []
             for e, t, m in ((ek, tk, mk), (ep, tp, mp)):
                 t, rows = e.lookup_train(t, toks)
@@ -1683,17 +1840,276 @@ class Smoke:
                 m.sgd_(TRAIN_LR)
                 e.apply_grads(t, toks, rows.grad)
                 out.append(loss.detach())
-            for name in ("keys", "digests", "scores"):
-                self.assert_same(getattr(tk.state, name), getattr(tp.state, name),
-                                 f"twin step {step} state.{name}")
-            err = max((tk.state.values - tp.state.values).abs().max().item(),
-                      abs(float(out[0]) - float(out[1])))
+            err = abs(float(out[0]) - float(out[1]))
+            for a, b in zip(states(tk), states(tp)):
+                for name in ("keys", "digests", "scores"):
+                    self.assert_same(getattr(a, name), getattr(b, name),
+                                     f"{tag} twin step {step} state.{name}")
+                err = max(err, (a.values - b.values).abs().max().item())
             worst = max(worst, err)
-            require(err <= DUP_SUM_ATOL, f"twin step {step}: values or loss differ by {err}")
-        log(f"phase 5 twin: {sz.train_steps} steps on {sz.small_capacity} slots, 'auto' and "
-            f"'plain' equal in keys, digests, scores and statuses; values and loss within "
-            f"{worst:.3g}; config B losses {', '.join(f'{x:.6f}' for x in losses)}")
+            require(err <= DUP_SUM_ATOL, f"{tag} twin step {step}: values or loss differ by {err}")
+        log(f"{tag} twin: {sz.train_steps} steps on {sz.small_capacity} slots"
+            + (f" (hot tier {sz.small_capacity // 8})" if emb.is_tiered else "")
+            + f", 'auto' and 'plain' equal in keys, digests, scores and statuses; values and "
+            f"loss within {worst:.3g}; losses at full size {', '.join(f'{x:.6f}' for x in losses)}")
         del tk, tp
+
+    # phase 6 --------------------------------------------------------------
+
+    def host_link_rate(self, plane) -> float:
+        """Bytes a second of a pinned-to-card copy of 1 GiB from `plane`
+        (median of 3): the host link's rate, the bound of rows that cross
+        it."""
+        torch = self.torch
+        n = min(plane.numel(), 2**28)
+        src = plane.view(-1)[:n]
+        dst = torch.empty(n, dtype=plane.dtype, device=self.dev)
+        ms = self.time_ms(lambda: dst.copy_(src, non_blocking=True), 3)
+        del dst
+        return n * plane.element_size() / (ms * 1e-3)
+
+    def phase_hmem(self):
+        """Config D on the card: the 'hmem' value tier (see the module note)."""
+        from repro_torch.configs.hkv_dlrm import PAPER_CONFIGS
+
+        torch, sz = self.torch, self.sz
+        n, runs = sz.batch, sz.timed_runs
+        self.free()
+        cfg = PAPER_CONFIGS["D"]
+        emb = dataclasses.replace(cfg.embedding(), capacity=sz.capacity)
+        t0 = time.perf_counter()
+        table = emb.create(device=self.dev)
+        st = table.state
+        t_alloc = time.perf_counter() - t0
+        v = st.values.shape[1]
+        require(cfg.value_tier == "hmem" and cfg.dim == CONFIG_D_DIM and v == CONFIG_D_DIM + 1,
+                "config D's table is not an 'hmem' table of [capacity, 65]")
+        plane_bytes = st.values.numel() * st.values.element_size()
+        if self.dev.type == "cuda":
+            require(st.host_values and all(t.is_cuda for t in (st.keys, st.digests, st.scores)),
+                    "config D: the value plane is not on the host beside key planes on the card")
+            require(self._build.device_pointer(st.values) == st.values.data_ptr(),
+                    "config D: the value plane is not pinned host memory mapped into the card")
+            self.link = self.host_link_rate(st.values)
+            ram = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+            log(f"phase 6: host link: pinned-to-card copy of 1 GiB at {self.link / 1e9:.3f} GB/s; "
+                f"host native atomics {self._build.device_attribute(self._build.HOST_NATIVE_ATOMICS)}"
+                f"; host RAM {ram} bytes")
+            # why the plane bypasses PyTorch's caching host allocator: the
+            # block it gives a pinned tensor of 0.75 GiB
+            stats = getattr(torch.cuda.memory, "host_memory_stats", dict)
+            before = stats().get("allocated_bytes.current", 0)
+            probe = torch.empty(3 * 2**28, dtype=torch.uint8, pin_memory=True)
+            log(f"phase 6: torch's pinned allocator gave a {probe.numel()}-byte tensor "
+                f"{stats().get('allocated_bytes.current', 0) - before} bytes; torch's "
+                f"is_pinned() on the 'hmem' plane: {st.values.is_pinned()}")
+            del probe
+        else:
+            self.link = 1e9   # the rehearsal's placeholder: its numbers mean nothing
+        log(f"phase 6: config D: capacity {table.capacity}, dim {emb.dim}, "
+            f"{emb.optimizer.name} (V = {v}), dual bucket, {emb.score_policy}, value plane "
+            f"{plane_bytes} bytes on {st.values.device} (allocated, pinned and zeroed in "
+            f"{t_alloc:.3f} s), keys, digests and scores on {st.device}")
+        t0 = time.perf_counter()
+        keys, vals, status = self.fill(table, 1.0)
+        self.sync()
+        log(f"phase 6: prefilled to λ = {table.load_factor():.6f} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        self.check_find(table, keys, vals, status, "config D λ=1.0")
+        self.check_pointers(table, keys, status, "config D λ=1.0")
+        ok = (status >= 1) & (status <= 3)
+        resident = keys[ok]
+        self._build.reset_counts()
+        self.op_launches = {}
+        mix = lambda: torch.cat([resident[: n // 2], self.fresh_keys(n - n // 2)])
+        d = CONFIG_D_DIM
+        for name, make in (("find", lambda: (mix(),)),
+                           ("find_ptr", lambda: (mix(),)),
+                           ("contains", lambda: (mix(),)),
+                           ("insert_or_assign", lambda: (self.fresh_keys(n), self.values(n, d))),
+                           ("find_or_insert", lambda: (mix(), self.values(n, d)))):
+            self.op(table, name, *make(), routes=HMEM_ROUTES)
+            t = self.time_op(table, name, [make() for _ in range(runs)], label=" hmem")
+            if name == "find":
+                # only touched rows cross: a find of n keys moves n rows, far
+                # from the whole plane over the link
+                require(self.dev.type != "cuda" or t < 0.1 * plane_bytes / self.link * 1e3,
+                        f"config D find: {t:.3f} ms against {plane_bytes / self.link * 1e3:.1f} "
+                        "ms for the whole plane over the host link")
+                log(f"phase 6: find of {n} keys {t:.3f} ms; the whole plane over the host link "
+                    f"would take {plane_bytes / self.link * 1e3:.1f} ms")
+        log(f"phase 6: launches per op: {json.dumps(self.op_launches)}")
+        self.compare_host_rows(st.values, "1.0 hmem")
+        losses = self.train_loop(emb, table, d, "phase 6", routes=HMEM_TRAIN_ROUTES,
+                                 launches={})[0]
+        del table, st
+        gc.collect()
+        self.free()
+        for policy in ("lru", "custom"):
+            self.replay_every_op(2, policy, twin=True, dim=d, aux=1)
+        self.replay_update_rows("rowwise_adagrad", twin=True, dim=d)
+        log(f"phase 6: config D losses {', '.join(f'{x:.6f}' for x in losses)}")
+
+    def compare_host_rows(self, values, tag: str):
+        """gather_rows and scatter_rows (set and add) on a host plane
+        against their plain versions on the host, at the main path's 2^20
+        lanes on distinct rows, half masked; timed beside the bound of the
+        bytes that cross the host link (the masked rows: read for a gather,
+        written for a set, read and written for an add) at its measured
+        rate.  The gather is also timed on 2^20 neighbouring rows, which
+        tells the cost of scattered host addresses from that of the rows'
+        bytes."""
+        torch, n, runs = self.torch, self.sz.batch, self.sz.timed_runs
+        r_tot, v = values.shape
+        es = values.element_size()
+        rows = torch.randperm(r_tot, generator=self.gen, device=self.dev)[:n]
+        mask = torch.rand(n, generator=self.gen, device=self.dev) < 0.5
+        m = int(mask.sum())
+        rows_h, mask_h = rows.cpu(), mask.cpu()
+        for width in (None, CONFIG_D_DIM):
+            got = self.ga.gather_rows(values, rows, mask, width)
+            self.check_equal("gather_rows", (got.cpu(),),
+                             (self.ga.gather_rows_plain(values, rows_h, mask_h, width),),
+                             f"{tag} host plane" + (f" width {width}" if width else ""))
+        seq = torch.arange(n, device=self.dev) + r_tot // 2   # n neighbouring rows
+        self.record("gather_rows", **{
+            f"ms_host@{tag}": self.time_ms(lambda: self.ga.gather_rows(values, rows, mask), runs),
+            f"ms_host_seq@{tag}": self.time_ms(lambda: self.ga.gather_rows(values, seq, mask),
+                                               runs),
+            f"ms_host_w{CONFIG_D_DIM}@{tag}": self.time_ms(
+                lambda: self.ga.gather_rows(values, rows, mask, CONFIG_D_DIM), runs),
+            f"link_bytes@{tag}": m * v * es, f"link_bytes_w{CONFIG_D_DIM}@{tag}":
+                m * CONFIG_D_DIM * es})
+        upd = torch.randn((n, v), generator=self.gen, device=self.dev)
+        for add in (False, True):
+            old = self.ga.gather_rows_plain(values, rows_h, torch.ones_like(mask_h))
+            self.sc.scatter_rows(values, rows, upd, mask, add)
+            self.sync()
+            want = old.clone()
+            self.sc.scatter_rows_plain(want, torch.arange(n), upd.cpu(), mask_h, add)
+            got = self.ga.gather_rows_plain(values, rows_h, torch.ones_like(mask_h))
+            self.check_equal("scatter_rows", (got,), (want,),
+                             f"{tag} host plane {'add' if add else 'set'}")
+        self.record("scatter_rows", **{
+            f"ms_host@{tag}": self.time_ms(
+                lambda: self.sc.scatter_rows(values, rows, upd, mask, False), runs),
+            f"ms_host_add@{tag}": self.time_ms(
+                lambda: self.sc.scatter_rows(values, rows, upd, mask, True), runs),
+            f"link_bytes@{tag}": m * v * es, f"link_bytes_add@{tag}": 2 * m * v * es})
+
+    # phase 7 --------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def tier_counters(self):
+        """Record every TieredHKVTable.find_or_insert (the tiered
+        lookup_train's op): yields a list of (keys, result)."""
+        from repro_torch.core import tiered
+
+        seen = []
+        real = tiered.TieredHKVTable.find_or_insert
+
+        def recording(table, keys, *args, **kwargs):
+            res = real(table, keys, *args, **kwargs)
+            seen.append((table.keys(keys), res))
+            return res
+
+        tiered.TieredHKVTable.find_or_insert = recording
+        try:
+            yield seen
+        finally:
+            tiered.TieredHKVTable.find_or_insert = real
+
+    def phase_tiered(self):
+        """The tier hierarchy on the card (see the module note)."""
+        import numpy as np
+
+        from repro_torch import TieredHKVTable
+        from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+
+        torch, sz, u64 = self.torch, self.sz, self.u64
+        n, d = sz.batch, CONFIG_D_DIM
+        self.free()
+        emb = HKVEmbedding(capacity=sz.capacity, dim=d, hot_capacity=sz.hot_capacity,
+                           optimizer=SparseOptimizer("rowwise_adagrad", lr=0.01),
+                           buckets_per_key=2, score_policy="lru")
+        t0 = time.perf_counter()
+        table = emb.create(device=self.dev)
+        t_alloc = time.perf_counter() - t0
+        require(isinstance(table, TieredHKVTable) and table.hot.capacity * 8 == table.cold.capacity,
+                "phase 7: not a tiered table with a hot tier of an eighth of the cold one")
+        if self.dev.type == "cuda":
+            require(table.cold.state.host_values and not table.hot.state.host_values,
+                    "phase 7: the cold tier's values are not on the host, or the hot tier's are")
+        log(f"phase 7: tiered HKVEmbedding: hot tier {table.hot.capacity} slots (values on "
+            f"{table.hot.state.values.device}), cold tier {table.cold.capacity} slots "
+            f"({table.cold.cfg.score_policy} scores, values on {table.cold.state.values.device}), "
+            f"dim {d}, {emb.optimizer.name}, dual bucket; created in {t_alloc:.3f} s")
+        # a batch of the steps' own key distribution first, then fresh keys
+        # past the hot tier's capacity: the prefill pushes the early keys
+        # down, and the steps' accesses to them promote them back
+        warm = emb.keys_of(self.train_batch(np.random.default_rng(SEED + 3),
+                                            sz.train_batch)[0])
+        warm = torch.unique(warm[warm != u64.EMPTY])
+        table.insert_or_assign(warm, emb.default_rows(warm))
+        inserted, dropped, demoted = warm.numel(), 0, 0
+        t0 = time.perf_counter()
+        for _ in range(sz.hot_capacity // n + 4):
+            r = table.insert_or_assign(self.fresh_keys(n), self.values(n, d))
+            inserted += n
+            dropped += int(r.dropped)
+            demoted += int(r.demoted)
+        size = table.size()
+        log(f"phase 7: prefilled with {warm.numel()} keys of the steps' distribution, then "
+            f"{inserted - warm.numel()} fresh keys in {time.perf_counter() - t0:.3f} s: "
+            f"hot λ {table.hot.load_factor():.6f}, cold λ {table.cold.load_factor():.6f}; demoted "
+            f"{demoted}, dropped {dropped}; {size} keys in the hierarchy")
+        require(demoted > 0, "phase 7: the prefill demoted nothing")
+        self.conserved(inserted, dropped, size, "phase 7 prefill")
+        self.launches_tiered = {}
+        motion = {"promoted": 0, "demoted": 0, "dropped": 0}
+        sizes = [size]
+        with self.tier_counters() as seen:
+            def conserve(step):
+                keys, res = seen[-1]
+                for k in motion:
+                    motion[k] += int(getattr(res, k))
+                new = torch.unique(keys[~res.found & (keys != u64.EMPTY)]).numel()
+                sizes.append(table.size())
+                self.conserved(sizes[-2] + new, int(res.dropped), sizes[-1], f"phase 7 step {step}")
+                log(f"phase 7 step {step}: promoted {int(res.promoted)}, demoted "
+                    f"{int(res.demoted)}, dropped {int(res.dropped)}; {new} keys new to the "
+                    f"hierarchy; {sizes[-1]} keys in it")
+
+            losses = self.train_loop(emb, table, d, "phase 7", routes=TIERED_ROUTES,
+                                     launches=self.launches_tiered, tiered=True,
+                                     after_step=conserve)[0]
+        log(f"phase 7: over {sz.train_steps} steps promoted {motion['promoted']}, demoted "
+            f"{motion['demoted']}, dropped {motion['dropped']}")
+        require(motion["promoted"] > 0 and motion["demoted"] > 0,
+                "phase 7: the steps promoted or demoted nothing")
+        toks = self.train_batch(np.random.default_rng(SEED + 2), sz.train_batch)[0]
+        served, t_serve = self.counted("lookup_serve", emb.lookup_serve, table, toks,
+                                       routes=TIERED_ROUTES, launches=self.launches_tiered)
+        require(served.shape == (*toks.shape, d) and bool(torch.isfinite(served).all()),
+                "phase 7: lookup_serve rows of the wrong shape or not finite")
+        require(table.size() == sizes[-1], "phase 7: lookup_serve changed the hierarchy")
+        log(f"phase 7: lookup_serve of {toks.numel()} keys {t_serve:.3f} ms (a pure reader: "
+            f"promoted 0, demoted 0, dropped 0); kernel launches "
+            f"{json.dumps(self.launches_tiered)}")
+        del table
+        gc.collect()
+        self.free()
+        self.train_twin(emb, losses, "phase 7")
+
+    @staticmethod
+    def conserved(expected: int, dropped: int, size: int, ctx: str) -> None:
+        """No pair leaves the hierarchy uncounted: of `expected` distinct
+        keys, at most `dropped` (the reported upper bound) are gone, and
+        none when none is reported."""
+        lost = expected - size
+        require(0 <= lost <= dropped and (dropped > 0 or lost == 0),
+                f"{ctx}: {expected} keys expected, {size} in the hierarchy, {dropped} reported "
+                "dropped")
 
     # ----------------------------------------------------------------- report
 
@@ -1716,6 +2132,29 @@ class Smoke:
                     f"{st[f'plain_ms@{lam}']:.4f} ms, bound {bound:.4f} ms by {by} (bytes "
                     f"{self.bytes_ms(st, lam):.4f} ms, operations {self.ops_ms(st, lam):.4f} ms)"
                     + (f", library {st[f'library_ms@{lam}']:.4f} ms" if f"library_ms@{lam}" in st else ""))
+        ds = self.stats["digest_scan"]
+        for tag in (0.5, 1.0):
+            bound, by = self.bound({"bytes@": ds[f"bytes_dual@{tag}"],
+                                    "ops@": ds[f"ops_dual@{tag}"]}, "")
+            log(f"digest_scan λ={tag}: single-row form {ds[f'ms@{tag}']:.4f} ms "
+                f"({ds[f'ms_stream@{tag}']:.4f} ms a call in a stream of {STREAM_CALLS}); dual "
+                f"form over both rows {ds[f'ms_dual@{tag}']:.4f} ms ({ds[f'ms_dual_stream@{tag}']:.4f} "
+                f"ms a call in a stream), plain {ds[f'plain_ms_dual@{tag}']:.4f} ms, bound "
+                f"{bound:.4f} ms by {by}")
+        if self.dev.type == "cuda":
+            rate = self.link
+            for name, keys in (("gather_rows", ("", f"_w{CONFIG_D_DIM}")),
+                               ("scatter_rows", ("", "_add"))):
+                st = self.stats[name]
+                log(f"{name} on the host plane (config D, V = {CONFIG_D_DIM + 1}, 2^20 lanes "
+                    f"half masked): " + ", ".join(
+                        f"{k or 'whole rows' if name == 'gather_rows' else k or 'set'} "
+                        f"{st[f'ms_host{k}@1.0 hmem']:.4f} ms against "
+                        f"{st[f'link_bytes{k}@1.0 hmem'] / rate * 1e3:.4f} ms for its "
+                        f"{st[f'link_bytes{k}@1.0 hmem']} bytes over the host link"
+                        for k in keys) + f" ({rate / 1e9:.3f} GB/s measured)"
+                    + (f"; whole rows from 2^20 neighbouring rows {st['ms_host_seq@1.0 hmem']:.4f} ms"
+                       if name == "gather_rows" else ""))
         up = self.stats["upsert_probe"]
         for lam in (0.5, 1.0):
             by_mode = []

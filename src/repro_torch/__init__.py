@@ -7,7 +7,9 @@ of it.  Ops run on the card unless the caller asks for the CPU:
     table = HKVTable.create(capacity=2**27, dim=32, buckets_per_key=2)
 
 The training path: ``repro_torch.embedding.HKVEmbedding`` (lookup_train,
-lookup_serve, apply_grads) and ``repro_torch.models.dlrm.DLRM``.
+lookup_serve, apply_grads) and ``repro_torch.models.dlrm.DLRM``.  The tier
+hierarchy: ``TieredHKVTable`` (an HBM hot tier over a cold tier whose value
+plane is in pinned host memory, ``value_tier='hmem'``).
 """
 
 from repro_torch.core.api import (HKVTable, KVTable, OpSession, dedupe_keys, normalize_keys,
@@ -16,6 +18,8 @@ from repro_torch.core.merge import EvictionStream
 from repro_torch.core.ops import RowUpdate
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.core.tiered import TieredHKVTable, TieredState, translate_scores
 
 __all__ = ["EvictionStream", "HKVConfig", "HKVState", "HKVTable", "KVTable", "OpSession",
-           "RowUpdate", "SweepPredicate", "dedupe_keys", "normalize_keys", "table_signature"]
+           "RowUpdate", "SweepPredicate", "TieredHKVTable", "TieredState", "dedupe_keys",
+           "normalize_keys", "table_signature", "translate_scores"]

@@ -7,7 +7,8 @@ The paper's benchmark configs (Table 5):
   config A: dim=8,  capacity=128M
   config B: dim=32, capacity=128M
   config C: dim=64, capacity=64M
-  config D: dim=64, capacity=128M, HBM+HMEM value tier (not ported yet)
+  config D: dim=64, capacity=128M, HBM+HMEM value tier (the value plane
+            in pinned host memory on the card, ``core.table``)
 
 `mlp_bottom` and `mlp_top` are carried over as the reference has them;
 neither package's DLRM reads them (its widths are fixed, see

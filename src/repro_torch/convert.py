@@ -8,7 +8,11 @@ Both directions go through numpy arrays named as the JAX state's fields:
     clock_hi, clock_lo, epoch
 
 so a JAX ``HKVState`` (a NamedTuple of arrays) or a dict of numpy arrays
-can be passed in directly, without this module importing JAX.
+can be passed in directly, without this module importing JAX.  The value
+plane is placed for the table's tier: ``value_tier='hmem'`` on the card puts
+it in pinned host memory (``core.table.place_value_tier``).  A JAX
+``TieredState`` (hot and cold states) comes across with
+``tiered_state_from_arrays``.
 
 The op results that carry 64-bit words convert the same way, to dicts
 named as the JAX result's fields: ``stream_to_arrays`` (an
@@ -76,9 +80,10 @@ def values_to_numpy(x: torch.Tensor) -> np.ndarray:
     return x.numpy()
 
 
-def state_from_arrays(arrays: Any, device=None) -> HKVState:
+def state_from_arrays(arrays: Any, device=None, value_tier: str = "hbm") -> HKVState:
     """A JAX-layout state (mapping or object with the FIELDS) -> HKVState
-    on `device` (default: the card)."""
+    on `device` (default: the card), its value plane placed for
+    `value_tier`."""
     get = (lambda f: np.asarray(arrays[f])) if isinstance(arrays, Mapping) \
         else (lambda f: np.asarray(getattr(arrays, f)))
     device = table_mod.resolve_device(device)
@@ -86,7 +91,7 @@ def state_from_arrays(arrays: Any, device=None) -> HKVState:
         keys=_join(get("key_hi"), get("key_lo")).to(device),
         digests=torch.from_numpy(get("digests").astype(np.uint8)).to(device),
         scores=_join(get("score_hi"), get("score_lo")).to(device),
-        values=values_from_numpy(get("values")).to(device),
+        values=table_mod.place_value_tier(values_from_numpy(get("values")), device, value_tier),
         clock=(int(get("clock_hi")) << 32) | int(get("clock_lo")),
         epoch=int(get("epoch")),
     )
@@ -94,6 +99,7 @@ def state_from_arrays(arrays: Any, device=None) -> HKVState:
 
 def state_to_arrays(state: HKVState) -> dict[str, np.ndarray]:
     """HKVState -> a dict of numpy arrays in the JAX layout."""
+    table_mod.host_sync(state.device)   # a kernel may still write a host plane
     key_hi, key_lo = _split(state.keys)
     score_hi, score_lo = _split(state.scores)
     return {
@@ -105,6 +111,22 @@ def state_to_arrays(state: HKVState) -> dict[str, np.ndarray]:
         "clock_lo": np.uint32(state.clock & 0xFFFFFFFF),
         "epoch": np.uint32(state.epoch),
     }
+
+
+def tiered_state_from_arrays(tiered: Any, device=None, hot_tier: str = "hbm",
+                             cold_tier: str = "hmem"):
+    """A JAX ``TieredState`` (``hot`` and ``cold`` JAX-layout states) ->
+    the port's ``TieredState``, each tier's plane placed for its tier."""
+    from repro_torch.core.tiered import TieredState
+
+    get = (lambda f: tiered[f]) if isinstance(tiered, Mapping) else (lambda f: getattr(tiered, f))
+    return TieredState(hot=state_from_arrays(get("hot"), device, hot_tier),
+                       cold=state_from_arrays(get("cold"), device, cold_tier))
+
+
+def tiered_state_to_arrays(state) -> dict[str, dict[str, np.ndarray]]:
+    """The port's ``TieredState`` -> {"hot": ..., "cold": ...} in the JAX layout."""
+    return {"hot": state_to_arrays(state.hot), "cold": state_to_arrays(state.cold)}
 
 
 def _words(prefix: str, x: torch.Tensor) -> dict[str, np.ndarray]:

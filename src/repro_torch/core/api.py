@@ -194,13 +194,18 @@ class HKVTable:
         """Bind an existing state (no copy)."""
         return cls(state=state, cfg=cfg, backend=backend)
 
+    def with_state(self, state: HKVState) -> "HKVTable":
+        """A handle on `state` with this handle's config and backend."""
+        return dataclasses.replace(self, state=state)
+
     def with_backend(self, backend: str) -> "HKVTable":
         """A handle on the SAME state with another backend: ops through
         either change both."""
         return dataclasses.replace(self, backend=backend)
 
     def snapshot(self) -> "HKVTable":
-        """An independent copy of the table (state planes cloned)."""
+        """An independent copy of the table (state planes cloned; an 'hmem'
+        value plane into new pinned host memory)."""
         return dataclasses.replace(self, state=self.state.clone())
 
     # -- views ---------------------------------------------------------------

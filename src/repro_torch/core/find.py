@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import table as table_mod
 from repro_torch.core import u64
 from repro_torch.core.table import HKVConfig, HKVState
 
@@ -81,7 +82,7 @@ def locate(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
         bucket = probe.bucket1
         slot = torch.where(hit1, slot1, 0)
     return Locate(found=found, bucket=bucket, slot=slot,
-                  row=bucket * state.slots_per_bucket + slot)
+                  row=table_mod.value_row_index(bucket, slot, state.slots_per_bucket))
 
 
 def gather_rows(values: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -91,7 +92,10 @@ def gather_rows(values: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor) ->
     return torch.where(mask[:, None], out, torch.zeros_like(out))
 
 
-def gather_values(state: HKVState, loc: Locate, dim: Optional[int] = None) -> torch.Tensor:
-    """Position-addressed value gather; missing keys read zeros."""
-    rows = gather_rows(state.values, loc.row, loc.found)
+def gather_values(state: HKVState, loc: Locate, dim: Optional[int] = None,
+                  tier: str = "hbm") -> torch.Tensor:
+    """Position-addressed value gather; missing keys read zeros.  On the
+    'hmem' tier only the located rows cross from the host."""
+    rows = table_mod.tier_gather(tier, state.values, loc.row)
+    rows = torch.where(loc.found[:, None], rows, torch.zeros_like(rows))
     return rows if dim is None else rows[:, :dim]

@@ -229,12 +229,13 @@ def plain_victim_at_rank(state: HKVState, cfg: HKVConfig, buckets: torch.Tensor,
 
 def plain_gather_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
-    return find_mod.gather_rows(values, rows.clamp(0, values.shape[0] - 1), mask)
+    out = table_mod.tier_gather(cfg.value_tier, values, rows.clamp(0, values.shape[0] - 1))
+    return torch.where(mask[:, None], out, torch.zeros_like(out))
 
 
 def plain_scatter_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tensor,
                          updates: torch.Tensor, mask: torch.Tensor) -> None:
-    values[rows[mask]] = updates[mask].to(values.dtype)
+    table_mod.tier_scatter(cfg.value_tier, values, rows[mask], updates[mask].to(values.dtype))
 
 
 def plain_stages() -> UpsertStages:

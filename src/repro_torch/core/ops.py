@@ -21,17 +21,25 @@ Under 'auto' an op runs a kernel exactly where the reference's
 ``backend='kernel'`` runs a Pallas kernel, and plain PyTorch (on the card)
 where the reference runs plain jnp:
 
-  find, find_rows          find_scan; at a caller's ``loc``: gather_rows
-  find_ptr, contains       digest_scan, once per candidate bucket
+  find, find_rows          find_scan; at a caller's ``loc``: gather_rows;
+                           on the 'hmem' tier: digest_scan and gather_rows
+  find_ptr, contains       digest_scan, one launch over both candidate
+                           buckets
   insert_or_assign,        the upsert stages (``kernels.ops.kernel_stages``);
   ingest                   insert_and_evict adds one gather_rows for the
   insert_and_evict,        evicted rows, find_or_insert one for its readback
   find_or_insert
   erase_if, evict_if       sweep_match for the mask
   update_rows              update_scan, when no ``loc`` is given and no
-                           score is touched; at a caller's ``loc``:
+                           score is touched (on the 'hmem' tier:
+                           digest_scan, gather_rows, the optimizer and
+                           scatter_rows); at a caller's ``loc``:
                            gather_rows, the optimizer, and assign
   the rest                 plain PyTorch (the reference's are plain jnp)
+
+On the 'hmem' tier (``core.table``) the kernels reach the value plane in
+host memory over the host link, and the plain paths move rows across the
+tier through ``tier_gather`` / ``tier_scatter``.
 
 ``HKVTable`` in ``core.api`` is the public surface; these free functions
 are the implementation it delegates to.
@@ -117,7 +125,7 @@ def _read(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     if kern:
         vals = _kernel_ops().gather_rows_kernel(state, loc, width)
     else:
-        vals = find_mod.gather_values(state, loc, dim)
+        vals = find_mod.gather_values(state, loc, dim, cfg.value_tier)
     scores = torch.where(loc.found, state.scores[loc.bucket, loc.slot], 0)
     return vals, loc.found, loc.row, scores
 
@@ -143,7 +151,7 @@ def find_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
 def find_ptr(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, *,
              backend: str = "auto") -> find_mod.Locate:
     """Reader.  The paper's pointer find: (bucket, slot, row) of each key,
-    no value traffic.  On the card: digest_scan, once per candidate bucket."""
+    no value traffic.  On the card: one digest_scan launch."""
     if uses_kernels(backend, state.device):
         return _kernel_ops().locate_kernel(state, cfg, keys)
     return find_mod.locate(state, cfg, keys)
@@ -173,9 +181,10 @@ def export_batch(state: HKVState, cfg: HKVConfig, bucket_start: int,
     a liveness mask; a copy, since the ops change the planes in place."""
     s = cfg.slots_per_bucket
     keys = state.keys[bucket_start:bucket_start + bucket_count].reshape(-1).clone()
+    rows = torch.arange(bucket_start * s, (bucket_start + bucket_count) * s, device=state.device)
     return ExportResult(
         keys=keys,
-        values=state.values[bucket_start * s:(bucket_start + bucket_count) * s].clone(),
+        values=table_mod.tier_gather(cfg.value_tier, state.values, rows),
         scores=state.scores[bucket_start:bucket_start + bucket_count].reshape(-1).clone(),
         mask=~u64.empty_lanes(keys))
 
@@ -207,10 +216,12 @@ def assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Te
     values = values.to(state.values.dtype)
     vdim = state.values.shape[1]
     if values.shape[1] < vdim:
-        old = state.values[loc.row.clamp(0, state.values.shape[0] - 1)][:, values.shape[1]:]
-        values = torch.cat([values, torch.where(loc.found[:, None], old, 0)], dim=1)
+        old = table_mod.tier_gather(cfg.value_tier, state.values,
+                                    loc.row.clamp(0, state.values.shape[0] - 1))
+        values = torch.cat([values, torch.where(loc.found[:, None], old[:, values.shape[1]:], 0)],
+                           dim=1)
     write = loc.found & merge_mod.last_writer_mask(keys)
-    state.values[loc.row[write]] = values[write]
+    table_mod.tier_scatter(cfg.value_tier, state.values, loc.row[write], values[write])
     if update_scores:
         table_mod.advance_clock(state)
         new_sc = cfg.policy.update_score(state.scores[loc.bucket, loc.slot], state.clock,
@@ -228,7 +239,8 @@ def assign_add(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, deltas: torc
     if loc is None:
         loc = find_mod.locate(state, cfg, keys)
     deltas = _pad_aux(deltas, state)
-    state.values.index_put_((loc.row[loc.found],), deltas[loc.found], accumulate=True)
+    table_mod.tier_scatter(cfg.value_tier, state.values, loc.row[loc.found], deltas[loc.found],
+                           add=True)
     return state
 
 
@@ -280,11 +292,11 @@ def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torc
         return UpdateRowsResult(state=state, found=r.found)
     if loc is None:
         loc = find_mod.locate(state, cfg, keys)
-        rows = find_mod.gather_values(state, loc)
+        rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
     elif kern:
         rows = _kernel_ops().gather_rows_kernel(state, loc, state.values.shape[1])
     else:
-        rows = find_mod.gather_values(state, loc)
+        rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
     new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
     new_rows = torch.where(loc.found[:, None], new_rows, rows)
     assign(state, cfg, keys, new_rows, update_scores=update_scores, loc=loc)
@@ -370,7 +382,7 @@ def _gather_post(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
     if uses_kernels(backend, state.device):
         vals = _kernel_ops().gather_rows_kernel(state, res.loc, cfg.dim)
     else:
-        vals = find_mod.gather_values(state, res.loc, cfg.dim)
+        vals = find_mod.gather_values(state, res.loc, cfg.dim, cfg.value_tier)
     return torch.where(res.loc.found[:, None], vals,
                        init_values[:, :cfg.dim].to(vals.dtype))
 
@@ -408,7 +420,7 @@ def accum_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
 def erase(state: HKVState, cfg: HKVConfig, keys: torch.Tensor) -> HKVState:
     """Inserter.  Remove keys; their slots return to the pool."""
     loc = find_mod.locate(state, cfg, keys)
-    _clear_slots(state, loc.row[loc.found])
+    _clear_slots(state, cfg, loc.row[loc.found])
     return state
 
 
@@ -418,7 +430,7 @@ def clear(state: HKVState, cfg: HKVConfig) -> HKVState:
     state.keys.fill_(u64.EMPTY)
     state.digests.fill_(u64.EMPTY_DIGEST)
     state.scores.zero_()
-    state.values.zero_()
+    table_mod.tier_zero(cfg.value_tier, state.values, state.device)
     return state
 
 
@@ -449,14 +461,14 @@ def _sweep_mask(state: HKVState, pred: SweepPredicate, backend: str) -> torch.Te
     return pred.matches(state.keys, state.scores) & state.occupied_mask()
 
 
-def _clear_slots(state: HKVState, rows: torch.Tensor) -> None:
+def _clear_slots(state: HKVState, cfg: HKVConfig, rows: torch.Tensor) -> None:
     """Free the slots at flat positions `rows` (= value rows): EMPTY key
     and digest, score 0, value row zeroed.  Only those rows are written,
     not the whole value plane."""
     state.keys.view(-1)[rows] = u64.EMPTY
     state.digests.view(-1)[rows] = u64.EMPTY_DIGEST
     state.scores.view(-1)[rows] = 0
-    state.values[rows] = 0
+    table_mod.tier_scatter(cfg.value_tier, state.values, rows, 0)
 
 
 def erase_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, *,
@@ -464,7 +476,7 @@ def erase_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, *,
     """Inserter.  Remove EVERY live entry matching `pred` (TTL expiry:
     ``SweepPredicate.expire_before``)."""
     rows = torch.nonzero(_sweep_mask(state, pred, backend).view(-1))[:, 0]
-    _clear_slots(state, rows)
+    _clear_slots(state, cfg, rows)
     return SweepResult(state=state, swept=torch.tensor(rows.numel(), device=state.device))
 
 
@@ -495,13 +507,13 @@ def evict_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, budget: int,
         lane &= rank < torch.as_tensor(limit, device=dev)
     row_t = torch.zeros(budget, dtype=torch.int64, device=dev)
     row_t[:ranked.numel()] = ranked
-    vals = state.values[row_t]
+    vals = table_mod.tier_gather(cfg.value_tier, state.values, row_t)
     stream = EvictionStream(
         keys=torch.where(lane, keys_f[row_t], 0),
         values=torch.where(lane[:, None], vals, torch.zeros_like(vals)),
         scores=torch.where(lane, scores_f[row_t], 0),
         mask=lane)
-    _clear_slots(state, row_t[lane])
+    _clear_slots(state, cfg, row_t[lane])
     return EvictIfResult(state=state, evicted=stream, count=lane.sum())
 
 

@@ -32,6 +32,10 @@ class ScorePolicy:
         if self.name not in POLICIES:
             raise ValueError(f"unknown score policy {self.name!r}; one of {POLICIES}")
 
+    @property
+    def is_custom(self) -> bool:
+        return self.name == "custom"
+
     def _need_custom(self, custom):
         if custom is None:
             raise ValueError("policy 'custom' requires caller-supplied scores")

@@ -15,6 +15,15 @@ State is updated IN PLACE by the ops: the reference's functional updates
 would copy the value plane on every op, and at the paper's config B that
 plane alone is 2**27 x 32 x 4 B = 16 GiB.  ``HKVState.clone`` is the
 explicit copy.
+
+Tiered key-value separation (§3.6): with ``value_tier='hmem'`` on the card
+the value plane lives in pinned host memory mapped into the card's address
+space, while keys, digests and scores stay in HBM (the paper's HBM+HMEM
+config D).  The kernels read and write its rows over the host link
+(``kernels._build.check_plane``), so only touched rows cross; the plain
+paths cross through ``tier_gather`` / ``tier_scatter``, which send the
+row indices to the host and move only the rows.  On the CPU the plane is
+an ordinary CPU tensor, as the reference's CPU container keeps it in place.
 """
 
 from __future__ import annotations
@@ -92,10 +101,21 @@ class HKVState:
     def occupied_mask(self) -> torch.Tensor:
         return ~u64.empty_lanes(self.keys)
 
+    @property
+    def host_values(self) -> bool:
+        """The value plane is the 'hmem' tier: host memory beside key
+        planes on the card."""
+        return self.values.device.type == "cpu" and self.keys.device.type != "cpu"
+
     def clone(self) -> "HKVState":
+        """A copy of every plane; an 'hmem' plane gets a new pinned plane."""
+        if self.host_values:
+            host_sync(self.device)
+            values = _pinned_empty(self.values.shape, self.values.dtype).copy_(self.values)
+        else:
+            values = self.values.clone()
         return HKVState(self.keys.clone(), self.digests.clone(),
-                        self.scores.clone(), self.values.clone(),
-                        self.clock, self.epoch)
+                        self.scores.clone(), values, self.clock, self.epoch)
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:
@@ -110,19 +130,101 @@ def resolve_device(device: Optional[torch.device | str]) -> torch.device:
 
 
 def create(config: HKVConfig, device: Optional[torch.device | str] = None) -> HKVState:
-    """Allocate an empty table on `device` (default: the card)."""
-    if config.value_tier == "hmem":
-        raise NotImplementedError(
-            "value_tier='hmem' (host-memory value plane) is not ported yet")
+    """Allocate an empty table on `device` (default: the card); an 'hmem'
+    value plane on the card goes to pinned host memory."""
     device = resolve_device(device)
     b, s = config.num_buckets, config.slots_per_bucket
+    shape = (b * s, config.total_value_dim)
+    if config.value_tier == "hmem" and device.type == "cuda":
+        values = _pinned_empty(shape, config.value_dtype).zero_()
+    else:
+        values = torch.zeros(shape, dtype=config.value_dtype, device=device)
     return HKVState(
         keys=torch.full((b, s), u64.EMPTY, dtype=torch.int64, device=device),
         digests=torch.full((b, s), u64.EMPTY_DIGEST, dtype=torch.uint8, device=device),
         scores=torch.zeros((b, s), dtype=torch.int64, device=device),
-        values=torch.zeros((b * s, config.total_value_dim),
-                           dtype=config.value_dtype, device=device),
+        values=values,
     )
+
+
+def _pinned_empty(shape, dtype) -> torch.Tensor:
+    from repro_torch.kernels import _build  # the kernels' library allocates it
+
+    return _build.pinned_empty(shape, dtype)
+
+
+def place_value_tier(values: torch.Tensor, device: torch.device, tier: str) -> torch.Tensor:
+    """A value plane placed for `tier` beside key planes on `device`: an
+    'hmem' plane beside the card's key planes is copied into pinned host
+    memory; any other plane goes to `device`."""
+    if tier == "hmem" and device.type == "cuda":
+        return _pinned_empty(values.shape, values.dtype).copy_(values)
+    return values.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Tier crossings (§3.6) for the plain paths.  On the 'hmem' tier of a table
+# on the card, a gather sends its row indices to the host, gathers there and
+# moves only the gathered rows to the card; a scatter sends indices and
+# rows to the host.  Host code touches the plane only after the card has
+# run every kernel queued before it (a kernel may still read or write the
+# plane over the host link).  Otherwise (the 'hbm' tier, or every plane on
+# the CPU) they are plain indexing.  Rows lie within the plane.
+# ---------------------------------------------------------------------------
+
+
+def host_sync(device: torch.device) -> None:
+    """Wait until the card has run the work queued on its stream."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _crosses(tier: str, values: torch.Tensor, other: torch.Tensor) -> bool:
+    return tier == "hmem" and values.device != other.device
+
+
+def tier_gather(tier: str, values: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """values[rows], on the device of `rows`."""
+    if not _crosses(tier, values, rows):
+        return values[rows]
+    host_sync(rows.device)
+    return values[rows.cpu()].to(rows.device)
+
+
+def tier_scatter(tier: str, values: torch.Tensor, rows: torch.Tensor, updates,
+                 *, add: bool = False) -> None:
+    """values[rows] = updates in place (a tensor of rows, or a scalar); with
+    `add`, values[rows] += updates, duplicates accumulating."""
+    if _crosses(tier, values, rows):
+        host_sync(rows.device)
+        rows = rows.cpu()
+        if isinstance(updates, torch.Tensor):
+            updates = updates.cpu()
+    if add:
+        values.index_put_((rows,), updates, accumulate=True)
+    else:
+        values[rows] = updates
+
+
+def tier_mask_rows(tier: str, values: torch.Tensor, keep: torch.Tensor) -> None:
+    """Zero every value row where ~keep [B*S], in place; on the 'hmem' tier
+    only the mask crosses to the host."""
+    if _crosses(tier, values, keep):
+        host_sync(keep.device)
+        keep = keep.cpu()
+    values.masked_fill_(~keep[:, None], 0)
+
+
+def tier_zero(tier: str, values: torch.Tensor, device: torch.device) -> None:
+    """Zero the whole plane of a table on `device`, in place."""
+    if tier == "hmem" and values.device != device:
+        host_sync(device)
+    values.zero_()
+
+
+def value_row_index(bucket: torch.Tensor, slot: torch.Tensor, slots_per_bucket: int) -> torch.Tensor:
+    """Position-based addressing (§3.6): value row = bucket * S + slot."""
+    return bucket * slots_per_bucket + slot
 
 
 def advance_clock(state: HKVState) -> None:

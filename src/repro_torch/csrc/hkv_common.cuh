@@ -23,34 +23,9 @@ constexpr int kWarpsPerBlock = 8;    // 256 threads a block
 // SM's maximum of 2048, which caps a thread at 32 registers.
 constexpr int kFullOccupancyBlocks = 8;
 
-// One warp matches a query against one bucket row: lane l covers slots
-// 4l..4l+3.  The 128 digests are one coalesced 128-byte load (one 32-bit
-// word a lane); a full key is read only where the digest matches (or
-// everywhere when use_digest is 0, the "no digest" ablation).  Returns the
-// lowest matching slot, or -1.
-__device__ __forceinline__ int warp_match_row(const uint8_t* __restrict__ digests,
-                                              const int64_t* __restrict__ keys,
-                                              int64_t bucket, uint32_t qdigest,
-                                              int64_t qkey, int use_digest, int lane) {
-  const int64_t base = bucket * kSlots;
-  const int s0 = lane * kSlotsPerLane;
-  const uint32_t dword = reinterpret_cast<const uint32_t*>(digests + base)[lane];
-  unsigned mine = 0;
-#pragma unroll
-  for (int j = 0; j < kSlotsPerLane; ++j) {
-    const bool cand = !use_digest || ((dword >> (8 * j)) & 0xffu) == qdigest;
-    if (cand && keys[base + s0 + j] == qkey) mine |= 1u << j;
-  }
-  const unsigned ballot = __ballot_sync(kFullMask, mine != 0);
-  if (ballot == 0) return -1;
-  const int first_lane = __ffs(ballot) - 1;
-  const unsigned first_bits = __shfl_sync(kFullMask, mine, first_lane);
-  return first_lane * kSlotsPerLane + (__ffs(first_bits) - 1);
-}
-
 // The group probe: a group of kGroup lanes serves one query, so a warp
-// serves kGroupsPerWarp queries and four times as many queries are in
-// flight as with warp_match_row.  Lane g of a group covers slots
+// serves kGroupsPerWarp queries: four times as many queries in flight as
+// with a warp a query.  Lane g of a group covers slots
 // 16g..16g+15: their digests are one 16-byte load, compared bytewise
 // (__vcmpeq4) with the query's digest; a full key is read only where the
 // digest matched (or all 16, in 16-byte loads, when use_digest is 0).

@@ -15,8 +15,11 @@ Training step:
 Serving: ``lookup_serve`` finds; a token not in the table gets the same
 deterministic init row training would insert.
 
-Only the flat table is ported: ``hot_capacity`` (the tiered table) raises
-until ROADMAP item 10 ports the tier hierarchy.
+With ``hot_capacity`` set, the table is a ``TieredHKVTable``: a hot tier
+of ``hot_capacity`` slots in HBM in front of a ``capacity``-slot cold tier
+whose value plane uses ``cold_value_tier`` (pinned host memory on the
+card).  The embedding's contract is unchanged; the table has to hold its
+hot set in HBM, not all of it.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from repro_torch.core import merge as merge_mod
 from repro_torch.core import ops as ops_mod
 from repro_torch.core import u64
 from repro_torch.core.api import HKVTable
-from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.core.table import HKVConfig
+from repro_torch.core.tiered import TieredHKVTable, TieredState
 from repro_torch.embedding.sparse_opt import SparseOptimizer
 
 
@@ -49,28 +53,50 @@ class HKVEmbedding:
     value_dtype: torch.dtype = torch.float32
     value_tier: str = "hbm"
     backend: str = "auto"              # 'auto' | 'plain' (core/ops.py)
-    # the reference's tiered table (a hot tier of this many slots); not
-    # ported yet (ROADMAP item 10), so any value raises
+    # the tier hierarchy: with hot_capacity set, a hot tier of that many
+    # slots in front of a `capacity`-slot cold tier placed per
+    # cold_value_tier, whose 'custom' policy keeps the demoted pairs'
+    # translated scores
     hot_capacity: Optional[int] = None
+    cold_score_policy: str = "custom"
+    cold_value_tier: str = "hmem"
+
+    @property
+    def is_tiered(self) -> bool:
+        return self.hot_capacity is not None
+
+    @property
+    def total_capacity(self) -> int:
+        return self.capacity + (self.hot_capacity or 0)
 
     def config(self) -> HKVConfig:
-        """The flat table's config."""
-        if self.hot_capacity is not None:
-            raise NotImplementedError(
-                "HKVEmbedding(hot_capacity=...) needs the tiered table, which is not "
-                "ported yet (ROADMAP queue 1, item 10: the tier hierarchy)")
-        return HKVConfig(capacity=self.capacity, dim=self.dim,
-                         buckets_per_key=self.buckets_per_key, score_policy=self.score_policy,
-                         value_dtype=self.value_dtype, value_tier=self.value_tier,
+        """The flat table's config; the HOT tier's when tiered."""
+        return HKVConfig(capacity=self.hot_capacity if self.is_tiered else self.capacity,
+                         dim=self.dim, buckets_per_key=self.buckets_per_key,
+                         score_policy=self.score_policy, value_dtype=self.value_dtype,
+                         value_tier=self.value_tier,
                          aux_value_dim=self.optimizer.aux_dim(self.dim))
 
-    def create(self, device=None) -> HKVTable:
+    def cold_config(self) -> HKVConfig:
+        return dataclasses.replace(self.config(), capacity=self.capacity,
+                                   score_policy=self.cold_score_policy,
+                                   value_tier=self.cold_value_tier)
+
+    def create(self, device=None):
         """An empty table on `device` (default: the card; raises without
-        one, pass device='cpu' for the CPU)."""
+        one, pass device='cpu' for the CPU): an HKVTable, or a
+        TieredHKVTable when `hot_capacity` is set."""
+        if self.is_tiered:
+            return TieredHKVTable.from_configs(self.config(), self.cold_config(),
+                                               backend=self.backend, device=device)
         return HKVTable.create(self.config(), device=device, backend=self.backend)
 
-    def wrap(self, state: HKVState) -> HKVTable:
-        """Bind an existing state to this embedding's handle (no copy)."""
+    def wrap(self, state):
+        """Bind an existing state (an HKVState, or a TieredState when
+        tiered) to this embedding's handle (no copy)."""
+        if self.is_tiered:
+            return TieredHKVTable.wrap(TieredState(*state), self.config(), self.cold_config(),
+                                       backend=self.backend)
         return HKVTable.wrap(state, self.config(), backend=self.backend)
 
     # -- key and init derivation ---------------------------------------------
@@ -101,9 +127,14 @@ class HKVEmbedding:
         return res.table, res.values.reshape(_shape(tokens) + (self.dim,))
 
     def lookup_serve(self, table: HKVTable, tokens) -> torch.Tensor:
-        """Reader: find; a miss falls back to the deterministic init row."""
+        """Reader: find; a miss falls back to the deterministic init row.
+        On a tiered table the pure reader (``find(promote=False)``): a
+        promotion would be structural work the serve path throws away."""
         keys = self.keys_of(tokens).to(table.device)
-        res = table.find(keys)
+        if isinstance(table, TieredHKVTable):
+            res = table.find(keys, promote=False)
+        else:
+            res = table.find(keys)
         vals = torch.where(res.found[:, None], res.values, self.default_rows(keys))
         return vals.reshape(_shape(tokens) + (self.dim,))
 

@@ -11,6 +11,11 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and adds one
 to the kernel's launch count.  The counts are how a run shows that its
 path went through the kernels.
+
+The same library allocates the 'hmem' value tier (``csrc/host_memory.cu``):
+:func:`pinned_empty` gives a tensor in pinned host memory mapped into the
+card's address space, and :func:`check_plane` lets the row kernels
+(gather_rows, scatter_rows) take such a plane beside key planes on the card.
 """
 
 from __future__ import annotations
@@ -18,12 +23,14 @@ from __future__ import annotations
 import collections
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
 import threading
+import weakref
 
 import torch
 
@@ -39,10 +46,17 @@ _SIGNATURES = {
     "hkv_claim_scan": "PPPPPPPPIP",
     "hkv_scatter_rows": "PPPPIIIiiiP",
     "hkv_gather_rows": "PPPPIIIIiP",
-    "hkv_digest_scan": "PPPPPPPIP",
+    "hkv_digest_scan": "PPPPPPPPPIP",
     "hkv_sweep_match": "PPPPIiIIP",
     "hkv_update_scan": "PPPPPPPPPPIIiiifffiP",
     "hkv_bucket_stats": "PPPPPIP",
+}
+# The host-memory calls (no stream): csrc/host_memory.cu.
+_HOST_SIGNATURES = {
+    "hkv_host_alloc": "PI",
+    "hkv_host_free": "P",
+    "hkv_host_device_pointer": "PP",
+    "hkv_device_attribute": "iiP",
 }
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -105,7 +119,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, sig in _SIGNATURES.items():
+            for name, sig in (*_SIGNATURES.items(), *_HOST_SIGNATURES.items()):
                 fn = getattr(lib, name)
                 fn.argtypes = [_CTYPES[c] for c in sig]
                 fn.restype = ctypes.c_int
@@ -129,6 +143,48 @@ def launch(name: str, *args) -> None:
     launch_counts[name] += 1
 
 
+def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised CPU tensor in pinned host memory, mapped into the
+    card's address space (cudaHostAlloc); the memory is freed when the last
+    tensor viewing it is."""
+    lib = library()
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    ptr = ctypes.c_void_p()
+    err = lib.hkv_host_alloc(ctypes.byref(ptr), max(nbytes, 1))
+    if err != 0:
+        raise RuntimeError(f"cudaHostAlloc of {nbytes} bytes failed: cudaError {err}")
+    buf = (ctypes.c_char * max(nbytes, 1)).from_address(ptr.value)
+    # the tensor keeps `buf` alive; the allocation dies with it
+    weakref.finalize(buf, lib.hkv_host_free, ptr.value).atexit = False
+    return torch.frombuffer(buf, dtype=torch.uint8)[:nbytes].view(dtype).view(tuple(shape))
+
+
+def device_pointer(t: torch.Tensor) -> int:
+    """The card's address of a CPU tensor in pinned, mapped host memory
+    (raises for any other CPU tensor).  Under unified addressing it is the
+    host address itself, which the kernels are then given."""
+    dptr = ctypes.c_void_p()
+    err = library().hkv_host_device_pointer(ctypes.c_void_p(t.data_ptr()), ctypes.byref(dptr))
+    check(err == 0, "a CPU value plane beside CUDA tensors must be pinned host memory mapped "
+                    "into the card's address space (value_tier='hmem'); this one is not "
+                    f"(cudaError {err})")
+    check(dptr.value == t.data_ptr(),
+          "the device pointer of pinned host memory differs from its host address")
+    return dptr.value
+
+
+# cudaDevAttrHostNativeAtomicSupported (driver_types.h)
+HOST_NATIVE_ATOMICS = 86
+
+
+def device_attribute(attr: int, device: int = 0) -> int:
+    value = ctypes.c_int()
+    err = library().hkv_device_attribute(attr, device, ctypes.byref(value))
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute({attr}) failed: cudaError {err}")
+    return value.value
+
+
 # The value planes the kernels take: float32 and bfloat16.
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -137,6 +193,16 @@ def check_values(name: str, t: torch.Tensor, shape: tuple, device: torch.device)
     """A value plane or batch: float32 or bfloat16, contiguous, `shape`."""
     check(t.dtype in VALUE_DTYPES, f"{name}: dtype {t.dtype}, expected float32 or bfloat16")
     check_tensor(name, t, t.dtype, shape, device, t.element_size())
+
+
+def check_plane(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """A value plane on `device`, or (the 'hmem' tier) a CPU plane in
+    pinned, mapped host memory beside tensors on the card, which the
+    kernel reads and writes over the host link."""
+    if t.device.type == "cpu" and device.type == "cuda":
+        device_pointer(t)
+        device = t.device
+    check_values(name, t, shape, device)
 
 
 def copy_unit(byte_counts, tensors) -> int:

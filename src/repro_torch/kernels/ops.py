@@ -1,10 +1,14 @@
 """The table ops' kernel-backed stages.
 
   find_fused_kernel   the reader: one find_scan launch resolves match,
-                      score readout and value copy (find, find_rows);
-  locate_kernel       the metadata-only locate: one digest_scan launch per
-                      candidate bucket (find_ptr, contains, and the
-                      single-bucket upsert's locate stage);
+                      score readout and value copy (find, find_rows); on a
+                      host-memory value plane ('hmem') locate_kernel and
+                      one gather_rows launch over the host link instead, as
+                      the reference routes that tier;
+  locate_kernel       the metadata-only locate: one digest_scan launch over
+                      both candidate buckets (find_ptr, contains, the
+                      single-bucket upsert's locate stage, and the locate
+                      of the 'hmem' tier's readers and updaters);
   gather_rows_kernel  the value gather at a known locate (find and
                       find_rows at a caller's loc, find_or_insert's
                       readback);
@@ -12,11 +16,12 @@
                       evict_if), one sweep_match launch;
   update_rows_kernel  the updater's fused gradient step: one update_scan
                       launch probes, applies the sparse optimizer and
-                      writes the rows back (update_rows, apply_grads);
-  update_composed_kernel  the same step composed as locate (a digest_scan
-                      launch per candidate bucket), gather_rows, the
-                      optimizer in plain PyTorch and scatter_rows: the
-                      launch-count and parity baseline of the fused pass;
+                      writes the rows back (update_rows, apply_grads); on
+                      an 'hmem' plane the composed step below;
+  update_composed_kernel  the same step composed as locate_kernel,
+                      gather_rows, the optimizer in plain PyTorch on the
+                      card and scatter_rows: the 'hmem' tier's updater, and
+                      the fused pass's launch-count and parity baseline;
   bucket_stats_kernel per-bucket occupancy and minimum live score, one
                       bucket_stats launch (no op calls it);
   kernel_stages       the inserter's stages for ``core.merge.upsert``:
@@ -25,12 +30,13 @@
                       lanes; single-bucket mode locates on digest_scan and
                       targets bucket1; victim_at_rank on claim_scan,
                       gather_values on gather_rows, scatter_values on
-                      scatter_rows.  Per insert_or_assign: two upsert_probe
-                      (dual; the target pass launches without a miss too,
-                      and works on no lane) or one digest_scan (single),
-                      one claim_scan (on the miss lanes; none without a
-                      miss) and two scatter_rows launches; return_evicted
-                      adds one gather_rows.
+                      scatter_rows (on either tier's plane).  Per
+                      insert_or_assign: two upsert_probe (dual; the target
+                      pass launches without a miss too, and works on no
+                      lane) or one digest_scan (single), one claim_scan (on
+                      the miss lanes; none without a miss) and two
+                      scatter_rows launches; return_evicted adds one
+                      gather_rows.
 
 The wrappers run their plain versions on CPU tensors, so the CPU tests
 reach this module too.
@@ -65,6 +71,13 @@ class FusedFind(NamedTuple):
 
 
 def find_fused_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor) -> FusedFind:
+    if cfg.value_tier == "hmem":
+        # the value plane is in host memory: locate on the card, then only
+        # the hit rows cross the host link
+        loc = locate_kernel(state, cfg, keys)
+        return FusedFind(values=gather_rows_kernel(state, loc, state.values.shape[1]),
+                         found=loc.found, bucket=loc.bucket, slot=loc.slot,
+                         scores=torch.where(loc.found, state.scores[loc.bucket, loc.slot], 0))
     probe = find_mod.probe_keys(cfg, keys)
     found, sel, slot, score, vals = find_scan(
         state.digests, state.keys, state.scores, state.values,
@@ -82,26 +95,20 @@ def find_fused_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor) -> Fu
 
 def locate_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                   probe: find_mod.Probe | None = None) -> find_mod.Locate:
-    """Drop-in for ``core.find.locate`` on digest_scan, one launch per
-    candidate bucket, merged with a hit in bucket1 winning (always
-    digest-filtered, like the reference's locate kernel)."""
+    """Drop-in for ``core.find.locate`` on one digest_scan launch over the
+    candidate buckets, a hit in bucket1 winning (always digest-filtered,
+    like the reference's locate kernel)."""
     if probe is None:
         probe = find_mod.probe_keys(cfg, keys)
-
-    def run(bucket):
-        slot, found = digest_scan(state.digests, state.keys, bucket, probe.digest, keys)
-        return slot.to(torch.int64), found.to(torch.bool)
-
-    slot1, hit1 = run(probe.bucket1)
     if cfg.buckets_per_key == 2:
-        slot2, hit2 = run(probe.bucket2)
-        found = (hit1 | hit2) & probe.valid
-        bucket = torch.where(hit1 | ~hit2, probe.bucket1, probe.bucket2)
-        slot = torch.where(hit1, slot1, torch.where(hit2, slot2, 0))
+        slot, found, sel = digest_scan(state.digests, state.keys, probe.bucket1, probe.digest,
+                                       keys, probe.bucket2)
+        bucket = torch.where(sel == 1, probe.bucket2, probe.bucket1)
     else:
-        found = hit1 & probe.valid
-        bucket, slot = probe.bucket1, torch.where(hit1, slot1, 0)
-    return find_mod.Locate(found=found, bucket=bucket, slot=slot,
+        slot, found = digest_scan(state.digests, state.keys, probe.bucket1, probe.digest, keys)
+        bucket = probe.bucket1
+    slot = slot.to(torch.int64)
+    return find_mod.Locate(found=found.to(torch.bool) & probe.valid, bucket=bucket, slot=slot,
                            row=bucket * cfg.slots_per_bucket + slot)
 
 
@@ -128,7 +135,10 @@ def update_rows_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     """The fused updater pass: one update_scan launch.  PRECONDITION: the
     valid keys are unique and `grads` summed per key.  Misses and EMPTY
     padding write nothing: the key-validity gate goes into the kernel,
-    since an updater cannot mask its writes afterwards."""
+    since an updater cannot mask its writes afterwards.  On an 'hmem'
+    plane: the composed step, as the reference routes that tier."""
+    if cfg.value_tier == "hmem":
+        return update_composed_kernel(state, cfg, keys, grads, opt)
     probe = find_mod.probe_keys(cfg, keys)   # bucket2 = bucket1 in single mode
     found = update_scan(state.digests, state.keys, state.values, probe.bucket1, probe.bucket2,
                         probe.digest, keys, probe.valid,
@@ -140,7 +150,8 @@ def update_rows_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
 def update_composed_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                            grads: torch.Tensor, opt) -> UpdateRows:
     """The updater composed of separate passes: locate_kernel, gather_rows,
-    the optimizer in plain PyTorch, scatter_rows.  Kept as the fused
+    the optimizer in plain PyTorch on the card, scatter_rows.  The 'hmem'
+    tier's updater (its rows cross the host link twice), and the fused
     pass's launch-count and parity baseline, as in the reference."""
     loc = locate_kernel(state, cfg, keys)
     rows_idx = loc.row.clamp(0, state.values.shape[0] - 1)

@@ -45,7 +45,7 @@ def update_scan(digests, keys, values, bucket1, bucket2, qdigest, qkeys, qvalid,
                 opt, dim: int, use_digest: bool = True):
     """Fused gradient step, in place on `values`.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (or raise)."""
-    dev = values.device
+    dev = qkeys.device
     if dev.type == "cpu":
         return update_scan_plain(digests, keys, values, bucket1, bucket2, qdigest, qkeys,
                                  qvalid, grads, opt, dim, use_digest)

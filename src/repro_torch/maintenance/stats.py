@@ -68,3 +68,27 @@ def stats_from_planes(keys: torch.Tensor, scores: Optional[torch.Tensor] = None,
     load = torch.div(n.to(torch.float32), torch.tensor(float(b * s), device=dev))
     return TableStats(size=n, capacity=b * s, load_factor=load, occupancy_hist=hist,
                       score_q=score_q)
+
+
+def combine_stats(a: TableStats, b: TableStats, *, size=None) -> TableStats:
+    """Merge two tiers' (or shards') stats into one table-level view.
+
+    Histograms add elementwise (the tiers share the slot width); quantiles
+    merge by re-quantiling the two summaries' concatenation, an
+    approximation, exact when one side is empty (exact per-tier quantiles
+    stay on the inputs).  `size` overrides the sum for hierarchies that
+    count inclusive copies once."""
+    dev = a.size.device
+    n = a.size + b.size if size is None else torch.as_tensor(size, dtype=torch.int64, device=dev)
+    cap = a.capacity + b.capacity
+    q = torch.cat([a.score_q, b.score_q])
+    weight = torch.cat([a.size.expand(5), b.size.expand(5)])
+    # an empty side's zeros must not pull the minimum down: they sort last
+    q = torch.where(weight > 0, q, u64.U64_MAX)
+    merged = u64.flip(torch.sort(u64.flip(q)).values)[torch.tensor([0, 2, 4, 6, 9], device=dev)]
+    # one side empty: the other side's quantiles, exactly
+    score_q = torch.where(b.size == 0, a.score_q, torch.where(a.size == 0, b.score_q, merged))
+    load = torch.div(n.to(torch.float32),
+                     torch.tensor(max(float(cap), 1.0), dtype=torch.float32, device=dev))
+    return TableStats(size=n, capacity=cap, load_factor=load,
+                      occupancy_hist=a.occupancy_hist + b.occupancy_hist, score_q=score_q)

@@ -101,12 +101,199 @@ def test_kernel_path_matches_plain_path(dev, policy):
 
 @pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
 def test_digest_scan_kernel_matches_plain(dev, dual):
+    """The single-row form on each candidate row, and the dual form (one
+    launch over both rows, merged) on a dual table."""
     t = _table(dev)
     q, p = _queries(t)
     s = t.state
     for b in (p.bucket1, p.bucket2):
         _same(digest_scan.digest_scan(s.digests, s.keys, b, p.digest, q),
               digest_scan.digest_scan_plain(s.digests, s.keys, b, p.digest, q))
+    if dual:
+        args = (s.digests, s.keys, p.bucket1, p.digest, q, p.bucket2)
+        got = digest_scan.digest_scan(*args)
+        _same(got, digest_scan.digest_scan_plain(*args))
+        assert (got[2] == 1).any() and ((got[1] == 1) & (got[2] == 0)).any()
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4095])
+def test_digest_scan_dual_form_at_any_length_and_on_collisions(dev, n):
+    """Lane counts that are no multiple of the 4 queries a warp serves;
+    EMPTY queries; forced digest collisions (absent keys given the digest
+    of a live slot of their bucket1 row, or of their bucket2 row); lanes
+    whose two rows coincide."""
+    t = _table(dev)
+    q, p = _queries(t, n=max(n, 8))
+    q, b1, b2, qd = q[:n].clone(), p.bucket1[:n].clone(), p.bucket2[:n].clone(), p.digest[:n].clone()
+    s = t.state
+    g = torch.Generator(device=dev).manual_seed(11)
+    absent = ~torch.isin(q, s.keys.view(-1)) & (q != -1)
+    lanes = torch.nonzero(absent)[:, 0]
+    for i, lane in enumerate(lanes[: lanes.numel() // 2].tolist()):
+        row = int((b1 if i % 2 else b2)[lane])
+        live = torch.nonzero(s.keys[row] != -1)[:, 0]
+        qd[lane] = s.digests[row, live[torch.randint(0, live.numel(), (1,), generator=g,
+                                                      device=dev)]]
+    b2[::7] = b1[::7]
+    q[::5] = -1
+    args = (s.digests, s.keys, b1, qd, q, b2)
+    got = digest_scan.digest_scan(*args)
+    _same(got, digest_scan.digest_scan_plain(*args))
+    assert not got[1][q == -1].any()
+    _same(digest_scan.digest_scan(*args[:5]), digest_scan.digest_scan_plain(*args[:5]))
+
+
+def _pinned(shape, dtype=torch.float32):
+    return _build.pinned_empty(shape, dtype)
+
+
+@pytest.mark.parametrize("v,width", [(32, None), (65, None), (65, 64), (33, 32)])
+def test_gather_rows_on_a_pinned_host_plane(dev, v, width):
+    """gather_rows reading an 'hmem' plane in pinned host memory over the
+    host link: equal to the plain gather of the same plane's rows."""
+    host = _pinned((8192, v))
+    host.copy_(torch.randn(8192, v))
+    assert _build.device_pointer(host) == host.data_ptr()
+    rows = torch.randint(-5, 8200, (3001,), device=dev)
+    mask = torch.rand(3001, device=dev) < 0.5
+    got = gather.gather_rows(host, rows, mask, width)
+    want = gather.gather_rows_plain(host, rows.clamp(0, 8191).cpu(), mask.cpu(), width)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
+@pytest.mark.parametrize("v", [32, 65])
+def test_scatter_rows_on_a_pinned_host_plane(dev, v, add):
+    """scatter_rows writing (and for add, reading) an 'hmem' plane in
+    pinned host memory: equal to the kernel on a copy of the plane on the
+    card, and to the plain version on the CPU (unique rows: each sum is
+    one rounded add)."""
+    base = torch.randn(8192, v)
+    host = _pinned((8192, v))
+    host.copy_(base)
+    card = base.to(dev)
+    rows = torch.randperm(8192, device=dev)[:3001]
+    rows[::50] = 9000   # outside the plane: dropped
+    upd = torch.randn(3001, v, device=dev)
+    mask = torch.rand(3001, device=dev) < 0.7
+    scatter.scatter_rows(host, rows, upd, mask, add)
+    scatter.scatter_rows(card, rows, upd, mask, add)
+    torch.cuda.synchronize()
+    want = base.clone()
+    scatter.scatter_rows_plain(want, rows.cpu(), upd.cpu(), mask.cpu(), add)
+    assert torch.equal(host, card.cpu()) and torch.equal(host, want)
+
+
+def test_an_unpinned_cpu_plane_beside_card_keys_raises(dev):
+    """The host tier is pinned memory the card can map; any other CPU
+    plane beside CUDA tensors is refused, never gathered on the CPU."""
+    plane = torch.randn(1024, 8)
+    rows = torch.randint(0, 1024, (64,), device=dev)
+    mask = torch.ones(64, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="pinned"):
+        gather.gather_rows(plane, rows, mask)
+    with pytest.raises(ValueError, match="pinned"):
+        scatter.scatter_rows(plane, rows, torch.randn(64, 8, device=dev), mask, False)
+    # the kernels that read values on the card only refuse a host plane
+    t = _table(dev)
+    q, p = _queries(t, 64)
+    s = t.state
+    with pytest.raises(ValueError):
+        find_scan.find_scan(s.digests, s.keys, s.scores, _pinned(s.values.shape), p.bucket1,
+                            p.bucket2, p.digest, q)
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_hmem_table_on_the_card_matches_hbm(dev, dual):
+    """An 'hmem' table on the card: values in pinned host memory, the other
+    planes on the card; every op through 'auto' equal to an 'hbm' twin,
+    and its launches through the 'hmem' routes (find: digest_scan and
+    gather_rows, no find_scan; the gradient step: the composed one)."""
+    from repro_torch.embedding import SparseOptimizer
+
+    kw = dict(capacity=16 * 128, dim=8, aux_value_dim=1, buckets_per_key=2 if dual else 1,
+              score_policy="lru", device=dev)
+    th = repro_torch.HKVTable.create(value_tier="hmem", **kw)
+    tb = repro_torch.HKVTable.create(**kw)
+    st = th.state
+    assert st.host_values and st.keys.is_cuda and st.scores.is_cuda and st.digests.is_cuda
+    assert _build.device_pointer(st.values) == st.values.data_ptr()
+    g = np.random.default_rng(8)
+
+    def same_state(ctx):
+        for name in ("keys", "digests", "scores", "values"):
+            assert torch.equal(getattr(th.state, name).cpu(), getattr(tb.state, name).cpu()), \
+                f"{ctx}: {name}"
+
+    opt = SparseOptimizer("rowwise_adagrad")
+    for step in range(5):
+        keys = g.integers(0, 6 * 16 * 128, size=1000).astype(np.int64)
+        keys[::40] = -1
+        vals = torch.randn(1000, 8, device=dev)
+        for name, args in (("insert_and_evict", (keys, vals)), ("find_or_insert", (keys, vals)),
+                           ("insert_or_assign", (keys, vals))):
+            a, b = getattr(th, name)(*args), getattr(tb, name)(*args)
+            for x, y in zip(a[1:], b[1:]):
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x, y), name
+            same_state(f"step {step} {name}")
+        _build.reset_counts()
+        fh = th.find(keys)
+        assert dict(_build.launch_counts) == {"digest_scan": 1, "gather_rows": 1}
+        fb = tb.find(keys)
+        for x, y in zip(fh, fb):
+            assert torch.equal(x, y)
+        uniq = torch.unique(torch.as_tensor(keys[keys >= 0], device=dev))
+        grads = torch.randn(uniq.numel(), 8, device=dev)
+        _build.reset_counts()
+        s = th.session()
+        s.update_rows(uniq, repro_torch.RowUpdate(opt, grads))
+        s.commit()
+        assert dict(_build.launch_counts) == {"digest_scan": 1, "gather_rows": 1,
+                                              "scatter_rows": 1}
+        s = tb.session()
+        s.update_rows(uniq, repro_torch.RowUpdate(opt, grads))
+        s.commit()
+        same_state(f"step {step} update_rows")
+        th.assign(keys[:300], vals[:300])
+        tb.assign(keys[:300], vals[:300])
+        th.erase(keys[:50])
+        tb.erase(keys[:50])
+        same_state(f"step {step} assign, erase")
+    e1, e2 = th.evict_if(SweepPredicate.always(), 64), tb.evict_if(SweepPredicate.always(), 64)
+    for x, y in zip(e1.evicted, e2.evicted):
+        assert torch.equal(x, y)
+    snap = th.snapshot()
+    assert _build.device_pointer(snap.state.values) != st.values.data_ptr()
+    th.clear()
+    tb.clear()
+    same_state("clear")
+    assert snap.size() > 0 and th.size() == 0
+
+
+def test_tiered_table_on_the_card_matches_plain(dev):
+    """A TieredHKVTable on the card (hot tier in HBM, cold tier's values in
+    pinned host memory) through 'auto' and 'plain': equal statuses,
+    counters, values and both tiers' states."""
+    kw = dict(hot_capacity=4 * 128, cold_capacity=16 * 128, dim=8, aux_value_dim=1,
+              buckets_per_key=2, device=dev)
+    tk = repro_torch.TieredHKVTable.create(backend="auto", **kw)
+    tp = repro_torch.TieredHKVTable.create(backend="plain", **kw)
+    assert tk.cold.state.host_values and not tk.hot.state.host_values
+    g = np.random.default_rng(12)
+    for step in range(6):
+        keys = g.integers(0, 6000, size=900).astype(np.int64)
+        vals = torch.randn(900, 8, device=dev)
+        for name in ("insert_or_assign", "find_or_insert", "find"):
+            args = (keys,) if name == "find" else (keys, vals)
+            a, b = getattr(tk, name)(*args), getattr(tp, name)(*args)
+            for x, y in zip(a[1:], b[1:]):
+                assert torch.equal(x, y), name
+        for tier in ("hot", "cold"):
+            for f in ("keys", "digests", "scores", "values"):
+                assert torch.equal(getattr(getattr(tk, tier).state, f).cpu(),
+                                   getattr(getattr(tp, tier).state, f).cpu()), (step, tier, f)
+    assert tk.size() == tp.size() and tk.cold.size() > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

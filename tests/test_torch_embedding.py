@@ -142,8 +142,33 @@ def test_state_carries_aux_columns():
 
 
 def test_tiered_embedding_is_refused():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        HKVEmbedding(capacity=1024, dim=4, hot_capacity=256).create(device="cpu")
+    """HKVEmbedding(hot_capacity=...) was refused until the tier hierarchy
+    was ported; it now builds a TieredHKVTable that trains as the
+    reference's does: three steps of lookup_train and apply_grads (sgdm,
+    duplicated tokens, padding, more distinct tokens than the hot tier
+    holds), the rows and both tiers' states exact after each step.  The
+    port's cold tier is 'hmem'; the reference's keeps its values in device
+    memory here (its 'hmem' placement on the CPU mixes memory spaces in one
+    JAX op on this path, which some JAX versions refuse; no result depends
+    on the placement)."""
+    kw = dict(capacity=4 * 128, dim=DIM, hot_capacity=128)
+    jemb = JaxEmbedding(optimizer=JaxOpt("sgdm", lr=0.05), backend="jnp",
+                        cold_value_tier="hbm", **kw)
+    pemb = HKVEmbedding(optimizer=SparseOptimizer("sgdm", lr=0.05), **kw)
+    jt, pt = jemb.create(), pemb.create(device="cpu")
+    rng = np.random.default_rng(12)
+    for step in range(3):
+        toks = rng.integers(-1, 400, size=(4, 50)).astype(np.int32)
+        jt, jrows = jemb.lookup_train(jt, jnp.asarray(toks))
+        pt, rows = pemb.lookup_train(pt, torch.from_numpy(toks))
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows), err_msg=f"step {step}")
+        g = rng.normal(size=rows.shape).astype(np.float32)
+        jt = jemb.apply_grads(jt, jnp.asarray(toks), jnp.asarray(g))
+        pemb.apply_grads(pt, torch.from_numpy(toks), torch.from_numpy(g))
+        for tier in ("hot", "cold"):
+            assert_state(getattr(jt, tier).state, getattr(pt, tier).state, "sgdm",
+                         f"step {step} {tier}")
+    assert pt.cold.size() > 0 and pt.cold.cfg.value_tier == "hmem"
 
 
 def test_dense_embedding_matches_jax():

@@ -63,9 +63,18 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
     assert DenseEmbedding(10, 4, device="cpu").table.shape == (10, 4)
 
 
-def test_hmem_tier_is_refused():
-    with pytest.raises(NotImplementedError, match="hmem"):
-        repro_torch.HKVTable.create(capacity=128, dim=4, device="cpu", value_tier="hmem")
+def test_hmem_tier_is_refused(monkeypatch):
+    """The 'hmem' tier was refused until the tier hierarchy was ported; it
+    is placed as stated now: on the CPU a plain CPU tensor, as the
+    reference's CPU container keeps it (on the card pinned host memory,
+    held in tests/test_torch_cuda.py), and like every entry point it
+    defaults to the card and raises without one."""
+    t = repro_torch.HKVTable.create(capacity=128, dim=4, device="cpu", value_tier="hmem")
+    assert t.state.values.device.type == "cpu" and t.state.values.shape == (128, 4)
+    assert not t.state.host_values and not t.state.values.any()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.HKVTable.create(capacity=128, dim=4, value_tier="hmem")
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():

@@ -310,6 +310,49 @@ def test_digest_scan_plain_matches_jax(lam, dual):
 
 
 @pytest.mark.parametrize("lam", LAMBDAS)
+def test_digest_scan_dual_form_matches_two_jax_launches(lam):
+    """The dual form (one launch over both candidate rows, merged in
+    place) against the reference's two digest_scan_tlp launches
+    (interpret mode) and its merge in locate_kernel: a hit in bucket1
+    wins, sel marks a hit in bucket2 only, slot 0 on a miss.  The queries
+    hold EMPTY keys, keys resident in either row, lanes whose two rows
+    coincide, and forced digest collisions: absent keys given the digest
+    of a live slot of their bucket1 row (or, on other lanes, their bucket2
+    row), which must fail the full-key compare."""
+    rng, cfg, state, resident = _filled(lam, True)
+    qkeys = _queries(rng, resident)
+    _, _, jin, tin = _probe_inputs(cfg, qkeys)
+    b1, b2, qd, qk = (t.clone() for t in tin)
+    digests, keys = np.asarray(state.digests), ju64.to_uint64(state.keys)
+    absent = np.flatnonzero(~np.isin(qkeys, resident) & (qkeys != EMPTY))
+    coll = rng.choice(absent, size=len(absent) // 2, replace=False)
+    for i, lane in enumerate(coll):
+        row = int((b1 if i % 2 else b2)[lane])
+        live = np.flatnonzero(keys[row] != EMPTY)
+        qd[lane] = int(digests[row, rng.choice(live)])
+    same = rng.choice(np.setdiff1d(np.arange(N), coll), size=N // 8, replace=False)
+    b2[same] = b1[same]
+    jb1, jb2 = jnp.asarray(b1.numpy().astype(np.int32)), jnp.asarray(b2.numpy().astype(np.int32))
+    jqd = jnp.asarray(qd.numpy().astype(np.uint32))
+    ps = convert.state_from_arrays(state, device="cpu")
+    slot, found, sel = pds.digest_scan(ps.digests, ps.keys, b1, qd, qk, b2)
+    (s1, f1), (s2, f2) = (
+        (np.asarray(x) for x in jds.digest_scan_tlp(state.digests, state.key_hi, state.key_lo, jb,
+                                                    jqd, jin[3], jin[4], interpret=True))
+        for jb in (jb1, jb2))
+    hit1, hit2 = f1.astype(bool), f2.astype(bool)
+    np.testing.assert_array_equal(found.numpy(), (hit1 | hit2).astype(np.int32))
+    np.testing.assert_array_equal(sel.numpy(), (~hit1 & hit2).astype(np.int32))
+    np.testing.assert_array_equal(slot.numpy(), np.where(hit1, s1, np.where(hit2, s2, 0)))
+    assert not found.numpy()[qkeys == EMPTY].any() and not found.numpy()[coll].any()
+    assert (sel == 1).any() and ((found == 1) & (sel == 0)).any() and (found == 0).any()
+    # the single-row form is the dual form's first probe
+    one = pds.digest_scan(ps.digests, ps.keys, b1, qd, qk)
+    np.testing.assert_array_equal(one[0].numpy(), s1)
+    np.testing.assert_array_equal(one[1].numpy(), f1)
+
+
+@pytest.mark.parametrize("lam", LAMBDAS)
 def test_gather_rows_plain_matches_jax(lam):
     """Masked gather at the rows of resident keys and of misses, with rows
     past the plane's end (clipped by both wrappers)."""

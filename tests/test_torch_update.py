@@ -487,8 +487,7 @@ class TestLaunchBudget:
         assert dict(counts) == {"update_scan": 1}
         _build.reset_counts()
         kops.update_composed_kernel(pstate, pcfg, k, g, popt)
-        assert dict(counts) == {"digest_scan": 2 if dual else 1, "gather_rows": 1,
-                                "scatter_rows": 1}
+        assert dict(counts) == {"digest_scan": 1, "gather_rows": 1, "scatter_rows": 1}
 
     def test_session_row_update_is_one_launch(self, counts):
         rng = np.random.default_rng(4)
@@ -502,8 +501,8 @@ class TestLaunchBudget:
 
     def test_shared_locate_composes(self, counts):
         """A RowUpdate after a find of the same batch shares its locate:
-        the find's digest_scan launches, then a gather_rows, the optimizer
-        and a plain assign."""
+        the find's one digest_scan launch (both candidate rows), then a
+        gather_rows, the optimizer and a plain assign."""
         rng = np.random.default_rng(6)
         _jopt, jcfg, popt, pcfg = _cfgs("sgd", True)
         jstate, pstate = _filled(rng, jcfg, 300)
@@ -512,7 +511,24 @@ class TestLaunchBudget:
         s.contains(k)
         s.update_rows(k, pops.RowUpdate(popt, torch.from_numpy(_grads(rng, 32))))
         s.commit()
-        assert dict(counts) == {"digest_scan": 2, "gather_rows": 1}
+        assert dict(counts) == {"digest_scan": 1, "gather_rows": 1}
+
+    @pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+    def test_hmem_tier_routes(self, counts, dual):
+        """On the 'hmem' tier the reference routes its readers and updaters
+        through the locate kernel: find is one digest_scan and one
+        gather_rows (no find_scan), the gradient step the composed one."""
+        rng = np.random.default_rng(7)
+        _jopt, jcfg, popt, pcfg = _cfgs("rowwise_adagrad", dual)
+        jstate, _ = _filled(rng, jcfg, 300)
+        pcfg = HKVConfig(**{**pcfg.__dict__, "value_tier": "hmem"})
+        pstate = convert.state_from_arrays(jstate, device="cpu", value_tier="hmem")
+        k = repro_torch.normalize_keys(np.unique(_resident(jstate))[:64])
+        pops.find(pstate, pcfg, k)
+        assert dict(counts) == {"digest_scan": 1, "gather_rows": 1}
+        _build.reset_counts()
+        pops.update_rows(pstate, pcfg, k, torch.from_numpy(_grads(rng, 64)), popt)
+        assert dict(counts) == {"digest_scan": 1, "gather_rows": 1, "scatter_rows": 1}
 
 
 def test_kvtable_protocol_and_table_signature():
