@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs seven phases; any failure exits non-zero:
+sm_90a (first use), then runs eight phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -102,6 +102,32 @@ sm_90a (first use), then runs seven phases; any failure exits non-zero:
    batch's new keys less at most the pairs reported dropped (exactly, when
    none is).  A small twin takes the same steps on 'auto' and 'plain',
    equal as in phase 5.
+8. the online serving path: a TieredHKVTable of hot 2^24 slots in HBM
+   (phase 7's eighth) over cold 2^27 slots in pinned host memory, dim 32,
+   dual bucket, LRU hot and 'custom' cold scores, no optimizer columns
+   (config B's row width with config D's value placement; dim 32, not 64,
+   so that the trainer's second copy of the 17.2 GB pinned plane fits in
+   host RAM beside the first), prefilled past its hot tier.  Requests of
+   2,520 DLRM samples x 26 fields (65,520 Zipfian keys, α 1.05 over twice
+   the cold tier's slots) go in waves of 2^16 lanes through an
+   OnlineEmbeddingEngine behind a TablePublisher: run 1 admits misses, with
+   an OnlineTrainer at an update:read ratio of 0.25 publishing twice and a
+   MaintenanceScheduler (watermarks 0.6 / 0.85, a sweep budget of one wave)
+   every wave; run 2 is the same stream from the same prefilled state with
+   the scheduler off; run 3 serves readonly with promotion, continuous
+   admission and burst arrivals.  Each wave's, maintenance step's and
+   trainer step's launches are checked against SERVE_ROUTES and the
+   hierarchy's distinct keys against conservation after each (run 3 as a
+   whole); per wave and as p50/p99 over the second half it prints latency,
+   keys/s, hit and hot-hit rates, reactive demotions, the maintenance
+   step's time and moves, each publish's time and the publisher's
+   counters, and run 3's queue-wait / service / total percentiles with the
+   waves in flight at each dispatch.  A 2^20-slot hierarchy (hot an
+   eighth) takes a stream through 'auto' and 'plain': equal per-request
+   values and found flags, wave and scheduler reports, publisher counters
+   and drained states (values within 1e-5), then the export_delta ->
+   ingest_delta round trip of its table.  At most two copies of a
+   hierarchy are alive at once.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -117,11 +143,12 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same seven phases at a tiny size on the
-CPU through the plain versions (phases 6 and 7 with their planes as plain
+result.  ``--rehearse`` runs the same eight phases at a tiny size on the
+CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
-non-zero.
+non-zero.  ``--phases 1,8`` runs only the phases named (on the card or in
+the rehearsal) and prints no result either.
 """
 
 from __future__ import annotations
@@ -223,6 +250,35 @@ TIERED_ROUTES = {"lookup_train": {"digest_scan": 2, "gather_rows": 4, "upsert_pr
                  "apply_grads": {"update_scan": 1},
                  "lookup_serve": {"find_scan": 1, "digest_scan": 1, "gather_rows": 1}}
 CONFIG_D_DIM = 64
+# the serving path (phase 8): Zipf α of the key stream (over twice the cold
+# tier's slots, the serve launcher's key space), the update:read ratio of
+# the trainer, and exp7's watermarks (benchmarks/exp7_maintenance.py:38)
+SERVE_ALPHA = 1.05
+SERVE_UPDATE_READ = 0.25
+SERVE_LOW, SERVE_HIGH = 0.6, 0.85
+# launches of one serving op on backend 'auto' on the card (phase 8), with
+# claim_scan once for each upsert whose batch has a miss lane, up to
+# SERVE_CLAIMS.  An admitting wave is one tiered find_or_insert (the tiered
+# lookup_train's route).  A readonly wave that promotes: find_scan on the
+# hot tier, the cold tier's locate and rows (digest_scan, gather_rows), the
+# promotion's upsert into the hot tier at an all-miss locate (its target
+# pass, two scatter_rows, the evicted rows' gather_rows) and the demotion's
+# upsert into the cold tier (two upsert_probe, two scatter_rows, one
+# gather_rows).  A maintenance step: the rebalance's evict_if (sweep_match)
+# and the demotion of its stream into the cold tier.  A trainer step: the
+# tiered find_or_insert and the session's locate and row gather (its
+# write-back is plain, as the reference's assign).
+SERVE_ROUTES = {
+    "admit wave": TIERED_ROUTES["lookup_train"],
+    "readonly wave": {"find_scan": 1, "digest_scan": 1, "gather_rows": 3, "upsert_probe": 3,
+                      "scatter_rows": 4},
+    "maintenance step": {"sweep_match": 1, "upsert_probe": 2, "scatter_rows": 2,
+                         "gather_rows": 1},
+    "trainer step": {"digest_scan": 3, "gather_rows": 5, "upsert_probe": 3, "scatter_rows": 3},
+}
+SERVE_CLAIMS = {"admit wave": 2, "readonly wave": 2, "maintenance step": 1, "trainer step": 2}
+SERVE_KERNELS = ("find_scan", "digest_scan", "gather_rows", "scatter_rows", "upsert_probe",
+                 "claim_scan", "sweep_match")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,15 +292,20 @@ class Sizes:
     replay_steps: int        # phase 2's every-op replay, per mode and policy
     train_batch: int         # DLRM samples a step (phases 5-7; 26 keys each)
     train_steps: int
-    hot_capacity: int        # phase 7's hot tier (its cold tier: `capacity` slots)
+    hot_capacity: int        # phase 7's and 8's hot tier (the cold tier: `capacity` slots)
+    serve_wave: int          # phase 8's lanes a wave
+    serve_samples: int       # DLRM samples a request (26 keys each)
+    serve_waves: int         # waves of runs 1 and 2 (the twins: half)
+    serve_ticks: int         # ticks of run 3 (burst arrivals)
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
              hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5,
-             hot_capacity=2**24)
+             hot_capacity=2**24, serve_wave=2**16, serve_samples=2520, serve_waves=24,
+             serve_ticks=48)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
              hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3,
-             hot_capacity=2**9)
+             hot_capacity=2**9, serve_wave=2**7, serve_samples=4, serve_waves=8, serve_ticks=12)
 DIM = 32
 
 
@@ -273,6 +334,9 @@ def kernel_name(ptxas_line: str) -> str:
 
 def main(argv: list[str]) -> int:
     rehearse = "--rehearse" in argv
+    # --phases 2,8: run only those phases (to iterate on them); no result
+    only = ({int(x) for x in argv[argv.index("--phases") + 1].split(",")}
+            if "--phases" in argv else set())
     import torch
 
     if not rehearse and not torch.cuda.is_available():
@@ -285,10 +349,11 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 2
     smoke = Smoke(torch.device("cpu") if rehearse else torch.device("cuda"),
-                  TINY if rehearse else FULL)
+                  TINY if rehearse else FULL, only)
     smoke.run()
-    if rehearse:
-        log("chip_smoke: rehearsal on the CPU finished; no result is printed")
+    if rehearse or only:
+        log(f"chip_smoke: {'rehearsal on the CPU' if rehearse else 'a run of some phases'} "
+            "finished; no result is printed")
         return 3
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -298,7 +363,7 @@ def main(argv: list[str]) -> int:
 
 
 class Smoke:
-    def __init__(self, device, sizes: Sizes):
+    def __init__(self, device, sizes: Sizes, only: set = frozenset()):
         import torch
 
         from repro_torch.core import find as find_mod
@@ -307,7 +372,7 @@ class Smoke:
         from repro_torch.kernels import score_scan, sweep_scan, update_scan, upsert_scan
         from repro_torch import SweepPredicate
 
-        self.torch, self.dev, self.sz = torch, device, sizes
+        self.torch, self.dev, self.sz, self.only = torch, device, sizes, only
         self.find_mod, self.u64, self._build = find_mod, u64, _build
         self.fs, self.us, self.sc = find_scan, upsert_scan, scatter
         self.ga, self.ds, self.sw = gather, digest_scan, sweep_scan
@@ -318,6 +383,7 @@ class Smoke:
         self.stats: dict[str, dict] = {}      # per kernel: errors, timings, bounds
         self.launches: dict[str, int] = {}
         self.launches_train: dict[str, int] = {}
+        self.launches_serve: dict[str, int] = {}
         self.train_cmp: dict[str, float] = {}
 
     # ------------------------------------------------------------------ utils
@@ -476,29 +542,23 @@ class Smoke:
                         log("  " + kernel_name(line))
                     elif "registers" in line or line.startswith("[nvcc") or "spill" in line:
                         log("  " + line.strip())
-        t0 = time.perf_counter()
-        self.phase_kernels()
-        log(f"phase 1 (kernel vs plain at config B shapes) passed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        self.phase_paths()
-        log(f"phase 2 (kernel path vs plain path) passed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        self.phase_main()
-        log(f"phase 3 (main path at config B) passed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        self.phase_rest()
-        log(f"phase 4 (the rest of the op surface at config B) passed in "
-            f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        self.phase_train()
-        log(f"phase 5 (the training path at config B) passed in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        self.phase_hmem()
-        log(f"phase 6 (config D, the host-memory value tier) passed in "
-            f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        self.phase_tiered()
-        log(f"phase 7 (the tier hierarchy) passed in {time.perf_counter() - t0:.1f} s")
+        phases = [("kernel vs plain at config B shapes", self.phase_kernels),
+                  ("kernel path vs plain path", self.phase_paths),
+                  ("main path at config B", self.phase_main),
+                  ("the rest of the op surface at config B", self.phase_rest),
+                  ("the training path at config B", self.phase_train),
+                  ("config D, the host-memory value tier", self.phase_hmem),
+                  ("the tier hierarchy", self.phase_tiered),
+                  ("the serving path", self.phase_serve)]
+        for i, (what, phase) in enumerate(phases, 1):
+            if self.only and i not in self.only:
+                continue
+            t0 = time.perf_counter()
+            phase()
+            log(f"phase {i} ({what}) passed in {time.perf_counter() - t0:.1f} s")
+        if self.only:
+            self.card_line()
+            return
         self.report()
 
     def config_b(self, backend="auto", buckets_per_key=2):
@@ -2000,24 +2060,31 @@ class Smoke:
     # phase 7 --------------------------------------------------------------
 
     @contextlib.contextmanager
-    def tier_counters(self):
-        """Record every TieredHKVTable.find_or_insert (the tiered
-        lookup_train's op): yields a list of (keys, result)."""
+    def tier_counters(self, *names: str):
+        """Record every call of the TieredHKVTable ops named (by default
+        find_or_insert, the tiered lookup_train's op): yields a list of
+        (normalized keys, result).  The results carry what no report
+        does: the found flags and the pairs dropped, which conservation
+        needs."""
         from repro_torch.core import tiered
 
-        seen = []
-        real = tiered.TieredHKVTable.find_or_insert
+        cls, seen = tiered.TieredHKVTable, []
+        real = {name: getattr(cls, name) for name in names or ("find_or_insert",)}
 
-        def recording(table, keys, *args, **kwargs):
-            res = real(table, keys, *args, **kwargs)
-            seen.append((table.keys(keys), res))
-            return res
+        def recording(op):
+            def call(table, keys, *args, **kwargs):
+                res = op(table, keys, *args, **kwargs)
+                seen.append((table.keys(keys), res))
+                return res
+            return call
 
-        tiered.TieredHKVTable.find_or_insert = recording
+        for name, op in real.items():
+            setattr(cls, name, recording(op))
         try:
             yield seen
         finally:
-            tiered.TieredHKVTable.find_or_insert = real
+            for name, op in real.items():
+                setattr(cls, name, op)
 
     def phase_tiered(self):
         """The tier hierarchy on the card (see the module note)."""
@@ -2100,6 +2167,418 @@ class Smoke:
         gc.collect()
         self.free()
         self.train_twin(emb, losses, "phase 7")
+
+    # phase 8 --------------------------------------------------------------
+
+    def serve_table(self, hot: int, cold: int, backend: str = "auto"):
+        """The serving configuration's hierarchy: a hot tier in HBM over a
+        cold tier in pinned host memory, dim 32, dual bucket, LRU hot and
+        'custom' cold scores, no optimizer columns."""
+        from repro_torch import TieredHKVTable
+
+        return TieredHKVTable.create(hot_capacity=hot, cold_capacity=cold, dim=DIM,
+                                     buckets_per_key=2, score_policy="lru",
+                                     cold_score_policy="custom", backend=backend,
+                                     device=self.dev)
+
+    def serve_prefill(self, table, batch: int) -> tuple[int, int]:
+        """Fill the hierarchy past its hot tier, the same way every time: the
+        distinct keys of a draw from the serving distribution, then fresh
+        keys of a fixed sequence, batch by batch, until the hot tier has
+        taken its capacity and four batches more.  Returns (distinct keys
+        inserted, pairs reported dropped); conservation is checked."""
+        import numpy as np
+
+        from repro_torch.data import zipf_keys
+
+        torch = self.torch
+        key_space = 2 * table.cold.capacity
+        gen = torch.Generator(device=self.dev).manual_seed(SEED + 8)
+        warm = np.unique(zipf_keys(np.random.default_rng(SEED + 8), batch, SERVE_ALPHA,
+                                   key_space))
+        warm = warm[warm != np.uint64(2**64 - 1)]
+        dropped = int(table.insert_or_assign(
+            warm, torch.randn((warm.size, DIM), generator=gen, device=self.dev)).dropped)
+        inserted = warm.size
+        for i in range(table.hot.capacity // batch + 4):
+            idx = torch.arange(i * batch, (i + 1) * batch, device=self.dev) + 2**40
+            keys = (idx * 0x2545F4914F6CDD1D + 0x1D8E4E27C47D124F) & (2**63 - 1)
+            r = table.insert_or_assign(keys, torch.randn((batch, DIM), generator=gen,
+                                                         device=self.dev))
+            inserted += batch
+            dropped += int(r.dropped)
+        self.conserved(inserted, dropped, table.size(), "phase 8 prefill")
+        return inserted, dropped
+
+    @staticmethod
+    def serve_reset(table) -> None:
+        """Empty the hierarchy as `create` leaves it (clocks and epochs 0)."""
+        table.clear()
+        for tier in (table.hot, table.cold):
+            tier.state.clock, tier.state.epoch = 0, 0
+
+    def serve_route(self, kind: str, got: dict) -> None:
+        """One serving op's launches against SERVE_ROUTES; claim_scan up
+        to SERVE_CLAIMS times (once for each upsert whose batch has a miss
+        lane)."""
+        want = dict(SERVE_ROUTES[kind])
+        claims = got.get("claim_scan", 0)
+        require(claims <= SERVE_CLAIMS[kind],
+                f"phase 8 {kind}: claim_scan launched {claims} times, at most "
+                f"{SERVE_CLAIMS[kind]}")
+        if claims:
+            want["claim_scan"] = claims
+        require(got == want, f"phase 8 {kind}: launches {got}, the route is {want}")
+
+    def serve_run(self, table, tag: str, *, wave: int, waves: int, req_keys: int,
+                  policy: str = "admit", promote=None, admission: str = "wave",
+                  arrival: str = "steady", maintain: bool = True, train: bool = True,
+                  tally: bool = True, quiet: bool = False) -> dict:
+        """Serve one Zipfian request stream (a request a tick) from `table`
+        behind a TablePublisher, with an OnlineTrainer at an update:read
+        ratio of 0.25 that publishes twice over the run, and a
+        MaintenanceScheduler (exp7's watermarks 0.6 / 0.85, a sweep budget of
+        one wave) every wave when asked.  Each wave's, maintenance step's
+        and trainer step's launches are counted from 0 and checked against
+        SERVE_ROUTES (on the card, backend 'auto'); with `tally` they are
+        added to the phase's launches.  The hierarchy's distinct keys are
+        checked after each of them (wave mode; a continuous run is checked
+        as a whole).  Returns the run's record."""
+        import numpy as np
+
+        from repro_torch.data import arrival_sizes, zipf_keys
+        from repro_torch.maintenance import MaintenancePolicy, MaintenanceScheduler
+        from repro_torch.serving import (EmbeddingRequest, OnlineEmbeddingEngine,
+                                         OnlineTrainer, TablePublisher)
+
+        torch, build = self.torch, self._build
+        counted = self.dev.type == "cuda" and table.backend == "auto"
+        per_op = admission == "wave"        # conservation after every op
+        key_space = 2 * table.cold.capacity
+        rec = {"maint": [], "train": [], "publish_s": [], "counts": {}}
+        kind = "admit wave" if policy == "admit" else "readonly wave"
+
+        def count(op):
+            got = dict(build.launch_counts)
+            build.reset_counts()
+            if counted:
+                self.serve_route(op, got)
+                rec["counts"].setdefault(op, got)
+                if tally:
+                    for k, v in got.items():
+                        self.launches_serve[k] = self.launches_serve.get(k, 0) + v
+
+        def check(t, before, new, dropped, ctx):
+            self.conserved(before + new, dropped, t.size(), ctx)
+
+        def new_keys(keys, res):
+            return torch.unique(keys[~res.found & (keys != self.u64.EMPTY)]).numel()
+
+        class Windows:
+            """The engine's table source.  Its snapshots, taken just before
+            a wave's dispatch and a maintenance step and outside their
+            timings, bound the launch windows: each closes the window of the
+            op before it (a wave when a table op was recorded, else a
+            maintenance step when the scheduler reported one) and opens the
+            next."""
+
+            def __init__(w):
+                w.window = None
+
+            def snapshot(w):
+                w.close()
+                snap = pub.snapshot()
+                t = snap[1]
+                w.window = (t, t.size() if per_op else 0, len(seen),
+                            len(sched.reports) if sched is not None else 0)
+                build.reset_counts()
+                return snap
+
+            def offer(w, version, table):
+                return pub.offer(version, table)
+
+            def close(w):
+                if w.window is None:
+                    return
+                t, before, n_seen, n_reps = w.window
+                w.window = None
+                if len(seen) > n_seen:
+                    count(kind)
+                    if per_op:
+                        keys, res = seen[-1]
+                        new = new_keys(keys, res) if policy == "admit" else 0
+                        check(t, before, new, int(res.dropped), f"{tag} wave")
+                elif sched is not None and len(sched.reports) > n_reps:
+                    count("maintenance step")
+                    rep = sched.reports[-1]
+                    rec["maint"].append(rep)
+                    if per_op:
+                        check(t, before, 0, rep.dropped, f"{tag} maintenance step")
+                else:
+                    got = dict(build.launch_counts)
+                    require(not got, f"{tag}: launches {got} outside every op")
+
+        pub = TablePublisher(table)
+        windows = Windows()
+        publish_every = max(1, int(waves * SERVE_UPDATE_READ) // 2)
+        trainer = OnlineTrainer(publisher=pub, publish_every=publish_every, lr=0.1) if train else None
+        sched = MaintenanceScheduler(MaintenancePolicy(
+            every_waves=1, sweep_budget=wave, low_watermark=SERVE_LOW,
+            high_watermark=SERVE_HIGH)) if maintain else None
+        eng = OnlineEmbeddingEngine(windows, wave_size=wave, miss_policy=policy, promote=promote,
+                                    admission=admission, scheduler=sched)
+        if trainer is not None:
+            publish = trainer.publish
+
+            def timed_publish():
+                self.sync()
+                t0 = time.perf_counter()
+                v = publish()
+                self.sync()
+                rec["publish_s"].append(time.perf_counter() - t0)
+                return v
+
+            trainer.publish = timed_publish
+
+        rng = np.random.default_rng(SEED + 9)
+        train_rng = np.random.default_rng(SEED + 10)
+        if arrival == "steady":
+            sizes = np.full(waves, req_keys, np.int64)
+        else:
+            sizes = arrival_sizes(arrival, np.random.default_rng(SEED + 11), waves, wave)
+        size0 = table.size()
+        ones = torch.ones((wave, DIM), device=self.dev)
+        due = 0.0
+        with self.tier_counters("find_or_insert", "find") as seen:
+            for i, n in enumerate(sizes):
+                eng.submit(EmbeddingRequest(rid=i, keys=zipf_keys(rng, int(n), SERVE_ALPHA,
+                                                                  key_space)))
+                eng.step()
+                due += SERVE_UPDATE_READ
+                while trainer is not None and due >= 1.0:
+                    windows.close()
+                    tkeys = zipf_keys(train_rng, wave, SERVE_ALPHA, key_space)
+                    tt = trainer.table
+                    before = tt.size()
+                    build.reset_counts()
+                    self.sync()
+                    t0 = time.perf_counter()
+                    trainer.train_step(tkeys, ones)
+                    self.sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    count("trainer step")
+                    keys, res = seen[-1]
+                    check(tt, before, new_keys(keys, res), int(res.dropped),
+                          f"{tag} trainer step")
+                    if trainer.table is not tt:    # published: the copy equals it
+                        require(trainer.table.size() == tt.size(),
+                                f"{tag}: the trainer's copy differs in size")
+                    rec["train"].append(ms)
+                    due -= 1.0
+            eng.run_until_drained()
+            windows.close()
+        if not per_op:
+            dropped = sum(int(res.dropped) for _k, res in seen)
+            self.conserved(size0, dropped, pub.table.size(), f"{tag} (the run as a whole)")
+        rec["reports"] = eng.reports
+        rec["requests"] = {r.rid: (r.keys, r.values, r.found) for r in eng.completed}
+        rec["metrics"] = eng.metrics()
+        rec["depth"] = eng.depth_at_dispatch
+        rec["sched"] = (sched.reports, sched.totals) if sched is not None else None
+        rec["offers"] = (pub.published, pub.offered, pub.rejected_offers, pub.version)
+        rec["table"] = pub.table
+        rec["trainer_table"] = None if trainer is None else trainer.table
+        require(len(eng.completed) == waves and all(r.done for r in eng.completed),
+                f"{tag}: not every request completed")
+        for rid, (keys, vals, found) in rec["requests"].items():
+            require(vals.shape == (len(keys), DIM) and np.isfinite(vals).all(),
+                    f"{tag}: request {rid}'s rows are of the wrong shape or not finite")
+        if not quiet:
+            self.serve_log(tag, rec, admission)
+        return rec
+
+    def serve_log(self, tag, rec, admission):
+        import numpy as np
+
+        reps, maint = rec["reports"], rec["maint"]
+        for i, r in enumerate(reps):
+            m = maint[i] if len(maint) == len(reps) else None
+            log(f"{tag} wave {i}: {r.size} keys, {r.latency_s * 1e3:.3f} ms "
+                f"({r.kv_per_s / 1e6:.3f} M keys/s), hit rate {r.hit_rate:.4f}, hot-hit rate "
+                f"{r.hot_hits / max(r.size, 1):.4f}, reactive demotions {r.demotions}"
+                + (f"; maintenance step {m.elapsed_s * 1e3:.3f} ms, {m.demoted} moved, "
+                   f"{m.dropped} dropped" if m is not None else ""))
+        half = reps[len(reps) // 2:]
+
+        def pct(xs):
+            return (f"p50 {np.percentile(xs, 50):.3f} / p99 {np.percentile(xs, 99):.3f}"
+                    if len(xs) else "none")
+
+        keys = sum(r.size for r in half)
+        secs = sum(r.latency_s for r in half)
+        log(f"{tag}: second half ({len(half)} waves): wave ms "
+            f"{pct([r.latency_s * 1e3 for r in half])}, {keys / max(secs, 1e-12) / 1e6:.3f} M "
+            f"keys/s, hit rate {sum(r.hits for r in half) / max(keys, 1):.4f}, hot-hit rate "
+            f"{sum(r.hot_hits for r in half) / max(keys, 1):.4f}, reactive demotions a wave "
+            f"{sum(r.demotions for r in half) / max(len(half), 1):.1f}")
+        if maint:
+            mh = maint[len(maint) // 2:]
+            log(f"{tag}: maintenance steps (second half) ms {pct([m.elapsed_s * 1e3 for m in mh])}"
+                f", moves {pct([m.demoted for m in mh])}; totals {rec['sched'][1]}")
+        if rec["train"]:
+            log(f"{tag}: trainer steps ms {', '.join(f'{t:.3f}' for t in rec['train'])}; "
+                f"publishes s {', '.join(f'{t:.3f}' for t in rec['publish_s'])}")
+        pubd, offered, rejected, version = rec["offers"]
+        log(f"{tag}: publisher published {pubd}, offered {offered}, rejected_offers {rejected}, "
+            f"version {version}")
+        if admission == "continuous":
+            m = rec["metrics"]
+            log(f"{tag}: {m.requests} requests: queue-wait ms p50 {m.p50_queue_wait_s * 1e3:.3f} "
+                f"/ p99 {m.p99_queue_wait_s * 1e3:.3f}, service p50 {m.p50_service_s * 1e3:.3f} "
+                f"/ p99 {m.p99_service_s * 1e3:.3f}, total p50 {m.p50_total_s * 1e3:.3f} / p99 "
+                f"{m.p99_total_s * 1e3:.3f}; waves in flight at each dispatch "
+                f"{rec['depth']}")
+        for kind, got in rec["counts"].items():
+            log(f"{tag}: launches a {kind}: {json.dumps(got)}")
+
+    def phase_serve(self):
+        """The serving path on the card (see the module note)."""
+        sz = self.sz
+        self.free()
+        self.launches_serve = {}
+        wave, req = sz.serve_wave, sz.serve_samples * NUM_SPARSE
+        t0 = time.perf_counter()
+        table = self.serve_table(sz.hot_capacity, sz.capacity)
+        t_alloc = time.perf_counter() - t0
+        if self.dev.type == "cuda":
+            require(table.cold.state.host_values and not table.hot.state.host_values,
+                    "phase 8: the cold tier's values are not on the host, or the hot tier's are")
+        t0 = time.perf_counter()
+        inserted, dropped = self.serve_prefill(table, sz.batch)
+        log(f"phase 8: TieredHKVTable hot {table.hot.capacity} slots (values on "
+            f"{table.hot.state.values.device}), cold {table.cold.capacity} slots (values on "
+            f"{table.cold.state.values.device}), dim {DIM}, dual, lru / custom; created in "
+            f"{t_alloc:.3f} s, prefilled with {inserted} keys in {time.perf_counter() - t0:.3f} s "
+            f"(dropped {dropped}): hot λ {table.hot.load_factor():.6f}, cold λ "
+            f"{table.cold.load_factor():.6f}; waves of {wave} lanes, requests of "
+            f"{sz.serve_samples} samples x {NUM_SPARSE} fields = {req} keys, Zipf α "
+            f"{SERVE_ALPHA} over {2 * table.cold.capacity} ranks")
+        on = self.serve_run(table, "phase 8 run 1 (admit, scheduler on)", wave=wave,
+                            waves=sz.serve_waves, req_keys=req)
+        require(on["offers"][0] >= 2, "phase 8 run 1: fewer than two publishes")
+        require(on["sched"][1].demoted > 0, "phase 8 run 1: the scheduler moved nothing")
+        # the same stream from the same prefilled state with the scheduler
+        # off (exp7's comparison); the run's two copies are dropped first
+        table = on["table"]
+        del on["table"], on["trainer_table"]
+        gc.collect()
+        self.free()
+        self.serve_reset(table)
+        self.serve_prefill(table, sz.batch)
+        off = self.serve_run(table, "phase 8 run 2 (admit, scheduler off)", wave=wave,
+                             waves=sz.serve_waves, req_keys=req, maintain=False)
+        for name, r in (("on", on), ("off", off)):
+            half = r["reports"][len(r["reports"]) // 2:]
+            keys = sum(x.size for x in half)
+            log(f"phase 8: scheduler {name}: second-half hit rate "
+                f"{sum(x.hits for x in half) / max(keys, 1):.6f}, reactive demotions a wave "
+                f"{sum(x.demotions for x in half) / max(len(half), 1):.1f}")
+        table = off["table"]
+        del off["table"], off["trainer_table"]
+        gc.collect()
+        self.free()
+        burst = self.serve_run(table, "phase 8 run 3 (readonly, promote, continuous, burst)",
+                               wave=wave, waves=sz.serve_ticks, req_keys=req,
+                               policy="readonly", promote=True, admission="continuous",
+                               arrival="burst", maintain=False, train=False)
+        require(any(r.size for r in burst["reports"]), "phase 8 run 3 served nothing")
+        del table, burst["table"]
+        gc.collect()
+        self.free()
+        self.serve_twins()
+        log(f"phase 8: kernel launches: {json.dumps(self.launches_serve)}")
+        missing = [k for k in SERVE_KERNELS if self.dev.type == "cuda"
+                   and not self.launches_serve.get(k)]
+        require(not missing, f"phase 8 never launched {missing}")
+
+    def serve_twins(self):
+        """The serving path on a 2^20-slot hierarchy (its hot tier an
+        eighth) through 'auto' and 'plain': equal per-request values and
+        found flags, reports, scheduler reports and totals, publisher
+        counters and drained states; then the export_delta -> ingest_delta
+        round trip of the 'auto' twin's table."""
+        import numpy as np
+
+        from repro_torch.serving import export_delta, ingest_delta
+
+        torch, sz = self.torch, self.sz
+        cold, wave = sz.small_capacity, sz.serve_wave // 4
+        req = wave - wave // 16
+        recs = []
+        for backend in ("auto", "plain"):
+            t = self.serve_table(cold // 8, cold, backend)
+            self.serve_prefill(t, sz.small_batch)
+            recs.append(self.serve_run(t, f"phase 8 twin ({backend})", wave=wave,
+                                       waves=sz.serve_waves // 2, req_keys=req, tally=False,
+                                       quiet=True))
+        a, p = recs
+        worst = 0.0
+        for rid, (keys, va, fa) in a["requests"].items():
+            _k, vp, fp = p["requests"][rid]
+            require(np.array_equal(fa, fp), f"phase 8 twin: request {rid}'s found flags differ")
+            worst = max(worst, float(np.abs(va - vp).max()) if va.size else 0.0)
+        fields = lambda r: (r.size, r.hits, r.hot_hits, r.demotions, r.table_version)  # noqa: E731
+        require([fields(r) for r in a["reports"]] == [fields(r) for r in p["reports"]],
+                "phase 8 twin: wave reports differ")
+        strip = lambda reps: [r._replace(elapsed_s=0.0) for r in reps]  # noqa: E731
+        require(strip(a["sched"][0]) == strip(p["sched"][0])
+                and a["sched"][1]._replace(time_s=0.0) == p["sched"][1]._replace(time_s=0.0),
+                "phase 8 twin: scheduler reports differ")
+        require(a["offers"] == p["offers"], "phase 8 twin: publisher counters differ")
+        for which in ("table", "trainer_table"):
+            for ta, tp in ((a[which].hot, p[which].hot), (a[which].cold, p[which].cold)):
+                for name in ("keys", "digests", "scores"):
+                    self.assert_same(getattr(ta.state, name), getattr(tp.state, name),
+                                     f"phase 8 twin {which} state.{name}")
+                worst = max(worst, (ta.state.values - tp.state.values.to(ta.state.values.device))
+                            .abs().max().item())
+        require(worst <= DUP_SUM_ATOL, f"phase 8 twin: values differ by {worst}")
+        log(f"phase 8 twin: {cold} slots (hot tier {cold // 8}), {len(a['reports'])} waves of "
+            f"{wave} lanes, {len(a['train'])} trainer steps, {a['offers'][0]} publishes, "
+            f"{a['sched'][1].runs} maintenance steps ({a['sched'][1].demoted} moved): 'auto' "
+            f"and 'plain' equal in found flags, reports, scheduler reports, publisher counters, "
+            f"keys, digests and scores; values within {worst:.3g}")
+        # the delta hand-off of the served table, into a fresh flat table on
+        # each backend
+        from repro_torch import HKVTable
+
+        t0 = time.perf_counter()
+        delta = export_delta(a["table"], chunk_buckets=1024)
+        t_exp = time.perf_counter() - t0
+        dsts = []
+        for backend in ("auto", "plain"):
+            d = HKVTable.create(capacity=4 * cold, dim=DIM, buckets_per_key=2,
+                                score_policy="custom", device=self.dev, backend=backend)
+            t0 = time.perf_counter()
+            ingest_delta(d, delta, batch=sz.small_batch, carry_scores=True)
+            dsts.append((d, time.perf_counter() - t0))
+        (da, t_ing), (dp, _) = dsts
+        for name in ("keys", "digests", "scores", "values"):
+            self.assert_same(getattr(da.state, name), getattr(dp.state, name),
+                             f"phase 8 delta state.{name}")
+        f = da.find(delta.keys)
+        require(bool(f.found.all()), "phase 8 delta: an exported key is missing after ingest")
+        require(torch.equal(f.values.cpu(), torch.from_numpy(delta.values)),
+                "phase 8 delta: ingested rows differ from the exported ones")
+        back = export_delta(da, chunk_buckets=1024)
+        order_a, order_b = np.argsort(delta.keys), np.argsort(back.keys)
+        require(np.array_equal(delta.keys[order_a], back.keys[order_b])
+                and np.array_equal(delta.scores[order_a], back.scores[order_b]),
+                "phase 8 delta: the round trip changed keys or scores")
+        log(f"phase 8 delta: export_delta of the 'auto' twin's table ({delta.count} live "
+            f"entries) {t_exp:.3f} s, ingest_delta (carry_scores) {t_ing:.3f} s; 'auto' and "
+            f"'plain' destinations equal; every key found with its row and score")
+        del recs, a, p, dsts, da, dp
 
     @staticmethod
     def conserved(expected: int, dropped: int, size: int, ctx: str) -> None:
@@ -2211,6 +2690,10 @@ class Smoke:
             log(f"claim_scan λ={lam}: every query on one cached row {cs[f'ms_one_row@{lam}']:.4f} ms "
                 f"against {cs[f'ms@{lam}']:.4f} ms spread over the table; its own s*s compare loop "
                 f"at the int32 rate {cs[f'loop_ops@{lam}'] / INT32_OPS_PER_S * 1e3:.4f} ms")
+        self.card_line()
+
+    def card_line(self):
+        """The card's name and power limit, as nvidia-smi gives them."""
         if self.dev.type == "cuda":
             smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,
@@ -2257,13 +2740,14 @@ class Smoke:
             bound, by = self.bound(st, 1.0)
             # launches: the main path's phase 3 for its four kernels, the
             # rest of the op surface's phase 4 for the kernels it added, the
-            # training path's phase 5 for update_scan; no op calls
-            # bucket_stats, so no path launches it
+            # training path's phase 5 for update_scan, each with the serving
+            # path's phase 8; no op calls bucket_stats, so no path launches it
             path = (self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": path.get(name, 0), "max_abs_err": st["max_abs_err"],
+                "launches": path.get(name, 0) + self.launches_serve.get(name, 0),
+                "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": st.get("library_ms@1.0"),

@@ -98,6 +98,11 @@ class HKVState:
     def slots_per_bucket(self) -> int:
         return self.keys.shape[1]
 
+    @property
+    def planes(self) -> tuple:
+        """The four planes: keys, digests, scores, values."""
+        return self.keys, self.digests, self.scores, self.values
+
     def occupied_mask(self) -> torch.Tensor:
         return ~u64.empty_lanes(self.keys)
 
@@ -116,6 +121,18 @@ class HKVState:
             values = self.values.clone()
         return HKVState(self.keys.clone(), self.digests.clone(),
                         self.scores.clone(), values, self.clock, self.epoch)
+
+    def copy_from(self, src: "HKVState") -> "HKVState":
+        """Overwrite every plane, the clock and the epoch with `src`'s, in
+        place (planes of equal shapes, dtypes and placement).  The card
+        copies in stream order, after the kernels queued before; a host
+        plane is copied once the card has run them."""
+        if self.host_values or src.host_values:
+            host_sync(self.device)
+        for dst_plane, src_plane in zip(self.planes, src.planes):
+            dst_plane.copy_(src_plane)
+        self.clock, self.epoch = src.clock, src.epoch
+        return self
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:

@@ -1,9 +1,11 @@
-"""Seeded Zipfian key streams (the port's copy of the key generators of
-``repro/data/synthetic.py``, numpy only, bit for bit the reference's).
+"""Seeded Zipfian key streams and request arrival processes (the port's
+copy of the key and arrival generators of ``repro/data/synthetic.py``,
+numpy only, bit for bit the reference's).
 
 `zipf_ranks` draws ranks from a truncated Zipf(α) through the analytic
 inverse CDF of the harmonic approximation; `zipf_keys` maps ranks through
-fmix64, so hot keys are spread over the uint64 space.
+fmix64, so hot keys are spread over the uint64 space.  The arrival
+generators give the request sizes of the serving engine's ticks.
 """
 
 from __future__ import annotations
@@ -37,3 +39,61 @@ def _fmix64(x: np.ndarray) -> np.ndarray:
 def zipf_keys(rng: np.random.Generator, n: int, alpha: float, key_space: int) -> np.ndarray:
     """Power-law uint64 feature ids: rank -> fmix64(rank)."""
     return _fmix64(zipf_ranks(rng, n, alpha, key_space))
+
+
+# =============================================================================
+# Arrival processes — request sizes per serving tick (SLO workloads)
+# =============================================================================
+#
+# The serving engine's SLO numbers (queue-wait vs service p50/p99) only
+# mean something under NON-steady arrivals: a burst that outruns one
+# wave's lanes queues, and the queue-wait it accrues is exactly what
+# continuous-batch admission exists to cut.  Each generator returns an
+# int64 array of REQUEST SIZES (keys per tick) for `ticks` serving ticks,
+# calibrated so the mean load is `base_load * wave_size` keys/tick —
+# comparable total work across arrival shapes.
+
+ARRIVAL_KINDS = ("steady", "burst", "diurnal")
+
+
+def steady_sizes(rng: np.random.Generator, ticks: int, wave_size: int,
+                 *, base_load: float = 0.75) -> np.ndarray:
+    """Constant-rate arrivals: every tick offers the same key count."""
+    return np.full(ticks, max(1, int(round(base_load * wave_size))), np.int64)
+
+
+def poisson_burst_sizes(rng: np.random.Generator, ticks: int, wave_size: int,
+                        *, base_load: float = 0.5, burst_prob: float = 0.15,
+                        burst_mult: float = 6.0) -> np.ndarray:
+    """Poisson arrivals with a bursty modulated rate: each tick draws
+    Poisson(λ) keys where λ is the base rate, except Bernoulli(burst_prob)
+    ticks fire at `burst_mult`× — the flash-crowd shape whose queue
+    depth exposes admission-granularity latency."""
+    lam = base_load * wave_size
+    bursty = rng.random(ticks) < burst_prob
+    rates = np.where(bursty, burst_mult * lam, lam)
+    return rng.poisson(rates).astype(np.int64)
+
+
+def sinusoidal_sizes(rng: np.random.Generator, ticks: int, wave_size: int,
+                     *, base_load: float = 0.5, amplitude: float = 0.9,
+                     period: int = 32) -> np.ndarray:
+    """Diurnal arrivals: Poisson around a sinusoidal rate —
+    λ(t) = base * (1 + amplitude * sin(2πt/period)), floor 0.  The slow
+    swell fills and drains the queue once per period."""
+    t = np.arange(ticks)
+    lam = base_load * wave_size * (
+        1.0 + amplitude * np.sin(2.0 * np.pi * t / period))
+    return rng.poisson(np.maximum(lam, 0.0)).astype(np.int64)
+
+
+def arrival_sizes(kind: str, rng: np.random.Generator, ticks: int,
+                  wave_size: int, **kwargs) -> np.ndarray:
+    """Dispatch on arrival shape: 'steady' | 'burst' | 'diurnal'."""
+    try:
+        fn = {"steady": steady_sizes, "burst": poisson_burst_sizes,
+              "diurnal": sinusoidal_sizes}[kind]
+    except KeyError:
+        raise ValueError(
+            f"arrival kind {kind!r}; one of {ARRIVAL_KINDS}") from None
+    return fn(rng, ticks, wave_size, **kwargs)

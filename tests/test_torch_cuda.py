@@ -885,3 +885,61 @@ def test_find_scan_kernel_rows_at_any_length(dev, n, layout):
         assert not got[0][q == -1].any() and not got[4][got[0] == 0].any()
         if n > 100:
             assert got[0].any() and got[1].any()
+
+
+def _serve(dev, backend, policy, admission, waves=8, wave=2**14):
+    """The serving path on a 2^20-slot hierarchy (hot tier 2^17 in HBM, the
+    cold tier's values in pinned host memory), prefilled past its hot tier:
+    an engine behind a TablePublisher, an OnlineTrainer publishing every
+    two steps and a MaintenanceScheduler every wave."""
+    from repro_torch.data import zipf_keys
+    from repro_torch.maintenance import MaintenancePolicy, MaintenanceScheduler
+    from repro_torch.serving import (EmbeddingRequest, OnlineEmbeddingEngine, OnlineTrainer,
+                                     TablePublisher)
+
+    t = repro_torch.TieredHKVTable.create(hot_capacity=2**17, cold_capacity=2**20, dim=32,
+                                          buckets_per_key=2, backend=backend, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for i in range(4):
+        keys = torch.arange(i * 2**16, (i + 1) * 2**16, device=dev) * 0x2545F4914F6CDD1D % 2**62
+        t.insert_or_assign(keys, torch.randn(2**16, 32, generator=g, device=dev))
+    pub = TablePublisher(t)
+    trainer = OnlineTrainer(publisher=pub, publish_every=2, lr=0.1)
+    sched = MaintenanceScheduler(MaintenancePolicy(every_waves=1, sweep_budget=wave,
+                                                   low_watermark=0.6, high_watermark=0.85))
+    eng = OnlineEmbeddingEngine(pub, wave_size=wave, miss_policy=policy, promote=True,
+                                admission=admission, scheduler=sched)
+    rng, train_rng = np.random.default_rng(8), np.random.default_rng(9)
+    for i in range(waves):
+        eng.submit(EmbeddingRequest(rid=i, keys=zipf_keys(rng, wave - 100, 1.05, 2**21)))
+        eng.step()
+        if i % 2:
+            trainer.train_step(zipf_keys(train_rng, wave, 1.05, 2**21),
+                               torch.ones(wave, 32, device=dev))
+    eng.run_until_drained()
+    return eng, sched, pub, trainer
+
+
+@pytest.mark.parametrize("policy,admission", [("admit", "wave"), ("readonly", "continuous")])
+def test_serving_path_kernels_match_plain(dev, policy, admission):
+    """Engine, trainer and scheduler through the kernels ('auto') and the
+    plain versions: equal per-request values and found flags, wave and
+    scheduler reports, publisher counters and drained states."""
+    (ea, sa, pa, ta), (ep, sp, pp, tp) = (_serve(dev, b, policy, admission)
+                                          for b in ("auto", "plain"))
+    ra, rp = {r.rid: r for r in ea.completed}, {r.rid: r for r in ep.completed}
+    assert ra.keys() == rp.keys() and len(ra) == 8
+    for rid in ra:
+        assert np.array_equal(ra[rid].found, rp[rid].found)
+        assert np.array_equal(ra[rid].values, rp[rid].values)
+    strip = lambda reps, f: [r._replace(**{f: 0.0}) for r in reps]  # noqa: E731
+    assert strip(ea.reports, "latency_s") == strip(ep.reports, "latency_s")
+    assert strip(sa.reports, "elapsed_s") == strip(sp.reports, "elapsed_s")
+    assert sa.totals.demoted > 0 and sa.totals._replace(time_s=0) == sp.totals._replace(time_s=0)
+    assert (pa.published, pa.offered, pa.rejected_offers) == (pp.published, pp.offered,
+                                                              pp.rejected_offers)
+    for a, b in ((pa.table, pp.table), (ta.table, tp.table)):
+        for tier in ("hot", "cold"):
+            for name in ("keys", "digests", "scores", "values"):
+                x, y = getattr(getattr(a, tier).state, name), getattr(getattr(b, tier).state, name)
+                assert torch.equal(x, y.to(x.device)), (tier, name)

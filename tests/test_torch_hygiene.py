@@ -104,3 +104,22 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                                 meta(4, 4, dt=torch.float32), SparseOptimizer("sgd"), 4)
     with pytest.raises(ValueError, match="unsupported device"):
         score_scan.bucket_stats(planes[1], planes[2])
+
+
+def test_serving_entry_points_raise_without_a_card(monkeypatch, capsys):
+    """The serving path runs on the card: an engine over a table made
+    without `device`, and the serve launcher without `--device cpu`, raise
+    where there is none; `--device cpu` runs."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import OnlineEmbeddingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineEmbeddingEngine(repro_torch.HKVTable.create(capacity=128, dim=4), wave_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineEmbeddingEngine(repro_torch.TieredHKVTable.create(
+            hot_capacity=128, cold_capacity=256, dim=4), wave_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke", "--waves", "1"])
+    assert serve.main(["--device", "cpu", "--smoke", "--waves", "2", "--wave-size", "8"]) == 0
+    assert "[serve] 2 waves" in capsys.readouterr().out
