@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs eight phases; any failure exits non-zero:
+sm_90a (first use), then runs nine phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -128,6 +128,29 @@ sm_90a (first use), then runs eight phases; any failure exits non-zero:
    and drained states (values within 1e-5), then the export_delta ->
    ingest_delta round trip of its table.  At most two copies of a
    hierarchy are alive at once.
+9. telemetry, the dictionary baselines and the multi-table find at config
+   B.  (a) A config B table (dual bucket, LRU) filled to λ 0.25, 0.5, 0.75
+   and 1.0 takes at each a find of 2^20 resident keys with a
+   TelemetrySink: its launches must be ROUTES' (a sink adds none), its
+   lanes and hits the op's own count of keys and found, and
+   probes_per_query must vary by under 5% across λ (the paper's
+   stability claim, read from the counters); the find is timed without
+   and with the sink, and the observer alone.  Past λ 1.0, a
+   snapshot() twin and the table take insert_or_assign and then
+   find_or_insert of 2^20 keys (a burst at the coldest bucket, an eighth
+   resident), the table with a sink: results and every plane must be
+   equal, the sink's status histogram the statuses' own count with both
+   evicted and rejected above 0; then assign_kernel (set and add) on
+   unique resident keys is held bit for bit against its plain
+   composition and timed.  (b) OpenAddressingTable and BucketedP2CTable
+   at dim 32 and 2^27 slots, filled by offered load in 2^20-key batches
+   to λ 0.5 and 0.9 (open addressing) or 0.5 and 1.0 (P2C): find of 2^20
+   resident keys (B-KV/s), mean probes, the insert failure rate, and
+   every key placed by λ 0.5 found.  (c) find_many_kernel over 26 tables
+   (the DLRM's fields) of 2^22 slots at dim 32 filled to λ 1.0, with 2^20
+   keys spread over them: one find_scan_many launch, bit-identical to 26
+   find_fused_kernel calls and to its plain version, timed against 26
+   find_scan launches.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -143,7 +166,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same eight phases at a tiny size on the
+result.  ``--rehearse`` runs the same nine phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -297,15 +320,17 @@ class Sizes:
     serve_samples: int       # DLRM samples a request (26 keys each)
     serve_waves: int         # waves of runs 1 and 2 (the twins: half)
     serve_ticks: int         # ticks of run 3 (burst arrivals)
+    many_capacity: int       # phase 9's NUM_SPARSE tables of find_many_kernel
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
              hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5,
              hot_capacity=2**24, serve_wave=2**16, serve_samples=2520, serve_waves=24,
-             serve_ticks=48)
+             serve_ticks=48, many_capacity=2**22)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
              hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3,
-             hot_capacity=2**9, serve_wave=2**7, serve_samples=4, serve_waves=8, serve_ticks=12)
+             hot_capacity=2**9, serve_wave=2**7, serve_samples=4, serve_waves=8, serve_ticks=12,
+             many_capacity=2**10)
 DIM = 32
 
 
@@ -549,7 +574,9 @@ class Smoke:
                   ("the training path at config B", self.phase_train),
                   ("config D, the host-memory value tier", self.phase_hmem),
                   ("the tier hierarchy", self.phase_tiered),
-                  ("the serving path", self.phase_serve)]
+                  ("the serving path", self.phase_serve),
+                  ("telemetry, baselines and the multi-table find at config B",
+                   self.phase_tel_base)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -2590,6 +2617,322 @@ class Smoke:
                 f"{ctx}: {expected} keys expected, {size} in the hierarchy, {dropped} reported "
                 "dropped")
 
+    # phase 9 --------------------------------------------------------------
+
+    def phase_tel_base(self):
+        """Telemetry on config B, the dictionary baselines at config B's
+        capacity, and the two last kernel wrappers."""
+        self.free()
+        self.tel_results, self.base_results = {}, {}
+        self.telemetry_config_b()
+        self.free()
+        self.baselines()
+        self.free()
+        self.find_many_tables()
+        self.free()
+
+    def resident(self, keys_plane, n: int, unique: bool = False):
+        """n keys drawn from the live slots of a key plane (TOMB and EMPTY
+        are negative, never live ids), with or without repeats."""
+        torch = self.torch
+        flat = keys_plane.reshape(-1)
+        live = torch.nonzero(flat >= 0)[:, 0]
+        if unique:
+            pick = live[torch.randperm(live.numel(), generator=self.gen, device=self.dev)[:n]]
+        else:
+            pick = live[torch.randint(0, live.numel(), (n,), generator=self.gen, device=self.dev)]
+        return flat[pick]
+
+    def count_launches(self, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after: (its result, the launches)."""
+        self.sync()
+        self._build.reset_counts()
+        out = fn()
+        self.sync()
+        return out, dict(self._build.launch_counts)
+
+    def telemetry_config_b(self):
+        from repro_torch.obs import TelemetrySink
+        from repro_torch.obs import telemetry as obs
+
+        torch, sz = self.torch, self.sz
+        n, runs = sz.batch, sz.timed_runs
+        table = self.config_b()
+        cfg = table.cfg
+        ppq = {}
+        for lam in (0.25, 0.5, 0.75, 1.0):
+            self.fill(table, lam)
+            q = self.resident(table.state.keys, n)
+            sink = TelemetrySink()
+            r, got = self.count_launches(lambda: table.find(q, telemetry=sink))
+            if self.dev.type == "cuda":
+                require(got == ROUTES["find"][2],
+                        f"phase 9: find with a sink launched {got}, the route is {ROUTES['find'][2]}")
+            d = sink.by_op["find"].to_dict()
+            lanes, hits = int((q != self.u64.EMPTY).sum()), int(r.found.sum())
+            require(d["lanes"] == lanes and d["hits"] == hits and hits == n,
+                    f"phase 9 λ={lam}: telemetry lanes {d['lanes']} hits {d['hits']}, the "
+                    f"op's own {lanes} lanes and {hits} found of {n}")
+            rates = sink.by_op["find"].rates()
+            ppq[lam] = rates["probes_per_query"]
+            t_op = self.time_ms(lambda: table.find(q), runs)
+            t_sink = self.time_ms(lambda: table.find(q, telemetry=TelemetrySink()), runs)
+            t_obs = self.time_ms(lambda: obs.observe_find(table.state, cfg, q, r.found), runs)
+            self.tel_results[lam] = dict(lam=table.load_factor(), ppq=ppq[lam], find_ms=t_op,
+                                         kvs=n / t_op / 1e6, sink_ms=t_sink, obs_ms=t_obs,
+                                         digest_pass_rate=rates["digest_pass_rate"],
+                                         second_probe_rate=rates["second_probe_rate"])
+            log(f"phase 9: HKV λ = {table.load_factor():.6f}: find of {n} resident keys "
+                f"{t_op:.3f} ms ({n / t_op / 1e6:.4f} B-KV/s); with a sink {t_sink:.3f} ms; the "
+                f"observer alone {t_obs:.3f} ms; probes_per_query {ppq[lam]:.6f}, digest_pass_rate "
+                f"{rates['digest_pass_rate']:.6f}, second_probe_rate "
+                f"{rates['second_probe_rate']:.6f}; counters {json.dumps(d)}")
+        spread = (max(ppq.values()) - min(ppq.values())) / min(ppq.values())
+        log(f"phase 9: probes_per_query over λ 0.25-1.0 varies by {spread:.6%}")
+        require(spread < 0.05, f"phase 9: probes_per_query not flat across λ: {ppq}")
+        self.tel_results["spread"] = spread
+
+        # past λ 1.0 on two twins, one with a sink and one without
+        twin = table.snapshot()
+        for op in ("insert_or_assign", "find_or_insert"):
+            keys = self.fresh_keys(n)
+            # a burst at the bucket with the coldest entry: dual-bucket
+            # selection sends most of it there, past its slots
+            coldest = int(self.u64.flip(table.state.scores).min(dim=1).values.argmin())
+            keys[: sz.hot_keys] = self.hot_bucket_keys(cfg.num_buckets, sz.hot_keys, coldest)
+            keys[n - n // 8:] = self.resident(table.state.keys, n // 8, unique=True)
+            vals = self.values(n)
+            sink = TelemetrySink()
+            probe_ms = self.time_ms(lambda: obs.probe_counters(table.state, cfg, keys), 2)
+            self.sync()
+            a = self.mark()
+            ra = getattr(table, op)(keys, vals, telemetry=sink)
+            b = self.mark()
+            rb, got_b = self.count_launches(lambda: getattr(twin, op)(keys, vals))
+            c = self.mark()
+            self.sync()
+            want = self.route(ROUTES[op][2], self.has_miss(rb.status))
+            ra2, got_a = None, None
+            if self.dev.type == "cuda":
+                require(got_b == want, f"phase 9 {op}: launches {got_b}, the route is {want}")
+            require(torch.equal(ra.status, rb.status), f"phase 9 {op}: statuses differ with a sink")
+            if op == "find_or_insert":
+                require(torch.equal(ra.values, rb.values) and torch.equal(ra.found, rb.found),
+                        f"phase 9 {op}: values or found differ with a sink")
+            hist = torch.bincount(rb.status.long(), minlength=5).tolist()
+            d = sink.by_op[op].to_dict()
+            require([d["updated"], d["inserted"], d["evicted"], d["rejected"]] == hist[1:],
+                    f"phase 9 {op}: telemetry histogram {d}, statuses {hist}")
+            require(d["evicted"] > 0 and d["rejected"] > 0,
+                    f"phase 9 {op}: no eviction or no rejection past λ 1.0: {hist}")
+            hist_ms = self.time_ms(lambda: obs.observe_upsert(
+                {k: d[k] for k in ("lanes", "probed_buckets", "probed_slots", "digest_pass",
+                                   "second_probe")}, keys, rb.status, None), 2)
+            self.tel_results[op] = dict(op_ms=self.elapsed_ms(b, c),
+                                        op_sink_ms=self.elapsed_ms(a, b), probe_ms=probe_ms,
+                                        hist_ms=hist_ms, counters=d)
+            log(f"phase 9: {op} of {n} keys past λ 1.0: {self.elapsed_ms(b, c):.3f} ms, with a "
+                f"sink {self.elapsed_ms(a, b):.3f} ms; the observer's probe part "
+                f"{probe_ms:.3f} ms, its status histogram {hist_ms:.3f} ms; launches {got_b}; "
+                f"counters {json.dumps(d)}")
+        # a sink adds no launch: the same op with one, counted
+        q = self.resident(table.state.keys, n)
+        _, got = self.count_launches(lambda: table.find(q, telemetry=TelemetrySink()))
+        if self.dev.type == "cuda":
+            require(got == ROUTES["find"][2], f"phase 9: find with a sink launched {got}")
+        for name, x, y in zip(("keys", "digests", "scores", "values"), table.state.planes,
+                              twin.state.planes):
+            require(torch.equal(x, y), f"phase 9: the twins' {name} planes differ")
+        require((table.state.clock, table.state.epoch) == (twin.state.clock, twin.state.epoch),
+                "phase 9: the twins' clocks differ")
+        log("phase 9: the twins (a sink and none) are equal in every plane")
+        del twin
+        self.free()
+        self.assign_wrapper(table)
+        del table
+
+    def assign_wrapper(self, table):
+        """assign_kernel (set and add) on a config B table against its
+        plain composition, on unique resident keys; the key planes are
+        shared, the value plane copied."""
+        from repro_torch.core.table import HKVState
+        from repro_torch.kernels import ops as kops
+
+        torch, sz = self.torch, self.sz
+        n = sz.batch
+        st, cfg = table.state, table.cfg
+        keys = self.resident(st.keys, n - n // 8, unique=True)
+        keys = torch.cat([keys, self.fresh_keys(n // 8)])
+        vals = self.values(n)
+        plain = HKVState(st.keys, st.digests, st.scores, st.values.clone(), st.clock, st.epoch)
+        res = {}
+        for add in (False, True):
+            tag = "add" if add else "set"
+            _, got = self.count_launches(lambda: kops.assign_kernel(st, cfg, keys, vals, add=add))
+            kops.assign_plain(plain, cfg, keys, vals, add=add)
+            self.sync()
+            if self.dev.type == "cuda":
+                require(got == {"digest_scan": 1, "scatter_rows": 1},
+                        f"phase 9: assign_kernel ({tag}) launched {got}")
+            require(torch.equal(st.values, plain.values),
+                    f"phase 9: assign_kernel ({tag}) differs from its plain composition")
+            res[tag] = (self.time_ms(lambda: kops.assign_kernel(st, cfg, keys, vals, add=add),
+                                     sz.timed_runs),
+                        self.time_ms(lambda: kops.assign_plain(plain, cfg, keys, vals, add=add),
+                                     2))
+        self.tel_results["assign"] = res
+        log(f"phase 9: assign_kernel on {n} keys (7/8 resident) bit-identical to its plain "
+            "composition, set and add: " + ", ".join(
+                f"{k} {a:.3f} ms (plain {b:.3f} ms)" for k, (a, b) in res.items()))
+        del plain
+
+    def baselines(self):
+        """The dictionary baselines at dim 32 and config B's capacity,
+        filled by offered load in batches of `batch` fresh keys."""
+        from repro_torch.baselines import DictKVTable
+
+        torch, sz = self.torch, self.sz
+        n, cap = sz.batch, sz.capacity
+        t0 = time.perf_counter()
+        for name, make, points in (("open addressing", DictKVTable.open_addressing, (0.5, 0.9)),
+                                   ("bucketed P2C", DictKVTable.bucketed_p2c, (0.5, 1.0))):
+            table = make(capacity=cap, dim=DIM, device=self.dev)
+            offered = failed = 0
+            ok_keys = []
+            for lam in points:
+                t_fill = time.perf_counter()
+                last = None
+                while offered < int(lam * cap):
+                    m = min(n, int(lam * cap) - offered)
+                    keys, vals = self.fresh_keys(m), self.values(m)
+                    r = table.insert_or_assign(keys, vals)
+                    nf = int((~r.ok).sum())
+                    offered, failed, last = offered + m, failed + nf, nf / m
+                    if lam == points[0]:
+                        ok_keys.append(keys[r.ok])
+                self.sync()
+                t_fill = time.perf_counter() - t_fill
+                if lam == points[0]:
+                    everyone = torch.cat(ok_keys)
+                    for i in range(0, everyone.numel(), n):
+                        require(bool(table.contains(everyone[i:i + n]).all()),
+                                f"phase 9 {name} λ={lam}: a resident key was not found")
+                    log(f"phase 9: {name}: all {everyone.numel()} resident keys found at "
+                        f"offered λ {lam}")
+                    del everyone, ok_keys
+                q = self.resident(table.state.keys, n)
+                f = table.find(q)
+                require(bool(f.found.all()), f"phase 9 {name}: a sampled resident key missed")
+                t = self.time_ms(lambda: table.find(q), sz.timed_runs)
+                probes = float(f.probes.double().mean())
+                lam_got = table.load_factor()
+                hkv = self.tel_results.get(1.0 if lam >= 0.9 else lam, {})
+                self.base_results[(name, lam)] = dict(
+                    lam=lam_got, find_ms=t, kvs=n / t / 1e6, probes=probes,
+                    fail=failed / offered, fail_last=last, fill_s=t_fill)
+                log(f"phase 9: {name} offered λ {lam} (held {lam_got:.6f}): find of {n} resident "
+                    f"keys {t:.3f} ms ({n / t / 1e6:.4f} B-KV/s), mean probes {probes:.4f}, "
+                    f"max {int(f.probes.max())}; inserts failed {failed / offered:.6f} of "
+                    f"{offered} offered, {last:.6f} of the last batch; filled in {t_fill:.1f} s"
+                    + (f"; HKV (dual) at λ {hkv['lam']:.6f}: {hkv['kvs']:.4f} B-KV/s, "
+                       f"probes_per_query {hkv['ppq']:.6f}" if hkv else ""))
+            del table
+            self.free()
+        self.base_results["seconds"] = time.perf_counter() - t0
+        log(f"phase 9: baselines took {self.base_results['seconds']:.1f} s")
+
+    def find_many_tables(self):
+        """find_many_kernel over NUM_SPARSE tables of `many_capacity` slots
+        at dim 32, filled to λ 1.0, with `batch` keys spread over them
+        (about half resident), against NUM_SPARSE find_fused_kernel calls
+        and its plain version."""
+        from repro_torch import HKVTable
+        from repro_torch.kernels import ops as kops
+
+        torch, sz = self.torch, self.sz
+        n, t_n = sz.batch, NUM_SPARSE
+        tables = []
+        for _ in range(t_n):
+            t = HKVTable.create(capacity=sz.many_capacity, dim=DIM, buckets_per_key=2,
+                                score_policy="lru", device=self.dev)
+            self.fill(t, 1.0)
+            tables.append(t)
+        cfg = tables[0].cfg
+        counts = [n // t_n + (i < n % t_n) for i in range(t_n)]
+        keys = []
+        for t, c in zip(tables, counts):
+            k = torch.cat([self.resident(t.state.keys, c // 2), self.fresh_keys(c - c // 2)])
+            k[::97] = self.u64.EMPTY
+            keys.append(k[torch.randperm(c, generator=self.gen, device=self.dev)])
+        states = [t.state for t in tables]
+        many, got = self.count_launches(lambda: kops.find_many_kernel(states, cfg, keys))
+        self.launches_many = got
+        if self.dev.type == "cuda":
+            require(got == {"find_scan_many": 1}, f"phase 9: find_many_kernel launched {got}")
+        solo, got_solo = self.count_launches(
+            lambda: [kops.find_fused_kernel(s, cfg, k) for s, k in zip(states, keys)])
+        if self.dev.type == "cuda":
+            require(got_solo == {"find_scan": t_n}, f"phase 9: {t_n} finds launched {got_solo}")
+        for t, (a, b) in enumerate(zip(many, solo)):
+            self.check_equal("find_scan_many", a, b, f"table {t} of {t_n} against find_scan")
+        probes = [self.find_mod.probe_keys(cfg, k) for k in keys]
+        args = ([(s.digests, s.keys, s.scores, s.values) for s in states],
+                torch.cat([p.bucket1 for p in probes]), torch.cat([p.bucket2 for p in probes]),
+                torch.cat([p.digest for p in probes]), torch.cat(keys), counts)
+        out = self.fs.find_scan_many(*args)
+        want = self.fs.find_scan_many_plain(*args)
+        self.check_equal("find_scan_many", out, want, f"{t_n} tables of {sz.many_capacity} "
+                         "slots against the plain version")
+        work = {"bytes": 0, "ops": 0}
+        start = 0
+        for s, p, k, c in zip(states, probes, keys, counts):
+            sl = slice(start, start + c)
+            w = self.find_work(s, p, k, tuple(x[sl] for x in want), "", s.values)
+            work["bytes"] += w["bytes@"]
+            work["ops"] += w["ops@"]
+            start += c
+        t_many = self.time_ms(lambda: self.fs.find_scan_many(*args), sz.timed_runs)
+        # the kernel alone in a stream: the entry point launched on
+        # buffers made once, without the wrapper's checks of 4 x 26
+        # planes and its copy of their addresses
+        t_bare = None
+        if self.dev.type == "cuda":
+            planes, b1, b2, qd, qk, cnt = args
+            offs = [0, *torch.tensor(cnt).cumsum(0).tolist()]
+            meta = torch.tensor([p[i].data_ptr() for i in range(4) for p in planes] + offs,
+                                dtype=torch.int64, device=self.dev)
+            outs = [torch.empty_like(x) for x in out]
+            row_bytes = planes[0][3].shape[1] * planes[0][3].element_size()
+            unit = self._build.copy_unit((row_bytes,), (*(p[3] for p in planes), outs[4]))
+            t_bare = self.time_ms(lambda: self._build.launch(
+                self.fs.MANY, meta, t_n, meta[4 * t_n:], b1, b2, qd, qk, *outs, n, row_bytes,
+                1, unit), sz.timed_runs, calls=STREAM_CALLS)
+            bare_out = tuple(outs)
+            self.check_equal("find_scan_many", bare_out, want, "the bare entry point")
+        t_solo = self.time_ms(lambda: [self.fs.find_scan(*s_, p.bucket1, p.bucket2, p.digest, k)
+                                       for s_, p, k in zip(args[0], probes, keys)], sz.timed_runs)
+        self.record("find_scan_many", **{
+            "ms@1.0": t_many, "plain_ms@1.0": self.time_ms(
+                lambda: self.fs.find_scan_many_plain(*args), 2),
+            "bytes@1.0": work["bytes"], "ops@1.0": work["ops"],
+            "ms_stream@1.0": self.time_ms(lambda: self.fs.find_scan_many(*args), sz.timed_runs,
+                                          calls=STREAM_CALLS),
+            "ms_solo@1.0": t_solo, "ms_bare_stream@1.0": t_bare,
+            "op_ms@1.0": self.time_ms(lambda: kops.find_many_kernel(states, cfg, keys),
+                                      sz.timed_runs),
+            "op_solo_ms@1.0": self.time_ms(
+                lambda: [kops.find_fused_kernel(s, cfg, k) for s, k in zip(states, keys)],
+                sz.timed_runs)})
+        fm = self.stats["find_scan_many"]
+        log(f"phase 9: find_scan_many over {t_n} tables of {sz.many_capacity} slots (λ "
+            f"{tables[0].load_factor():.6f}), {n} keys: one launch {t_many:.4f} ms (in a stream "
+            f"{fm['ms_stream@1.0']:.4f} ms a call; the bare entry point, no wrapper, "
+            f"{fm['ms_bare_stream@1.0'] or 0.0:.4f} ms a call) against "
+            f"{t_n} find_scan launches {t_solo:.4f} ms; find_many_kernel {fm['op_ms@1.0']:.3f} "
+            f"ms against {t_n} find_fused_kernel calls {fm['op_solo_ms@1.0']:.3f} ms")
+        del tables, states, many, solo
+
     # ----------------------------------------------------------------- report
 
     def report(self):
@@ -2733,6 +3076,10 @@ class Smoke:
                             "src/repro/kernels/update_scan.py:282"),
             "bucket_stats": ("src/repro_torch/csrc/score_scan.cu",
                              "src/repro/kernels/score_scan.py:46"),
+            # find_scan's multi-table entry: the reference's find_many_kernel
+            # (src/repro/kernels/ops.py:249) launches find_scan_pipeline
+            "find_scan_many": ("src/repro_torch/csrc/find_scan.cu",
+                               "src/repro/kernels/find_scan.py:350"),
         }
         rows = []
         for name, (source, replaces) in meta.items():
@@ -2741,8 +3088,10 @@ class Smoke:
             # launches: the main path's phase 3 for its four kernels, the
             # rest of the op surface's phase 4 for the kernels it added, the
             # training path's phase 5 for update_scan, each with the serving
-            # path's phase 8; no op calls bucket_stats, so no path launches it
-            path = (self.launches if name in self.launches else
+            # path's phase 8; no op calls bucket_stats, so no path launches it;
+            # find_scan_many: phase 9's counted find_many_kernel call
+            path = (self.launches_many if name == "find_scan_many" else
+                    self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,

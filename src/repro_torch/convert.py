@@ -27,6 +27,11 @@ both sides (numpy has no bfloat16 of its own; the JAX package's is
 ``ml_dtypes`` is imported only where a bfloat16 tensor goes out to numpy,
 so the port needs it only on a machine that holds the JAX package too.
 
+The dictionary baselines' states come across the same way:
+``oa_state_from_arrays`` / ``p2c_state_from_arrays`` take a JAX ``OAState``
+/ ``P2CState`` (``key_hi``, ``key_lo``, ``values``) and
+``dict_state_to_arrays`` gives either back in that layout.
+
 ``dlrm_params_from_jax`` carries the reference DLRM's parameter dict
 (``bottom1``, ``bottom2``, ``top1``, ``top2`` as numpy arrays) into a state
 dict for the port's ``models.dlrm.DLRM``.
@@ -159,6 +164,38 @@ def predicate_from_arrays(pred: Any) -> SweepPredicate:
     word = lambda hi, lo: u64.to_signed((int(np.asarray(getattr(pred, hi))) << 32)
                                         | int(np.asarray(getattr(pred, lo))))
     return SweepPredicate(pred.kind, word("a_hi", "a_lo"), word("b_hi", "b_lo"))
+
+
+def _get(arrays: Any):
+    return (lambda f: np.asarray(arrays[f])) if isinstance(arrays, Mapping) \
+        else (lambda f: np.asarray(getattr(arrays, f)))
+
+
+def oa_state_from_arrays(arrays: Any, device=None):
+    """A JAX-layout open-addressing state (``key_hi``, ``key_lo`` [C],
+    ``values`` [C, D]) -> the port's ``OAState`` on `device` (default: the
+    card)."""
+    from repro_torch.baselines.dict_tables import OAState
+
+    get, device = _get(arrays), table_mod.resolve_device(device)
+    return OAState(keys=_join(get("key_hi"), get("key_lo")).to(device),
+                   values=torch.from_numpy(np.array(get("values"))).to(device))
+
+
+def p2c_state_from_arrays(arrays: Any, device=None):
+    """A JAX-layout P2C state (``key_hi``, ``key_lo`` [B, S], ``values``
+    [B*S, D]) -> the port's ``P2CState`` on `device` (default: the card)."""
+    from repro_torch.baselines.dict_tables import P2CState
+
+    get, device = _get(arrays), table_mod.resolve_device(device)
+    return P2CState(keys=_join(get("key_hi"), get("key_lo")).to(device),
+                    values=torch.from_numpy(np.array(get("values"))).to(device))
+
+
+def dict_state_to_arrays(state) -> dict[str, np.ndarray]:
+    """The port's ``OAState`` or ``P2CState`` -> the JAX layout as numpy."""
+    key_hi, key_lo = _split(state.keys)
+    return {"key_hi": key_hi, "key_lo": key_lo, "values": state.values.cpu().numpy()}
 
 
 DLRM_PARAMS = ("bottom1", "bottom2", "top1", "top2")

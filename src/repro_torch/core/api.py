@@ -35,6 +35,9 @@ from repro_torch.core import find as find_mod
 from repro_torch.core import merge as merge_mod
 from repro_torch.core import ops as ops_mod
 from repro_torch.core import table as table_mod
+from repro_torch.core.roles import INSERTER as _INSERTER
+from repro_torch.core.roles import READER as _READER
+from repro_torch.core.roles import UPDATER as _UPDATER
 from repro_torch.core import u64
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
@@ -251,18 +254,25 @@ class HKVTable:
         return None if x is None else self.keys(x)
 
     # -- readers -------------------------------------------------------------
+    #
+    # Every keyed method forwards the optional `telemetry=` sink to its op
+    # (``repro_torch.obs.TelemetrySink``); None is the path without it.
 
-    def find(self, keys: Any) -> ops_mod.FindResult:
-        return ops_mod.find(self.state, self.cfg, self.keys(keys), backend=self.backend)
+    def find(self, keys: Any, *, telemetry=None) -> ops_mod.FindResult:
+        return ops_mod.find(self.state, self.cfg, self.keys(keys), backend=self.backend,
+                            telemetry=telemetry)
 
-    def find_rows(self, keys: Any) -> ops_mod.FindRowsResult:
-        return ops_mod.find_rows(self.state, self.cfg, self.keys(keys), backend=self.backend)
+    def find_rows(self, keys: Any, *, telemetry=None) -> ops_mod.FindRowsResult:
+        return ops_mod.find_rows(self.state, self.cfg, self.keys(keys), backend=self.backend,
+                                 telemetry=telemetry)
 
-    def find_ptr(self, keys: Any) -> find_mod.Locate:
-        return ops_mod.find_ptr(self.state, self.cfg, self.keys(keys), backend=self.backend)
+    def find_ptr(self, keys: Any, *, telemetry=None) -> find_mod.Locate:
+        return ops_mod.find_ptr(self.state, self.cfg, self.keys(keys), backend=self.backend,
+                                telemetry=telemetry)
 
-    def contains(self, keys: Any) -> torch.Tensor:
-        return ops_mod.contains(self.state, self.cfg, self.keys(keys), backend=self.backend)
+    def contains(self, keys: Any, *, telemetry=None) -> torch.Tensor:
+        return ops_mod.contains(self.state, self.cfg, self.keys(keys), backend=self.backend,
+                                telemetry=telemetry)
 
     def size(self) -> int:
         return ops_mod.size(self.state)
@@ -280,58 +290,68 @@ class HKVTable:
 
     # -- updaters (in place; return this handle) -------------------------------
 
-    def assign(self, keys: Any, values: Any, update_scores: bool = False) -> "HKVTable":
+    def assign(self, keys: Any, values: Any, update_scores: bool = False, *,
+               telemetry=None) -> "HKVTable":
         ops_mod.assign(self.state, self.cfg, self.keys(keys), self._rows(values),
-                       update_scores=update_scores)
+                       update_scores=update_scores, telemetry=telemetry)
         return self
 
-    def assign_add(self, keys: Any, deltas: Any) -> "HKVTable":
-        ops_mod.assign_add(self.state, self.cfg, self.keys(keys), self._rows(deltas))
+    def assign_add(self, keys: Any, deltas: Any, *, telemetry=None) -> "HKVTable":
+        ops_mod.assign_add(self.state, self.cfg, self.keys(keys), self._rows(deltas),
+                           telemetry=telemetry)
         return self
 
-    def assign_scores(self, keys: Any, scores: Any) -> "HKVTable":
-        ops_mod.assign_scores(self.state, self.cfg, self.keys(keys), self.keys(scores))
+    def assign_scores(self, keys: Any, scores: Any, *, telemetry=None) -> "HKVTable":
+        ops_mod.assign_scores(self.state, self.cfg, self.keys(keys), self.keys(scores),
+                              telemetry=telemetry)
         return self
 
     # -- inserters -------------------------------------------------------------
 
     def insert_or_assign(self, keys: Any, values: Any,
-                         custom_scores: Optional[Any] = None) -> TableUpsert:
+                         custom_scores: Optional[Any] = None, *,
+                         telemetry=None) -> TableUpsert:
         res = ops_mod.insert_or_assign(self.state, self.cfg, self.keys(keys),
                                        self._rows(values), self._opt_keys(custom_scores),
-                                       backend=self.backend)
+                                       backend=self.backend, telemetry=telemetry)
         return TableUpsert(table=self, status=res.status)
 
     def insert_and_evict(self, keys: Any, values: Any,
-                         custom_scores: Optional[Any] = None) -> TableInsertAndEvict:
+                         custom_scores: Optional[Any] = None, *,
+                         telemetry=None) -> TableInsertAndEvict:
         res = ops_mod.insert_and_evict(self.state, self.cfg, self.keys(keys),
                                        self._rows(values), self._opt_keys(custom_scores),
-                                       backend=self.backend)
+                                       backend=self.backend, telemetry=telemetry)
         return TableInsertAndEvict(table=self, status=res.status, evicted=res.evicted)
 
     def find_or_insert(self, keys: Any, init_values: Any,
                        custom_scores: Optional[Any] = None,
-                       return_evicted: bool = False) -> TableFindOrInsert:
+                       return_evicted: bool = False, *,
+                       telemetry=None) -> TableFindOrInsert:
         res = ops_mod.find_or_insert(self.state, self.cfg, self.keys(keys),
                                      self._rows(init_values), self._opt_keys(custom_scores),
-                                     backend=self.backend, return_evicted=return_evicted)
+                                     backend=self.backend, return_evicted=return_evicted,
+                                     telemetry=telemetry)
         return TableFindOrInsert(table=self, values=res.values, found=res.found,
                                  status=res.status, evicted=res.evicted)
 
     def ingest(self, keys: Any, init_values: Any,
-               custom_scores: Optional[Any] = None) -> TableUpsert:
+               custom_scores: Optional[Any] = None, *, telemetry=None) -> TableUpsert:
         res = ops_mod.ingest(self.state, self.cfg, self.keys(keys), self._rows(init_values),
-                             self._opt_keys(custom_scores), backend=self.backend)
+                             self._opt_keys(custom_scores), backend=self.backend,
+                             telemetry=telemetry)
         return TableUpsert(table=self, status=res.status)
 
     def accum_or_assign(self, keys: Any, values: Any,
-                        custom_scores: Optional[Any] = None) -> TableUpsert:
+                        custom_scores: Optional[Any] = None, *,
+                        telemetry=None) -> TableUpsert:
         res = ops_mod.accum_or_assign(self.state, self.cfg, self.keys(keys),
-                                      self._rows(values), self._opt_keys(custom_scores))
+                                      self._rows(values), self._opt_keys(custom_scores),
+                                      telemetry=telemetry)
         return TableUpsert(table=self, status=res.status)
 
-    def erase(self, keys: Any) -> "HKVTable":
-        ops_mod.erase(self.state, self.cfg, self.keys(keys))
+    def erase(self, keys: Any, *, telemetry=None) -> "HKVTable":
+        ops_mod.erase(self.state, self.cfg, self.keys(keys), telemetry=telemetry)
         return self
 
     def clear(self) -> "HKVTable":
@@ -340,16 +360,18 @@ class HKVTable:
 
     # -- maintenance sweeps ------------------------------------------------------
 
-    def erase_if(self, pred: SweepPredicate) -> TableSweep:
+    def erase_if(self, pred: SweepPredicate, *, telemetry=None) -> TableSweep:
         """Remove every live entry matching `pred`."""
-        res = ops_mod.erase_if(self.state, self.cfg, pred, backend=self.backend)
+        res = ops_mod.erase_if(self.state, self.cfg, pred, backend=self.backend,
+                               telemetry=telemetry)
         return TableSweep(table=self, swept=res.swept)
 
-    def evict_if(self, pred: SweepPredicate, budget: int, limit=None) -> TableEvictIf:
+    def evict_if(self, pred: SweepPredicate, budget: int, limit=None, *,
+                 telemetry=None) -> TableEvictIf:
         """Remove up to `budget` matching entries, coldest first, and hand
         them back as a rank-aligned EvictionStream."""
         res = ops_mod.evict_if(self.state, self.cfg, pred, budget, limit=limit,
-                               backend=self.backend)
+                               backend=self.backend, telemetry=telemetry)
         return TableEvictIf(table=self, evicted=res.evicted, count=res.count)
 
     def stats(self):
@@ -373,8 +395,6 @@ class HKVTable:
 # =============================================================================
 # Op sessions: the role taxonomy as a planner
 # =============================================================================
-
-_READER, _UPDATER, _INSERTER = "reader", "updater", "inserter"
 
 
 class SessionRef:

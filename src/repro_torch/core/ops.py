@@ -41,6 +41,17 @@ On the 'hmem' tier (``core.table``) the kernels reach the value plane in
 host memory over the host link, and the plain paths move rows across the
 tier through ``tier_gather`` / ``tier_scatter``.
 
+Telemetry (``repro_torch.obs.telemetry``): every role-annotated op takes
+an optional keyword-only ``telemetry=`` sink and records one
+``OpTelemetry`` of counters per call (probes, digest-prefilter passes,
+hits and misses, the upsert status histogram), computed in plain tensor
+math over the planes, so results are bit-identical and no kernel launch is
+added with the sink on.  The state changes in place, so an inserter's and
+an erase's probe counters are taken before the op's first write and the
+status histogram after it.  ``telemetry=None`` is the path without it:
+the observers are imported only where a sink is given.  The whole-table
+scans and ``clear`` are exempt (``TELEMETRY_EXEMPT``).
+
 ``HKVTable`` in ``core.api`` is the public surface; these free functions
 are the implementation it delegates to.
 """
@@ -53,6 +64,7 @@ import torch
 
 from repro_torch.core import find as find_mod
 from repro_torch.core import merge as merge_mod
+from repro_torch.core import roles
 from repro_torch.core import table as table_mod
 from repro_torch.core import u64
 from repro_torch.core.merge import (  # noqa: F401  (re-exported)
@@ -66,6 +78,27 @@ from repro_torch.core.merge import (  # noqa: F401  (re-exported)
 )
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
+
+
+# Role-annotated ops without a `telemetry=` seam, each with the reason
+# (the reference's list, src/repro/analysis/telemetry.py).
+TELEMETRY_EXEMPT: dict[str, str] = {
+    "size": "whole-table scalar reduction; no probe path to count",
+    "load_factor": "derived scalar over size(); no probe path to count",
+    "export_batch": "bucket-range dump (checkpoint drain); traversal is "
+                    "exhaustive by construction, not probe-driven",
+    "export_batch_if": "predicated bucket-range dump; same exhaustive "
+                       "traversal as export_batch",
+    "clear": "unconditional state reset; nothing probe- or "
+             "admission-shaped to observe",
+}
+
+
+def _obs():
+    """The observers, imported only where a sink is given."""
+    from repro_torch.obs import telemetry as obs_telemetry
+
+    return obs_telemetry
 
 
 def uses_kernels(backend: str, device: torch.device) -> bool:
@@ -130,51 +163,69 @@ def _read(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     return vals, loc.found, loc.row, scores
 
 
+@roles.reader
 def find(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
-         loc: Optional[find_mod.Locate] = None, *, backend: str = "auto") -> FindResult:
+         loc: Optional[find_mod.Locate] = None, *, backend: str = "auto",
+         telemetry=None) -> FindResult:
     """Reader.  Digest-filtered lookup with value copy (paper `find`); on
     the card one fused find_scan launch does match, score readout and
     value copy, or, at a caller's `loc`, one gather_rows launch."""
     vals, found, _row, scores = _read(state, cfg, keys, loc, cfg.dim, backend)
+    if telemetry is not None:
+        telemetry.record("find", _obs().observe_find(state, cfg, keys, found))
     return FindResult(values=vals, found=found, scores=scores)
 
 
+@roles.reader
 def find_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
               loc: Optional[find_mod.Locate] = None, *,
-              backend: str = "auto") -> FindRowsResult:
+              backend: str = "auto", telemetry=None) -> FindRowsResult:
     """Reader.  Full-width rows (embedding and aux optimizer columns),
     their row indices and scores."""
     rows, found, row, scores = _read(state, cfg, keys, loc, None, backend)
+    if telemetry is not None:
+        telemetry.record("find_rows", _obs().observe_find(state, cfg, keys, found))
     return FindRowsResult(rows=rows, found=found, row=row, scores=scores)
 
 
+@roles.reader
 def find_ptr(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, *,
-             backend: str = "auto") -> find_mod.Locate:
+             backend: str = "auto", telemetry=None) -> find_mod.Locate:
     """Reader.  The paper's pointer find: (bucket, slot, row) of each key,
     no value traffic.  On the card: one digest_scan launch."""
     if uses_kernels(backend, state.device):
-        return _kernel_ops().locate_kernel(state, cfg, keys)
-    return find_mod.locate(state, cfg, keys)
+        loc = _kernel_ops().locate_kernel(state, cfg, keys)
+    else:
+        loc = find_mod.locate(state, cfg, keys)
+    if telemetry is not None:
+        telemetry.record("find_ptr", _obs().observe_find(state, cfg, keys, loc.found))
+    return loc
 
 
+@roles.reader
 def contains(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
              loc: Optional[find_mod.Locate] = None, *,
-             backend: str = "auto") -> torch.Tensor:
+             backend: str = "auto", telemetry=None) -> torch.Tensor:
     """Reader.  Membership only."""
     if loc is None:
         loc = find_ptr(state, cfg, keys, backend=backend)
+    if telemetry is not None:
+        telemetry.record("contains", _obs().observe_find(state, cfg, keys, loc.found))
     return loc.found
 
 
+@roles.reader
 def size(state: HKVState) -> int:
     """Reader.  Number of live entries."""
     return int(state.occupied_mask().sum())
 
 
+@roles.reader
 def load_factor(state: HKVState) -> float:
     return size(state) / state.keys.numel()
 
 
+@roles.reader
 def export_batch(state: HKVState, cfg: HKVConfig, bucket_start: int,
                  bucket_count: int) -> ExportResult:
     """Reader.  A copy of a contiguous bucket range (checkpointing), with
@@ -189,6 +240,7 @@ def export_batch(state: HKVState, cfg: HKVConfig, bucket_start: int,
         mask=~u64.empty_lanes(keys))
 
 
+@roles.reader
 def export_batch_if(state: HKVState, cfg: HKVConfig, bucket_start: int,
                     bucket_count: int, score_threshold: torch.Tensor) -> ExportResult:
     """Reader.  export_batch with a score >= threshold predicate (paper
@@ -203,9 +255,10 @@ def export_batch_if(state: HKVState, cfg: HKVConfig, bucket_start: int,
 # =============================================================================
 
 
+@roles.updater
 def assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Tensor,
            update_scores: bool = False,
-           loc: Optional[find_mod.Locate] = None) -> HKVState:
+           loc: Optional[find_mod.Locate] = None, *, telemetry=None) -> HKVState:
     """Updater.  Write the values of keys already present; misses are
     no-ops.  Duplicates in the batch: the last writer wins, decided by the
     batch order (on the card too, where a plain scatter of repeated rows
@@ -213,6 +266,8 @@ def assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Te
     keep the stored aux columns."""
     if loc is None:
         loc = find_mod.locate(state, cfg, keys)
+    if telemetry is not None:
+        telemetry.record("assign", _obs().observe_update(state, cfg, keys, loc.found))
     values = values.to(state.values.dtype)
     vdim = state.values.shape[1]
     if values.shape[1] < vdim:
@@ -230,27 +285,33 @@ def assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Te
     return state
 
 
+@roles.updater
 def assign_add(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, deltas: torch.Tensor,
-               loc: Optional[find_mod.Locate] = None) -> HKVState:
+               loc: Optional[find_mod.Locate] = None, *, telemetry=None) -> HKVState:
     """Updater.  values[k] += delta for keys already present; duplicates
     accumulate.  On the CPU the adds run in batch order, as the
     reference's scatter-add does; on the card they are float32 atomics,
     whose order (and so the rounding of a duplicated key's sum) varies."""
     if loc is None:
         loc = find_mod.locate(state, cfg, keys)
+    if telemetry is not None:
+        telemetry.record("assign_add", _obs().observe_update(state, cfg, keys, loc.found))
     deltas = _pad_aux(deltas, state)
     table_mod.tier_scatter(cfg.value_tier, state.values, loc.row[loc.found], deltas[loc.found],
                            add=True)
     return state
 
 
+@roles.updater
 def assign_scores(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                   scores: torch.Tensor,
-                  loc: Optional[find_mod.Locate] = None) -> HKVState:
+                  loc: Optional[find_mod.Locate] = None, *, telemetry=None) -> HKVState:
     """Updater.  Overwrite the scores of keys already present (paper
     `assign_scores`); duplicates: the last writer wins."""
     if loc is None:
         loc = find_mod.locate(state, cfg, keys)
+    if telemetry is not None:
+        telemetry.record("assign_scores", _obs().observe_update(state, cfg, keys, loc.found))
     write = loc.found & merge_mod.last_writer_mask(keys)
     state.scores[loc.bucket[write], loc.slot[write]] = scores[write]
     return state
@@ -271,10 +332,11 @@ class UpdateRowsResult(NamedTuple):
     found: torch.Tensor      # bool [N] the key was resident and its row trained
 
 
+@roles.updater
 def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torch.Tensor,
                 opt, *, update_scores: bool = False,
                 loc: Optional[find_mod.Locate] = None,
-                backend: str = "auto") -> UpdateRowsResult:
+                backend: str = "auto", telemetry=None) -> UpdateRowsResult:
     """Updater.  The gradient step: each resident key's full row
     [embedding | aux optimizer state] becomes ``opt.apply(row, grad)``, in
     place.  Misses are no-ops: keys not admitted do not train.
@@ -289,6 +351,8 @@ def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torc
     kern = uses_kernels(backend, state.device)
     if loc is None and not update_scores and kern:
         r = _kernel_ops().update_rows_kernel(state, cfg, keys, grads, opt)
+        if telemetry is not None:
+            telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, r.found))
         return UpdateRowsResult(state=state, found=r.found)
     if loc is None:
         loc = find_mod.locate(state, cfg, keys)
@@ -297,6 +361,8 @@ def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torc
         rows = _kernel_ops().gather_rows_kernel(state, loc, state.values.shape[1])
     else:
         rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
+    if telemetry is not None:
+        telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, loc.found))
     new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
     new_rows = torch.where(loc.found[:, None], new_rows, rows)
     assign(state, cfg, keys, new_rows, update_scores=update_scores, loc=loc)
@@ -327,49 +393,71 @@ class FindOrInsertResult(NamedTuple):
     evicted: EvictionStream  # batch-aligned iff return_evicted, else 0 lanes
 
 
+def _probe_before(telemetry, state: HKVState, cfg: HKVConfig, keys: torch.Tensor):
+    """An inserter's probe counters, taken before its first write (None
+    without a sink)."""
+    return None if telemetry is None else _obs().probe_counters(state, cfg, keys)
+
+
+def _record_upsert(telemetry, op: str, probe, keys, status, found=None) -> None:
+    if telemetry is not None:
+        telemetry.record(op, _obs().observe_upsert(probe, keys, status, found))
+
+
+@roles.inserter
 def insert_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                      values: torch.Tensor,
                      custom_scores: Optional[torch.Tensor] = None, *,
-                     backend: str = "auto") -> UpsertResult:
+                     backend: str = "auto", telemetry=None) -> UpsertResult:
     """Inserter.  Update-or-insert with in-line eviction and admission
     (paper Alg. 2/3), in place."""
+    probe = _probe_before(telemetry, state, cfg, keys)
     res = merge_mod.upsert(state, cfg, keys, _pad_aux(values, state),
                            custom_scores=custom_scores,
                            stages=_upsert_stages(backend, cfg, state.device))
+    _record_upsert(telemetry, "insert_or_assign", probe, keys, res.status)
     return UpsertResult(state=state, status=res.status)
 
 
+@roles.inserter
 def insert_and_evict(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                      values: torch.Tensor,
                      custom_scores: Optional[torch.Tensor] = None, *,
                      backend: str = "auto",
-                     loc: Optional[find_mod.Locate] = None) -> InsertAndEvictResult:
+                     loc: Optional[find_mod.Locate] = None,
+                     telemetry=None) -> InsertAndEvictResult:
     """Inserter.  insert_or_assign that hands back the displaced entries,
     batch-aligned (the paper's in-launch eviction hand-off, §3.6).  `loc`:
     a locate of the same batch against this key plane, used in place of
     the closure's own."""
+    probe = _probe_before(telemetry, state, cfg, keys)
     res = merge_mod.upsert(state, cfg, keys, _pad_aux(values, state),
                            custom_scores=custom_scores, return_evicted=True,
                            stages=_upsert_stages(backend, cfg, state.device), loc=loc)
+    _record_upsert(telemetry, "insert_and_evict", probe, keys, res.status)
     return InsertAndEvictResult(state=state, status=res.status, evicted=res.evicted)
 
 
+@roles.inserter
 def find_or_insert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                    init_values: torch.Tensor,
                    custom_scores: Optional[torch.Tensor] = None, *,
                    backend: str = "auto", return_evicted: bool = False,
-                   loc: Optional[find_mod.Locate] = None) -> FindOrInsertResult:
+                   loc: Optional[find_mod.Locate] = None,
+                   telemetry=None) -> FindOrInsertResult:
     """Inserter.  Lookup; insert `init_values` for keys not present
     (cold start).  Hits keep their stored value (scores touched per
     policy); misses insert subject to admission.  Returned rows: the
     stored value of every key present after the op, the caller's init row
     where admission rejected the key.  One probe: the closure publishes
     each key's post-op location and the readback gathers there."""
+    probe = _probe_before(telemetry, state, cfg, keys)
     res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
                            custom_scores=custom_scores, write_hit_values=False,
                            return_evicted=return_evicted,
                            stages=_upsert_stages(backend, cfg, state.device), loc=loc)
     vals = _gather_post(res, cfg, init_values, backend)
+    _record_upsert(telemetry, "find_or_insert", probe, keys, res.status, res.found)
     return FindOrInsertResult(state=state, values=vals, found=res.found,
                               status=res.status, evicted=res.evicted)
 
@@ -387,26 +475,32 @@ def _gather_post(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
                        init_values[:, :cfg.dim].to(vals.dtype))
 
 
+@roles.inserter
 def ingest(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
            init_values: torch.Tensor,
            custom_scores: Optional[torch.Tensor] = None, *,
-           backend: str = "auto") -> UpsertResult:
+           backend: str = "auto", telemetry=None) -> UpsertResult:
     """Inserter.  Admission-only upsert: find_or_insert without the value
     readback."""
+    probe = _probe_before(telemetry, state, cfg, keys)
     res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
                            custom_scores=custom_scores, write_hit_values=False,
                            stages=_upsert_stages(backend, cfg, state.device))
+    _record_upsert(telemetry, "ingest", probe, keys, res.status, res.found)
     return UpsertResult(state=state, status=res.status)
 
 
+@roles.inserter
 def accum_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                     values: torch.Tensor,
-                    custom_scores: Optional[torch.Tensor] = None) -> UpsertResult:
+                    custom_scores: Optional[torch.Tensor] = None, *,
+                    telemetry=None) -> UpsertResult:
     """Inserter.  Paper API: ACCUMULATE into keys present (+=), ASSIGN the
     rest.  Duplicates are summed first (in batch order on the CPU, by
     float32 atomics on the card), then one += applies on a hit or the sum
     is inserted on a miss.  Plain PyTorch on every device, as the
     reference runs it on plain jnp."""
+    probe = _probe_before(telemetry, state, cfg, keys)
     d = merge_mod.dedupe_keys(keys)
     v = _pad_aux(values, state)
     v_sum = torch.zeros_like(v).index_add_(0, d.gid, v[d.idx_sorted])[d.gid]
@@ -414,16 +508,23 @@ def accum_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     cs = None if custom_scores is None else custom_scores[d.last_index]
     res = merge_mod.upsert(state, cfg, d.unique, v_sum, custom_scores=cs,
                            write_hit_values=False)
-    return UpsertResult(state=state, status=res.status[d.inverse])
+    status = res.status[d.inverse]
+    _record_upsert(telemetry, "accum_or_assign", probe, keys, status)
+    return UpsertResult(state=state, status=status)
 
 
-def erase(state: HKVState, cfg: HKVConfig, keys: torch.Tensor) -> HKVState:
+@roles.inserter
+def erase(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, *,
+          telemetry=None) -> HKVState:
     """Inserter.  Remove keys; their slots return to the pool."""
     loc = find_mod.locate(state, cfg, keys)
+    if telemetry is not None:
+        telemetry.record("erase", _obs().observe_erase(state, cfg, keys, loc.found))
     _clear_slots(state, cfg, loc.row[loc.found])
     return state
 
 
+@roles.inserter
 def clear(state: HKVState, cfg: HKVConfig) -> HKVState:
     """Inserter.  Drop every entry: the planes as a fresh `create` makes
     them, with the clock and epoch kept."""
@@ -471,17 +572,22 @@ def _clear_slots(state: HKVState, cfg: HKVConfig, rows: torch.Tensor) -> None:
     table_mod.tier_scatter(cfg.value_tier, state.values, rows, 0)
 
 
+@roles.inserter
 def erase_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, *,
-             backend: str = "auto") -> SweepResult:
+             backend: str = "auto", telemetry=None) -> SweepResult:
     """Inserter.  Remove EVERY live entry matching `pred` (TTL expiry:
     ``SweepPredicate.expire_before``)."""
     rows = torch.nonzero(_sweep_mask(state, pred, backend).view(-1))[:, 0]
     _clear_slots(state, cfg, rows)
-    return SweepResult(state=state, swept=torch.tensor(rows.numel(), device=state.device))
+    swept = torch.tensor(rows.numel(), device=state.device)
+    if telemetry is not None:
+        telemetry.record("erase_if", _obs().observe_sweep(cfg, swept))
+    return SweepResult(state=state, swept=swept)
 
 
+@roles.inserter
 def evict_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, budget: int, *,
-             limit=None, backend: str = "auto") -> EvictIfResult:
+             limit=None, backend: str = "auto", telemetry=None) -> EvictIfResult:
     """Inserter.  Remove up to `budget` matching entries, COLDEST FIRST
     (score ascending, then key ascending: a total order, keys being
     unique), and hand them back as a rank-aligned EvictionStream.
@@ -514,7 +620,10 @@ def evict_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, budget: int,
         scores=torch.where(lane, scores_f[row_t], 0),
         mask=lane)
     _clear_slots(state, cfg, row_t[lane])
-    return EvictIfResult(state=state, evicted=stream, count=lane.sum())
+    count = lane.sum()
+    if telemetry is not None:
+        telemetry.record("evict_if", _obs().observe_evict_if(cfg, count))
+    return EvictIfResult(state=state, evicted=stream, count=count)
 
 
 # =============================================================================

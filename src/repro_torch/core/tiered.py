@@ -249,11 +249,11 @@ class TieredHKVTable:
 
     # -- readers -------------------------------------------------------------
 
-    def contains(self, keys: Any) -> torch.Tensor:
+    def contains(self, keys: Any, *, telemetry=None) -> torch.Tensor:
         """Membership in either tier (never promotes)."""
         k = self.keys(keys)
-        in_hot = _contains(self.hot, k)
-        return in_hot | _contains(self.cold, _mask_keys(k, ~in_hot))
+        in_hot = _contains(self.hot, k, telemetry)
+        return in_hot | _contains(self.cold, _mask_keys(k, ~in_hot), telemetry)
 
     def size(self) -> int:
         """Distinct live keys across the hierarchy: a promoted key's cold
@@ -320,7 +320,8 @@ class TieredHKVTable:
     # -- inserters -----------------------------------------------------------
 
     def insert_or_assign(self, keys: Any, values: Any,
-                         custom_scores: Optional[Any] = None) -> TieredUpsert:
+                         custom_scores: Optional[Any] = None, *,
+                         telemetry=None) -> TieredUpsert:
         """Upsert into the hot tier; displaced pairs (victims evicted by
         admission AND incoming pairs the hot tier rejected) cascade into
         the cold tier.  `status` is the hot tier's verdict; `.ok` also
@@ -329,15 +330,17 @@ class TieredHKVTable:
         k, cs = hot.keys(keys), hot._opt_keys(custom_scores)
         values = ops_mod._pad_aux(hot._rows(values), hot.state)
         res = ops_mod.insert_and_evict(hot.state, hot.cfg, k, values, custom_scores=cs,
-                                       backend=hot.backend)
+                                       backend=hot.backend, telemetry=telemetry)
         first, rep_orig = _dedupe_lanes(k)
         dem = self._demote(*self._displaced(k, values, res, rej_custom=cs, first=first))
+        _record_motion(telemetry, demoted=dem.demoted, dropped=dem.dropped)
         return TieredUpsert(table=self, status=res.status, demoted=dem.demoted,
                             dropped=dem.dropped,
                             ok=_hierarchy_ok(res.status, dem.placed, rep_orig))
 
     def find_or_insert(self, keys: Any, init_values: Any,
-                       custom_scores: Optional[Any] = None) -> TieredFindOrInsert:
+                       custom_scores: Optional[Any] = None, *,
+                       telemetry=None) -> TieredFindOrInsert:
         """The training path's op: lookup across the hierarchy, admit the
         misses, promote the cold hits.
 
@@ -362,7 +365,8 @@ class TieredHKVTable:
         init_full = ops_mod._pad_aux(hot._rows(init_values), hot.state)
         admit_rows = torch.where(cold_hit[:, None], cold_rows.rows, init_full)
         res = ops_mod.find_or_insert(hot.state, hot.cfg, k, admit_rows, custom_scores=cs,
-                                     backend=hot.backend, return_evicted=True, loc=pre)
+                                     backend=hot.backend, return_evicted=True, loc=pre,
+                                     telemetry=telemetry)
         first, rep_orig = _dedupe_lanes(k)
         # a rejected COLD HIT stays where it is: the pair never left the
         # cold tier, and demoting it again would overwrite its cold score
@@ -371,6 +375,7 @@ class TieredHKVTable:
                                             already_cold=cold_hit))
         promoted = (cold_hit & first & (res.status >= ops_mod.STATUS_UPDATED)
                     & (res.status <= ops_mod.STATUS_EVICTED)).sum()
+        _record_motion(telemetry, promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
         return TieredFindOrInsert(
             table=self, values=res.values, found=hot_pre | cold_hit, status=res.status,
             promoted=promoted, demoted=dem.demoted, dropped=dem.dropped,
@@ -410,17 +415,19 @@ class TieredHKVTable:
         return keys, vals, scores, st.mask | rej
 
     def ingest(self, keys: Any, init_values: Any,
-               custom_scores: Optional[Any] = None) -> TieredUpsert:
+               custom_scores: Optional[Any] = None, *, telemetry=None) -> TieredUpsert:
         """Admission without the value readback: the whole hierarchy motion
         of find_or_insert (a cold-resident key must be PROMOTED, not
         shadowed by a fresh init row in the hot tier)."""
-        r = self.find_or_insert(keys, init_values, custom_scores=custom_scores)
+        r = self.find_or_insert(keys, init_values, custom_scores=custom_scores,
+                                telemetry=telemetry)
         return TieredUpsert(table=self, status=r.status, demoted=r.demoted,
                             dropped=r.dropped, ok=r.ok)
 
     # -- find with miss-path promotion -------------------------------------------
 
-    def find(self, keys: Any, *, promote: Optional[bool] = None) -> TieredFind:
+    def find(self, keys: Any, *, promote: Optional[bool] = None,
+             telemetry=None) -> TieredFind:
         """Hierarchy lookup.  Hot misses probe the cold tier; cold hits are
         re-admitted into the hot tier (unless promotion is off), whose
         displaced victims cascade back down.  The values returned are the
@@ -429,9 +436,9 @@ class TieredHKVTable:
             promote = self.promote_on_find
         hot, cold = self.hot, self.cold
         k = hot.keys(keys)
-        h = ops_mod.find(hot.state, hot.cfg, k, backend=hot.backend)
+        h = ops_mod.find(hot.state, hot.cfg, k, backend=hot.backend, telemetry=telemetry)
         cold_rows = ops_mod.find_rows(cold.state, cold.cfg, _mask_keys(k, ~h.found),
-                                      backend=cold.backend)
+                                      backend=cold.backend, telemetry=telemetry)
         cold_hit = cold_rows.found
         values = torch.where(h.found[:, None], h.values,
                              cold_rows.rows[:, :self.dim].to(h.values.dtype))
@@ -454,6 +461,7 @@ class TieredHKVTable:
         dem = self._demote_stream(res.evicted)
         promoted = ((res.status == ops_mod.STATUS_INSERTED)
                     | (res.status == ops_mod.STATUS_EVICTED)).sum()
+        _record_motion(telemetry, promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
         return TieredFind(table=self, values=values, found=found, hot_hit=h.found,
                           promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
 
@@ -466,12 +474,12 @@ class TieredHKVTable:
         self.hot.assign(keys, values, update_scores=update_scores)
         return self
 
-    def erase(self, keys: Any) -> "TieredHKVTable":
+    def erase(self, keys: Any, *, telemetry=None) -> "TieredHKVTable":
         """Remove keys from BOTH tiers (or a cold copy would resurrect on
         the next miss)."""
         k = self.keys(keys)
-        ops_mod.erase(self.hot.state, self.hot.cfg, k)
-        ops_mod.erase(self.cold.state, self.cold.cfg, k)
+        ops_mod.erase(self.hot.state, self.hot.cfg, k, telemetry=telemetry)
+        ops_mod.erase(self.cold.state, self.cold.cfg, k, telemetry=telemetry)
         return self
 
     def clear(self) -> "TieredHKVTable":
@@ -481,22 +489,25 @@ class TieredHKVTable:
 
     # -- maintenance -----------------------------------------------------------------
 
-    def erase_if(self, pred) -> TieredSweep:
+    def erase_if(self, pred, *, telemetry=None) -> TieredSweep:
         """Sweep BOTH tiers (an expired key must not resurrect from its cold
         copy).  TTL expiry works on the default policies: demoted scores
         pass verbatim into the cold tier's 'custom' domain."""
-        hr, cr = self.hot.erase_if(pred), self.cold.erase_if(pred)
+        hr = self.hot.erase_if(pred, telemetry=telemetry)
+        cr = self.cold.erase_if(pred, telemetry=telemetry)
         return TieredSweep(table=self, swept=hr.swept + cr.swept)
 
-    def evict_if(self, pred, budget: int) -> TieredEvictIf:
+    def evict_if(self, pred, budget: int, *, telemetry=None) -> TieredEvictIf:
         """Remove up to `budget` matching entries a tier, coldest first, as
         one stream (hot lanes first).  A hot-evicted key's stale cold copy
         is erased with it; a cold lane whose key is still hot-resident has
         its slot freed but is masked out of the stream (the hot copy
         rules, as in `export_batch`)."""
         hot, cold = self.hot, self.cold
-        hr = ops_mod.evict_if(hot.state, hot.cfg, pred, budget, backend=hot.backend)
-        cr = ops_mod.evict_if(cold.state, cold.cfg, pred, budget, backend=cold.backend)
+        hr = ops_mod.evict_if(hot.state, hot.cfg, pred, budget, backend=hot.backend,
+                              telemetry=telemetry)
+        cr = ops_mod.evict_if(cold.state, cold.cfg, pred, budget, backend=cold.backend,
+                              telemetry=telemetry)
         # hot membership as before the sweep: the hot stream's keys were hot
         dup = _contains(hot, cr.evicted.masked_keys()) | _member(cr.evicted.masked_keys(),
                                                                  hr.evicted.masked_keys())
@@ -558,11 +569,17 @@ class TieredSession:
 # =============================================================================
 
 
-def _contains(t: HKVTable, keys: torch.Tensor) -> torch.Tensor:
+def _contains(t: HKVTable, keys: torch.Tensor, telemetry=None) -> torch.Tensor:
     """Membership of normalized keys in tier `t`.  Normalized keys go to
     the op engine directly: through a handle, a key at or above 2**63 (a
     negative int64) would be taken for padding."""
-    return ops_mod.contains(t.state, t.cfg, keys, backend=t.backend)
+    return ops_mod.contains(t.state, t.cfg, keys, backend=t.backend, telemetry=telemetry)
+
+
+def _record_motion(telemetry, **motion) -> None:
+    """The hierarchy's "tier" record: promoted, demoted, dropped."""
+    if telemetry is not None:
+        telemetry.record("tier", ops_mod._obs().tier_motion(**motion))
 
 
 def _mask_keys(keys: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:

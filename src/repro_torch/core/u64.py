@@ -119,3 +119,33 @@ def bucket_from_hash(h: torch.Tensor, num_buckets: int) -> torch.Tensor:
     if num_buckets & (num_buckets - 1) == 0:
         return h & (num_buckets - 1)
     return h % num_buckets
+
+
+# ---------------------------------------------------------------------------
+# The same hash on numpy uint64 (host code: the sequential oracle)
+# ---------------------------------------------------------------------------
+
+EMPTY_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def fmix32_np(h: np.ndarray) -> np.ndarray:
+    """Murmur3 32-bit finalizer on numpy uint32."""
+    h = np.asarray(h, np.uint32).astype(np.uint64)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(_C1)) & np.uint64(MASK32)
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(_C2)) & np.uint64(MASK32)
+    h ^= h >> np.uint64(16)
+    return h.astype(np.uint32)
+
+
+def hash_pair_np(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """`hash_pair` on numpy uint64 keys: (h1, h2) as uint32."""
+    keys = np.asarray(keys, np.uint64)
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(MASK32)).astype(np.uint32)
+    a = fmix32_np(hi ^ np.uint32(_GOLDEN))
+    b = fmix32_np(lo ^ np.uint32(_SALT2))
+    h1 = fmix32_np(a ^ lo)
+    h2 = fmix32_np(b ^ hi ^ np.uint32(_GOLDEN))
+    return h1, h2

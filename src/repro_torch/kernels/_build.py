@@ -42,6 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # f = float.
 _SIGNATURES = {
     "hkv_find_scan": "PPPPPPPPPPPPPIIiiP",
+    "hkv_find_scan_many": "PIPPPPPPPPPPIIiiP",
     "hkv_upsert_probe": "PPPPPPPPPPPPIiiP",
     "hkv_claim_scan": "PPPPPPPPIP",
     "hkv_scatter_rows": "PPPPIIIiiiP",

@@ -5,6 +5,9 @@
                       host-memory value plane ('hmem') locate_kernel and
                       one gather_rows launch over the host link instead, as
                       the reference routes that tier;
+  find_many_kernel    T tables of one geometry in ONE find_scan launch
+                      (the multi-table entry, ``find_scan_many``): one
+                      FusedFind a table, equal to T find_fused_kernel calls;
   locate_kernel       the metadata-only locate: one digest_scan launch over
                       both candidate buckets (find_ptr, contains, the
                       single-bucket upsert's locate stage, and the locate
@@ -22,6 +25,11 @@
                       gather_rows, the optimizer in plain PyTorch on the
                       card and scatter_rows: the 'hmem' tier's updater, and
                       the fused pass's launch-count and parity baseline;
+  assign_kernel       assign / assign_add of unique keys: locate_kernel and
+                      one scatter_rows launch (the reference wrapper's
+                      convention: aux columns zero-padded; the ops'
+                      ``assign`` keeps the stored aux columns and stays
+                      plain, as the reference's does);
   bucket_stats_kernel per-bucket occupancy and minimum live score, one
                       bucket_stats launch (no op calls it);
   kernel_stages       the inserter's stages for ``core.merge.upsert``:
@@ -44,7 +52,7 @@ reach this module too.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -53,7 +61,7 @@ from repro_torch.core import merge as merge_mod
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
 from repro_torch.kernels.digest_scan import digest_scan
-from repro_torch.kernels.find_scan import find_scan
+from repro_torch.kernels.find_scan import find_scan, find_scan_many
 from repro_torch.kernels.gather import gather_rows
 from repro_torch.kernels.scatter import scatter_rows
 from repro_torch.kernels.score_scan import bucket_stats
@@ -91,6 +99,40 @@ def find_fused_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor) -> Fu
         slot=slot.to(torch.int64),
         scores=score,
     )
+
+
+def find_many_kernel(states: Sequence[HKVState], cfg: HKVConfig,
+                     keys_list: Sequence[torch.Tensor]) -> list[FusedFind]:
+    """T same-geometry tables in ONE find_scan launch: the embedding layer
+    keeps a table a feature, and a serving wave finds every feature's keys
+    at once.  The reference stacks the tables' planes along the bucket
+    axis and offsets each probe by t*B; here the kernel gets the tables'
+    base addresses, so no plane is copied (at config B a stack would copy
+    about 19.5 GB a table).  Returns one `FusedFind` a table, with
+    table-local bucket and slot, equal to `find_fused_kernel` on each."""
+    if not states:
+        return []
+    if cfg.value_tier != "hbm":
+        raise ValueError("find_many_kernel requires the hbm value tier")
+    b, s = cfg.num_buckets, cfg.slots_per_bucket
+    for st in states:
+        if tuple(st.keys.shape) != (b, s) or st.values.shape != states[0].values.shape:
+            raise ValueError("find_many_kernel requires same-geometry tables")
+    probes = [find_mod.probe_keys(cfg, k) for k in keys_list]
+    counts = [k.shape[0] for k in keys_list]
+    cat = lambda f: torch.cat([f(p) for p in probes])  # noqa: E731
+    found, sel, slot, score, vals = find_scan_many(
+        [(st.digests, st.keys, st.scores, st.values) for st in states],
+        cat(lambda p: p.bucket1), cat(lambda p: p.bucket2), cat(lambda p: p.digest),
+        torch.cat(list(keys_list)), counts, use_digest=cfg.use_digest)
+    out, start = [], 0
+    for p, c in zip(probes, counts):
+        sl = slice(start, start + c)
+        start += c
+        out.append(FusedFind(values=vals[sl], found=found[sl].to(torch.bool) & p.valid,
+                             bucket=torch.where(sel[sl] == 1, p.bucket2, p.bucket1),
+                             slot=slot[sl].to(torch.int64), scores=score[sl]))
+    return out
 
 
 def locate_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
@@ -159,6 +201,44 @@ def update_composed_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
     scatter_rows(state.values, rows_idx, new_rows.contiguous(), loc.found, add=False)
     return UpdateRows(found=loc.found)
+
+
+def _assign_rows(state: HKVState, values: torch.Tensor) -> torch.Tensor:
+    """Caller rows in the plane's dtype, aux columns zero-padded."""
+    values = values.to(state.values.dtype)
+    vdim = state.values.shape[1]
+    if values.shape[1] < vdim:
+        values = torch.cat([values, values.new_zeros((values.shape[0], vdim - values.shape[1]))],
+                           dim=1)
+    return values.contiguous()
+
+
+def assign_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Tensor,
+                  *, add: bool = False) -> HKVState:
+    """Kernel-backed updater (assign, or assign_add with `add`): one
+    digest_scan locate and one scatter_rows launch, in place.
+    PRECONDITION: the valid keys are unique (duplicates are the merge
+    path's business).  Rows narrower than the plane are zero-padded, so
+    the aux columns of a hit are zeroed (set) or kept (add): the reference
+    wrapper's convention."""
+    loc = locate_kernel(state, cfg, keys)
+    rows = loc.row.clamp(0, state.values.shape[0] - 1)
+    scatter_rows(state.values, rows, _assign_rows(state, values), loc.found, add=add)
+    return state
+
+
+def assign_plain(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Tensor,
+                 *, add: bool = False) -> HKVState:
+    """`assign_kernel` composed in plain PyTorch (the plain locate and an
+    index write), on any device."""
+    loc = find_mod.locate(state, cfg, keys)
+    values = _assign_rows(state, values)
+    rows, found = loc.row[loc.found], values[loc.found]
+    if add:
+        state.values.index_add_(0, rows, found)
+    else:
+        state.values[rows] = found
+    return state
 
 
 def bucket_stats_kernel(state: HKVState):

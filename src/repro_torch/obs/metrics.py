@@ -4,7 +4,8 @@ formats unchanged).
 
 `MetricsRegistry` folds the subsystem summaries (`EngineMetrics` host
 timers, `MaintenanceTotals`, `TableStats` / `tier_stats()`) into a single
-flat gauge namespace, then exports it two ways:
+flat gauge namespace (with the op telemetry sink's per-op counters and
+rates, `observe_telemetry`), then exports it two ways:
 
   * `prometheus()`: text exposition format (`# HELP`/`# TYPE`/value lines)
     for scraping or a one-shot `--metrics-out` dump;
@@ -16,12 +17,11 @@ Gauge names follow the Prometheus convention `hkv_<subsystem>_<metric>`:
   hkv_maintenance_*   runs, expired, demoted, dropped, deferred, time_s
   hkv_table_*         size, capacity, load_factor (hkv_hot_* / hkv_cold_*
                       for the tier hierarchy's per-tier stats)
+  hkv_op_<op>_*       TelemetrySink counters, derived rates, call counts
 
 Everything is pull: observers hand their summary objects in, the registry
 flattens to floats at observe time (a tensor on the card is read once),
-and exports read the gauge dict.  The per-op device counters
-(`observe_telemetry`, `observe_op`) come with the op telemetry channel,
-which the port does not have yet.
+and exports read the gauge dict.
 """
 
 from __future__ import annotations
@@ -91,6 +91,25 @@ class MetricsRegistry:
         full = int(hist[-1]) if hist.size else 0
         self.set(p + "full_buckets", full,
                  "buckets at slot capacity (reactive-eviction pressure)")
+
+    def observe_telemetry(self, sink) -> None:
+        """Fold a `TelemetrySink`'s accumulated per-op `OpTelemetry` into
+        gauges, with the derived rates the paper's claims anchor to."""
+        for op, tel in sink.by_op.items():
+            self.observe_op(op, tel, calls=sink.calls.get(op, 0))
+
+    def observe_op(self, op: str, tel, *, calls: int = 0) -> None:
+        p = f"{self.namespace}_op_{op}_"
+        for counter, value in tel.to_dict().items():
+            self.set(p + counter, value)
+        for rate, value in tel.rates().items():
+            self.set(p + rate, value)
+        if calls:
+            self.set(p + "calls", calls)
+        self._help[p + "probes_per_query"] = (
+            "bucket rows fetched per valid key (flat across load factor)")
+        self._help[p + "digest_pass_rate"] = (
+            "probed slots passing the 8-bit digest prefilter")
 
     # -- exports -------------------------------------------------------------
 

@@ -308,11 +308,12 @@ class OnlineEmbeddingEngine:
     # -- the wave step ---------------------------------------------------------
 
     def _build_wave_fn(self, table):
-        if not isinstance(table, (HKVTable, TieredHKVTable)):
+        from repro_torch.baselines import DictKVTable  # the baselines sit beside serving
+
+        if not isinstance(table, (HKVTable, TieredHKVTable, DictKVTable)):
             raise NotImplementedError(
-                f"the engine serves HKVTable and TieredHKVTable; {type(table).__name__} "
-                "waits for the sharded table and the dictionary baselines (ROADMAP queue 1, "
-                "items 13 and 14)")
+                f"the engine serves HKVTable, TieredHKVTable and DictKVTable; "
+                f"{type(table).__name__} waits for the sharded table (ROADMAP queue 1, item 14)")
         policy, promote = self.miss_policy, self.promote
         is_tiered = isinstance(table, TieredHKVTable)
         default_row = self._default_row

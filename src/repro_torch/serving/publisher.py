@@ -63,9 +63,6 @@ import torch
 from repro_torch.core.api import table_signature
 from repro_torch.obs.trace import as_tracer
 
-TELEMETRY_PENDING = ("the op telemetry channel (ROADMAP queue 1, item 12) is not ported yet; "
-                     "pass telemetry=None")
-
 
 # =============================================================================
 # Table sources: what the engine reads from
@@ -274,15 +271,16 @@ def ingest_delta(table: Any, delta: TableDelta, *, batch: int = 1024,
     Keys stay numpy uint64 until the handle normalizes them (a key at or
     above 2**63 is a negative int64, which a handle reads as padding).
     The reference pads the last chunk with EMPTY keys for its compiled
-    shapes; EMPTY lanes change nothing, so the port does not pad."""
-    if telemetry is not None:
-        raise NotImplementedError(TELEMETRY_PENDING)
+    shapes; EMPTY lanes change nothing, so the port does not pad.
+    `telemetry=` threads the op counter sink through every replayed
+    `ingest` call."""
+    kw = {} if telemetry is None else {"telemetry": telemetry}
     with as_tracer(tracer).span("delta.ingest", count=delta.count):
         for start in range(0, delta.count, batch):
             kb = delta.keys[start:start + batch]
             vb = torch.from_numpy(np.ascontiguousarray(delta.values[start:start + batch]))
             cs = delta.scores[start:start + batch] if carry_scores else None
-            table = table.ingest(kb, vb, custom_scores=cs).table
+            table = table.ingest(kb, vb, custom_scores=cs, **kw).table
     return table
 
 
@@ -339,7 +337,9 @@ class OnlineTrainer:
     can hold that table, else in a fresh snapshot (see the module doc).  It
     is constructed before readers on other threads start, or on their
     thread: its snapshot would read a table they may be changing.
-    `telemetry=` waits for the op telemetry channel and raises until then.
+    `telemetry=` (a ``repro_torch.obs.TelemetrySink``) accumulates the
+    admission op's counters across steps (the update half runs through a
+    session, which has no telemetry seam, as in the reference).
     """
 
     publisher: TablePublisher
@@ -350,8 +350,6 @@ class OnlineTrainer:
     telemetry: Optional[Any] = None
 
     def __post_init__(self):
-        if self.telemetry is not None:
-            raise NotImplementedError(TELEMETRY_PENDING)
         if not self.publisher.only_reader():
             # the served table may be changing in place on that thread
             raise RuntimeError(
@@ -369,7 +367,8 @@ class OnlineTrainer:
         grads = torch.as_tensor(grads, device=t.device)
         dim = grads.shape[1]
         init = torch.zeros((grads.shape[0], dim), dtype=torch.float32, device=t.device)
-        t = t.find_or_insert(keys, init).table
+        kw = {} if self.telemetry is None else {"telemetry": self.telemetry}
+        t = t.find_or_insert(keys, init, **kw).table
         lr = self.lr
         fn = self.update_fn or (
             lambda rows, g: torch.cat([rows[:, :dim] + (-lr * g), rows[:, dim:]], dim=1))

@@ -943,3 +943,114 @@ def test_serving_path_kernels_match_plain(dev, policy, admission):
             for name in ("keys", "digests", "scores", "values"):
                 x, y = getattr(getattr(a, tier).state, name), getattr(getattr(b, tier).state, name)
                 assert torch.equal(x, y.to(x.device)), (tier, name)
+
+
+# =============================================================================
+# the multi-table find, assign_kernel, telemetry and the baselines on the card
+# =============================================================================
+
+
+@pytest.mark.parametrize("dim", [32, 33])
+def test_find_scan_many_kernel_matches_plain(dev, dim):
+    from repro_torch.kernels import ops as kops
+
+    tables, keys = [], []
+    for i, c in enumerate((3000, 0, 4096, 517)):       # an empty segment too
+        t = repro_torch.HKVTable.create(capacity=16 * 128, dim=dim, buckets_per_key=2,
+                                        device=dev, backend="plain")
+        g = np.random.default_rng(40 + i)
+        t.insert_or_assign(g.integers(0, 2**63, size=2048, dtype=np.uint64),
+                           torch.randn(2048, dim, device=dev))
+        tables.append(t)
+        live = t.state.keys[t.state.keys != -1]
+        q = torch.cat([live[:c // 2], torch.randint(0, 2**62, (c - c // 2,), device=dev)])
+        q[::13] = -1
+        keys.append(q)
+    probes = [find_mod.probe_keys(tables[0].cfg, k) for k in keys]
+    planes = [(t.state.digests, t.state.keys, t.state.scores, t.state.values) for t in tables]
+    args = (planes, torch.cat([p.bucket1 for p in probes]), torch.cat([p.bucket2 for p in probes]),
+            torch.cat([p.digest for p in probes]), torch.cat(keys), [k.numel() for k in keys])
+    _build.reset_counts()
+    got = find_scan.find_scan_many(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["find_scan_many"] == 1
+    _same(got, find_scan.find_scan_many_plain(*args))
+    many = kops.find_many_kernel([t.state for t in tables], tables[0].cfg, keys)
+    for t, k, m in zip(tables, keys, many):
+        _same(m, kops.find_fused_kernel(t.state, t.cfg, k))
+
+
+@pytest.mark.parametrize("add", [False, True])
+def test_assign_kernel_matches_plain(dev, add):
+    from repro_torch.kernels import ops as kops
+
+    t = _table(dev)
+    keys = t.state.keys[t.state.keys != -1][:3000]
+    keys = torch.cat([keys, torch.randint(0, 2**62, (1000,), device=dev)])
+    vals = torch.randn(keys.numel(), 32, device=dev)
+    twin = t.snapshot()
+    _build.reset_counts()
+    kops.assign_kernel(t.state, t.cfg, keys, vals, add=add)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"digest_scan": 1, "scatter_rows": 1}
+    kops.assign_plain(twin.state, twin.cfg, keys, vals, add=add)
+    assert torch.equal(t.state.values, twin.state.values)
+
+
+def test_telemetry_on_the_card_adds_no_launch_and_counts_as_the_cpu(dev):
+    from repro_torch.obs import TelemetrySink
+
+    t = _table(dev)
+    q, _p = _queries(t)
+    cpu = repro_torch.HKVTable.wrap(
+        repro_torch.HKVState(*(x.cpu() for x in t.state.planes), t.state.clock,
+                             t.state.epoch), t.cfg)
+    for op in ("find", "find_ptr", "contains"):
+        counts = []
+        for sink in (None, TelemetrySink()):
+            _build.reset_counts()
+            getattr(t, op)(q, **({} if sink is None else {"telemetry": sink}))
+            torch.cuda.synchronize()
+            counts.append(dict(_build.launch_counts))
+        assert counts[0] == counts[1], op
+        cpu_sink = TelemetrySink()
+        getattr(cpu, op)(q.cpu(), telemetry=cpu_sink)
+        assert sink.snapshot() == cpu_sink.snapshot(), op
+    keys = torch.randint(0, 2**62, (4096,), device=dev)
+    vals = torch.randn(4096, 32, device=dev)
+    twin, sink, cpu_sink = t.snapshot(), TelemetrySink(), TelemetrySink()
+    _build.reset_counts()
+    r = t.insert_or_assign(keys, vals, telemetry=sink)
+    with_sink = dict(_build.launch_counts)
+    _build.reset_counts()
+    rt = twin.insert_or_assign(keys, vals)
+    assert dict(_build.launch_counts) == with_sink
+    assert torch.equal(r.status, rt.status)
+    cpu.insert_or_assign(keys.cpu(), vals.cpu(), telemetry=cpu_sink)
+    assert sink.snapshot() == cpu_sink.snapshot()
+
+
+@pytest.mark.parametrize("kind", ["open_addressing", "bucketed_p2c"])
+def test_baselines_on_the_card_equal_the_cpu(dev, kind):
+    from repro_torch.baselines import DictKVTable
+
+    g = np.random.default_rng(12)
+    a = getattr(DictKVTable, kind)(4096, 8, device=dev)
+    b = getattr(DictKVTable, kind)(4096, 8, device="cpu")
+    for _ in range(5):
+        k = g.integers(0, 6000, size=1024).astype(np.uint64)
+        v = torch.randn(1024, 8)
+        ra, rb = a.insert_or_assign(k, v.to(dev)), b.insert_or_assign(k, v)
+        assert torch.equal(ra.ok.cpu(), rb.ok) and torch.equal(ra.probes.cpu(), rb.probes)
+        fa, fb = a.find(k[::3]), b.find(k[::3])
+        assert torch.equal(fa.values.cpu(), fb.values) and torch.equal(fa.probes.cpu(), fb.probes)
+        a.erase(k[::7].copy())
+        b.erase(k[::7].copy())
+        for x, y in zip(a.state, b.state):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_seeded_replay_on_auto_against_the_oracle(dev):
+    from test_torch_fuzz import DifferentialHarness, seeded_replay
+
+    seeded_replay(DifferentialHarness(device=dev, backend="auto"), seed=4)

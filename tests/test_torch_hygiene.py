@@ -123,3 +123,21 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch, capsys):
         serve.main(["--smoke", "--waves", "1"])
     assert serve.main(["--device", "cpu", "--smoke", "--waves", "2", "--wave-size", "8"]) == 0
     assert "[serve] 2 waves" in capsys.readouterr().out
+
+
+def test_multi_table_find_and_baselines_do_not_fall_back_or_default_to_the_cpu(monkeypatch):
+    """find_scan's multi-table entry goes to its kernel or raises off the
+    CPU; the dictionary baselines, like every entry point, default to the
+    card and raise without one."""
+    from repro_torch.baselines import DictKVTable
+
+    meta = lambda *shape, dt=torch.int64: torch.empty(shape, dtype=dt, device="meta")
+    planes = [(meta(1, 128, dt=torch.uint8), meta(1, 128), meta(1, 128),
+               meta(128, 4, dt=torch.float32))]
+    with pytest.raises(ValueError, match="unsupported device"):
+        find_scan.find_scan_many(planes, meta(4), meta(4), meta(4, dt=torch.uint8), meta(4), [4])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (DictKVTable.open_addressing, DictKVTable.bucketed_p2c):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(256, 4)
+        assert make(256, 4, device="cpu").size() == 0

@@ -523,12 +523,19 @@ def test_trainer_never_writes_a_table_a_reader_thread_holds():
 
 
 def test_trainer_refuses_telemetry():
+    """The trainer and ingest_delta refused a sink until the op telemetry
+    channel was ported; they now thread it to their admission ops
+    (held against the JAX package in tests/test_torch_telemetry.py)."""
+    from repro_torch.obs import TelemetrySink
+
     pub = pserve.TablePublisher(PORT.flat(capacity=128, dim=DIM))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pserve.OnlineTrainer(publisher=pub, telemetry=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pserve.ingest_delta(PORT.flat(capacity=128, dim=DIM),
-                            pserve.export_delta(pub.table), telemetry=object())
+    sink = TelemetrySink()
+    tr = pserve.OnlineTrainer(publisher=pub, telemetry=sink)
+    tr.train_step(np.arange(1, 9, dtype=np.uint64), torch.ones(8, DIM))
+    assert sink.calls == {"find_or_insert": 1} and sink.snapshot()["find_or_insert"]["lanes"] == 8
+    pserve.ingest_delta(PORT.flat(capacity=128, dim=DIM), pserve.export_delta(tr.table),
+                        telemetry=sink)
+    assert sink.snapshot()["ingest"]["lanes"] == 8
 
 
 @pytest.mark.parametrize("src", ["flat", "tiered"])
@@ -640,5 +647,5 @@ def test_wave_function_rebuilds_on_a_signature_change():
 def test_engine_refuses_tables_it_does_not_serve():
     eng = pserve.OnlineEmbeddingEngine(ppub.StaticSource(object()), wave_size=4)
     eng.submit(pserve.EmbeddingRequest(rid=0, keys=np.arange(1, 3, dtype=np.uint64)))
-    with pytest.raises(NotImplementedError, match="items 13 and 14"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         eng.step()
