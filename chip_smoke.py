@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs nine phases; any failure exits non-zero:
+sm_90a (first use), then runs ten phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -151,6 +151,26 @@ sm_90a (first use), then runs nine phases; any failure exits non-zero:
    keys spread over them: one find_scan_many launch, bit-identical to 26
    find_fused_kernel calls and to its plain version, timed against 26
    find_scan launches.
+10. the sharded table (``repro_torch.distributed.ShardedHKVTable``), its
+   shards sharing the one card.  (a) A ("data", "model") (2, 4) mesh of 8
+   shards, 2^20 slots in all, dim 32, rowwise_adagrad, runs every op of the
+   surface and the training lookup and apply_grads on backend 'auto' and
+   on 'plain': statuses, found flags, overflow, streams, export lanes and
+   every shard's keys, digests and scores equal, values too but for the
+   gradient sums (within 1e-5); then the same over tiered shards (each
+   shard's hot tier a quarter of it).  (b) Config B's embedding (2^27
+   slots, dim 32, rowwise_adagrad so V = 33, dual, LRU) on a ("data",
+   "model") (8, 1) mesh: 8 shards of 2^24 slots, nothing cut.
+   insert_or_assign in 2^20-key batches to λ 0.5, 1.0 and past it (a burst
+   at one local bucket: EVICTED and REJECTED), overflow 0 throughout; find
+   on residents and on a mix, checked against the keys the script knows;
+   find_or_insert, contains, erase_if(key_in_range), evict_if(always, a
+   budget a shard), stats() and one export_batch range; 5 DLRM steps of
+   phase 5's stream; 10 OnlineEmbeddingEngine waves of 2^16 lanes admitting
+   and 10 readonly.  Every op's launches are checked against
+   SHARDED_ROUTES (each owner op on each of the 8 shards), and each op is
+   timed (median of 5) beside the same op on phases 3, 4 and 5's unsharded
+   config B tables in the same run, with the ratio.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -166,7 +186,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same nine phases at a tiny size on the
+result.  ``--rehearse`` runs the same ten phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -302,6 +322,19 @@ SERVE_ROUTES = {
 SERVE_CLAIMS = {"admit wave": 2, "readonly wave": 2, "maintenance step": 1, "trainer step": 2}
 SERVE_KERNELS = ("find_scan", "digest_scan", "gather_rows", "scatter_rows", "upsert_probe",
                  "claim_scan", "sweep_match")
+# the sharded table (phase 10): an op runs its owner op on every shard, so
+# its launches are SHARDS times the unsharded op's (dual bucket), claim_scan
+# once for each shard whose routed batch holds a miss lane (Smoke.sharded_op).
+# A sharded contains is the pure-reader find; assign, erase, export_batch,
+# size and stats launch nothing, as their unsharded ops
+SHARDS = 8
+SHARDED_ROUTES = {op: {k: SHARDS * v for k, v in r.items()} for op, r in {
+    "insert_or_assign": UPSERT[2], "find": ROUTES["find"][2], "contains": ROUTES["find"][2],
+    "find_or_insert": ROUTES["find_or_insert"][2], "erase_if": ROUTES["erase_if"][2],
+    "evict_if": ROUTES["evict_if"][2], "lookup_train": TRAIN_ROUTES["lookup_train"],
+    "apply_grads": TRAIN_ROUTES["apply_grads"], "lookup_serve": ROUTES["find"][2],
+    "admit wave": ROUTES["find_or_insert"][2], "readonly wave": ROUTES["find"][2],
+    "assign": {}, "erase": {}, "export_batch": {}, "stats": {}}.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,7 +442,10 @@ class Smoke:
         self.launches: dict[str, int] = {}
         self.launches_train: dict[str, int] = {}
         self.launches_serve: dict[str, int] = {}
+        self.launches_sharded: dict[str, int] = {}
         self.train_cmp: dict[str, float] = {}
+        # unsharded config B op times of phases 3-5 (ms), for phase 10's ratios
+        self.unsharded: dict[str, float] = {}
 
     # ------------------------------------------------------------------ utils
 
@@ -576,7 +612,8 @@ class Smoke:
                   ("the tier hierarchy", self.phase_tiered),
                   ("the serving path", self.phase_serve),
                   ("telemetry, baselines and the multi-table find at config B",
-                   self.phase_tel_base)]
+                   self.phase_tel_base),
+                  ("the sharded table", self.phase_sharded)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -1371,6 +1408,7 @@ class Smoke:
             ins = [self.timed_insert(table) for _ in range(sz.timed_runs)]
             t_ins = statistics.median(ins)
             self.throughput[lam] = (n / t_find / 1e6, n / t_ins / 1e6)
+            self.unsharded.update(find=t_find, insert_or_assign=t_ins)
             log(f"phase 3: λ = {lam0:.6f}: find {t_find:.3f} ms ({n / t_find / 1e6:.4f} B-KV/s); "
                 f"insert_or_assign of fresh keys from λ {lam0:.6f} to {table.load_factor():.6f}: "
                 f"{t_ins:.3f} ms ({n / t_ins / 1e6:.4f} B-KV/s); median of {sz.timed_runs}, batch {n}")
@@ -1537,6 +1575,8 @@ class Smoke:
         t = statistics.median(times)
         mode = ("dual" if table.cfg.buckets_per_key == 2 else "single") + label
         self.op_times.append((name, mode, lam, t))
+        if mode == "dual":
+            self.unsharded[name] = t
         return t
 
     def phase_rest(self):
@@ -1799,6 +1839,9 @@ class Smoke:
             misses = torch.unique(keys[~hit & (keys != self.u64.EMPTY)]).numel()
             loss, ms, grads = self.dlrm_step(emb, table, model, toks, dense_x, labels, misses,
                                              routes=routes, launches=launches, tiered=tiered)
+            if tag == "phase 5" and step > 0:     # phase 10's unsharded step times
+                for k in ("lookup_train", "apply_grads"):
+                    self.unsharded.setdefault(f"{k} steps", []).append(ms[k])
             require(bool(torch.isfinite(loss)), f"{tag} step {step}: loss is not finite")
             losses.append(float(loss))
             uniq, g_sum = emb.sum_grads(toks, grads)
@@ -2933,6 +2976,362 @@ class Smoke:
             f"ms against {t_n} find_fused_kernel calls {fm['op_solo_ms@1.0']:.3f} ms")
         del tables, states, many, solo
 
+    # phase 10 -------------------------------------------------------------
+
+    def phase_sharded(self):
+        """The sharded table on the card (see the module note)."""
+        self.free()
+        self.launches_sharded = {}
+        self.sharded_twin(tiered=False)
+        self.sharded_twin(tiered=True)
+        self.sharded_full()
+        log(f"phase 10: kernel launches: {json.dumps(self.launches_sharded)}")
+
+    def sharded_op(self, name, fn, *args, **kwargs):
+        """One entry point of the sharded table, its launches checked
+        against SHARDED_ROUTES (on the card) and added to phase 10's count.
+        claim_scan: once for each shard whose routed batch held a miss lane,
+        which the victim stage's calls count."""
+        counts = self._build.launch_counts
+        before = dict(counts)
+        with self.stage_lanes() as lanes:
+            out = fn(*args, **kwargs)
+        self.sync()
+        got = {k: v - before.get(k, 0) for k, v in counts.items() if v != before.get(k, 0)}
+        for k, v in got.items():
+            self.launches_sharded[k] = self.launches_sharded.get(k, 0) + v
+        route = SHARDED_ROUTES[name]
+        claims = len(lanes["victim"])
+        require(claims <= SHARDS and ("claim_scan" in route or not claims),
+                f"phase 10 {name}: {claims} victim stages on {SHARDS} shards")
+        want = {k: v for k, v in route.items() if k != "claim_scan"}
+        if claims:
+            want["claim_scan"] = claims
+        if self.dev.type == "cuda":
+            require(got == want, f"phase 10 {name}: launches {got}, SHARDED_ROUTES says {want}")
+        return out
+
+    def sharded_twin(self, tiered: bool):
+        """A (2, 4) mesh of 8 shards, 2^20 slots in all, on 'auto' and
+        'plain' (tiered: each shard's hot tier a quarter of it)."""
+        from repro_torch import ShardedHKVTable, make_dev_mesh
+        from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+
+        torch, sz = self.torch, self.sz
+        cap = sz.small_capacity
+        kw = dict(capacity=cap, dim=DIM, optimizer=SparseOptimizer("rowwise_adagrad",
+                                                                   lr=TRAIN_LR))
+        if tiered:
+            kw["hot_capacity"] = cap // 4
+        mesh = make_dev_mesh(2, 4, device=self.dev)
+        tk = ShardedHKVTable.create(mesh, HKVEmbedding(backend="auto", **kw))
+        tp = ShardedHKVTable.create(mesh, HKVEmbedding(backend="plain", **kw))
+        worst = 0.0
+        tag = f"phase 10 twin ({'tiered' if tiered else 'flat'} shards)"
+
+        def same(a, b, ctx, atol=0.0):
+            nonlocal worst
+            if atol and a.dtype.is_floating_point:
+                err = (a - b).abs().max().item() if a.numel() else 0.0
+                worst = max(worst, err)
+                require(err <= atol, f"{tag} {ctx}: differs by {err}")
+            else:
+                self.assert_same(a, b, f"{tag} {ctx}")
+
+        def same_states(ctx, atol=0.0):
+            for i, (a, b) in enumerate(zip(tk.shards, tp.shards)):
+                tiers = ((a.hot, b.hot), (a.cold, b.cold)) if tiered else ((a, b),)
+                for x, y in tiers:
+                    for f in ("keys", "digests", "scores", "values"):
+                        same(getattr(x.state, f).to(self.dev), getattr(y.state, f).to(self.dev),
+                             f"{ctx}: shard {i} {f}", atol if f == "values" else 0.0)
+                    require((x.state.clock, x.state.epoch) == (y.state.clock, y.state.epoch),
+                            f"{tag} {ctx}: shard {i}'s clock")
+
+        n = 4 * sz.small_batch
+        hist = torch.zeros(5, dtype=torch.int64)
+        for i in range(2 * cap // n + 1):       # past λ 1.0
+            keys, vals = self.fresh_keys(n), self.values(n)
+            a, b = tk.insert_or_assign(keys, vals), tp.insert_or_assign(keys, vals)
+            same(a.status, b.status, f"insert {i}")
+            require(int(a.overflow) == int(b.overflow) == 0, f"{tag}: insert {i} overflowed")
+            hist += torch.bincount(a.status.long().cpu(), minlength=5)
+        require(hist[3] > 0, f"{tag}: nothing evicted past λ 1.0")
+        mix = torch.cat([keys[: n // 2], self.fresh_keys(n - n // 2)])
+        for name, args in (("find", (mix,)), ("find_or_insert", (mix.flip(0),))):
+            a, b = getattr(tk, name)(*args), getattr(tp, name)(*args)
+            same(a.values, b.values, f"{name} values")
+            same(a.found, b.found, f"{name} found")
+        same(tk.contains(mix), tp.contains(mix), "contains")
+        same_states("inserts and reads")
+        w = self.values(n)
+        for t in (tk, tp):
+            t.assign(mix, w)
+            t.erase(mix[::4])
+        pred = self.Pred.key_in_range(0, 2**60)
+        require(int(tk.erase_if(pred).swept) == int(tp.erase_if(pred).swept) > 0,
+                f"{tag}: erase_if")
+        a, b = (t.evict_if(self.Pred.always(), n // 16) for t in (tk, tp))
+        for x, y in zip(a.evicted, b.evicted):
+            same(x, y, "evict_if stream")
+        for x, y in zip(tk.export_batch(0, tk.num_buckets), tp.export_batch(0, tp.num_buckets)):
+            same(x, y, "export_batch")
+        require(tk.size() == tp.size() > 0, f"{tag}: size")
+        sa, sb = tk.stats(), tp.stats()
+        same(sa.occupancy_hist, sb.occupancy_hist, "stats")
+        same(sa.score_q, sb.score_q, "stats")
+        same_states("updaters and sweeps")
+        import copy
+
+        import numpy as np
+
+        from repro_torch.models.dlrm import DLRM
+
+        # DLRM steps on phase 5's stream, as its twin: each backend's model
+        # takes its own rows' gradients
+        rng = np.random.default_rng(SEED + 10)
+        gen = torch.Generator(device=self.dev).manual_seed(SEED + 10)
+        mk = DLRM(DIM, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
+        mp = copy.deepcopy(mk)
+        for step in range(3):
+            toks, dense_x, labels = self.train_batch(rng, max(sz.train_batch // 4, 2))
+            out = []
+            for t, m in ((tk, mk), (tp, mp)):
+                rows = t.lookup(toks, train=True)[1].detach().requires_grad_(True)
+                loss = m.loss(rows, dense_x, labels)
+                loss.backward()
+                m.sgd_(TRAIN_LR)
+                t.apply_grads(toks, rows.grad)
+                out.append((rows.detach(), loss.detach()))
+            same(out[0][0], out[1][0], f"lookup_train {step}", DUP_SUM_ATOL)
+            same(out[0][1], out[1][1], f"loss {step}", DUP_SUM_ATOL)
+            same_states(f"train step {step}", DUP_SUM_ATOL)
+        same(tk.lookup(toks, train=False)[1], tp.lookup(toks, train=False)[1], "lookup_serve",
+             DUP_SUM_ATOL)
+        log(f"{tag}: (2, 4) mesh of {tk.n_shards} shards, {tk.capacity} slots"
+            + (f" (hot tiers {tk.local.hot_capacity} a shard)" if tiered else "")
+            + f", batches of {n}: 'auto' and 'plain' equal in statuses ("
+            + ", ".join(f"{STATUS_NAMES[i]} {int(c)}" for i, c in enumerate(hist))
+            + "), found flags, overflow, streams, export lanes, sizes, stats and every "
+            f"shard's keys, digests and scores; values within {worst:.3g}")
+        del tk, tp
+        self.free()
+
+    def time_sharded(self, name, fn, inputs) -> float:
+        """Median over `inputs` of one call each between stream marks."""
+        times = []
+        for args in inputs:
+            self.sync()
+            a = self.mark()
+            fn(*args)
+            b = self.mark()
+            self.sync()
+            times.append(self.elapsed_ms(a, b))
+        t = statistics.median(times)
+        self.sharded_ms[name] = t
+        return t
+
+    def sharded_full(self):
+        """Config B's embedding on a (8, 1) mesh: 8 shards of 2^24 slots."""
+        import numpy as np
+
+        from repro_torch import ShardedHKVTable, make_dev_mesh
+        from repro_torch.configs.hkv_dlrm import PAPER_CONFIGS
+        from repro_torch.data import zipf_keys
+        from repro_torch.models.dlrm import DLRM
+        from repro_torch.serving import EmbeddingRequest, OnlineEmbeddingEngine
+
+        torch, sz, u64 = self.torch, self.sz, self.u64
+        # at least 512 keys a data shard (the rehearsal's batch is smaller):
+        # a routing budget of 128 against a mean of 64 a destination
+        n, runs = max(sz.batch, SHARDS * 512), sz.timed_runs
+        self.sharded_ms = {}
+        emb = dataclasses.replace(PAPER_CONFIGS["B"].embedding(), capacity=sz.capacity)
+        t0 = time.perf_counter()
+        table = ShardedHKVTable.create(make_dev_mesh(SHARDS, 1, device=self.dev), emb)
+        self.sync()
+        t_alloc = time.perf_counter() - t0
+        local = table.local
+        require(table.n_shards == SHARDS and table.capacity == sz.capacity
+                and all(s.state.values.shape == (sz.capacity // SHARDS, DIM + 1)
+                        for s in table.shards), "phase 10: config B is not 8 x [2^24, 33]")
+        log(f"phase 10: config B embedding on a (8, 1) mesh: {SHARDS} shards of "
+            f"{local.capacity} slots on {table.device} (V = {DIM + 1}, {emb.optimizer.name}, "
+            f"dual, {emb.score_policy}), {sz.capacity} slots in all, allocated in "
+            f"{t_alloc:.3f} s")
+
+        def insert(keys, vals):
+            r = self.sharded_op("insert_or_assign", table.insert_or_assign, keys, vals)
+            require(int(r.overflow) == 0, "phase 10: an insert overflowed its routing budget")
+            return r
+
+        def check_find(keys, vals, status, ctx):
+            ok = (status >= 1) & (status <= 3)
+            half = keys.numel() // 2
+            mix = torch.cat([keys[:half], self.fresh_keys(half)])
+            r = self.sharded_op("find", table.find, mix)
+            require(r.values.shape == (mix.numel(), DIM) and bool(torch.isfinite(r.values).all()),
+                    f"phase 10 {ctx}: find values of the wrong shape or not finite")
+            require(torch.equal(r.found[:half], ok[:half]) and not bool(r.found[half:].any()),
+                    f"phase 10 {ctx}: found is not the admitted keys")
+            require(torch.equal(r.values[:half][ok[:half]], vals[:half][ok[:half]])
+                    and not bool(r.values[half:].any()), f"phase 10 {ctx}: find values")
+            require(int(r.overflow) == 0, f"phase 10 {ctx}: find overflowed")
+
+        t0 = time.perf_counter()
+        batches = 0
+        for lam in (0.5, 1.0):
+            while table.load_factor() < lam:
+                keys, vals = self.fresh_keys(n), self.values(n)
+                status = insert(keys, vals).status
+                batches += 1
+            check_find(keys, vals, status, f"λ={lam}")
+            log(f"phase 10: λ = {table.load_factor():.6f} after {batches} batches of {n} "
+                f"({time.perf_counter() - t0:.3f} s)")
+        counts = torch.zeros(5, dtype=torch.int64)
+        burst = min(SHARDS * sz.hot_keys, n // 2)
+        for i in range(3):   # past λ 1.0, with a burst at one local bucket
+            keys = self.fresh_keys(n)
+            keys[:burst] = self.hot_bucket_keys(local.config().num_buckets, burst, 4321 + i)
+            vals = self.values(n)
+            status = insert(keys, vals).status
+            counts += torch.bincount(status.long().cpu(), minlength=5)
+            check_find(keys, vals, status, f"past λ=1 batch {i}")
+        log("phase 10: past λ = 1.0: " + ", ".join(f"{STATUS_NAMES[i]} {int(c)}"
+                                                    for i, c in enumerate(counts))
+            + "; overflow 0 in every batch")
+        require(counts[3] > 0 and counts[4] > 0, "phase 10: no EVICTED or no REJECTED")
+
+        self.time_sharded("find", table.find, [(keys,)] * runs)
+        self.time_sharded("insert_or_assign", table.insert_or_assign,
+                          [(self.fresh_keys(n), self.values(n)) for _ in range(runs)])
+        keys, vals = self.fresh_keys(n), self.values(n)
+        status = insert(keys, vals).status
+        ok = (status >= 1) & (status <= 3)
+        resident = keys[ok][: n // 2]
+        h = resident.numel()
+        mix = torch.cat([resident, self.fresh_keys(n - h)])
+        f = self.sharded_op("find_or_insert", table.find_or_insert, mix)
+        require(bool(f.found[:h].all()) and not bool(f.found[h:].any()),
+                "phase 10: find_or_insert's found is not the keys resident before it")
+        require(torch.equal(f.values[:h], vals[ok][: n // 2]), "phase 10: find_or_insert hits")
+        require(torch.equal(f.values[h:], emb.default_rows(mix[h:])),
+                "phase 10: find_or_insert's misses are not the init rows")
+        self.time_sharded("find_or_insert", table.find_or_insert, [
+            (torch.cat([resident[: n // 4], self.fresh_keys(n - n // 4)]),) for _ in range(runs)])
+        c = self.sharded_op("contains", table.contains, mix)
+        require(torch.equal(c, table.find(mix).found), "phase 10: contains is not find's found")
+        self.time_sharded("contains", table.contains, [(mix,)] * runs)
+
+        known = resident[table.contains(resident)]   # those the timed upserts left
+        require(known.numel() > 0, "phase 10: no known key is left")
+        size0 = table.size()
+        e = self.sharded_op("erase_if", table.erase_if, self.Pred.key_in_range(0, 2**60))
+        gone = known < 2**60
+        require(torch.equal(table.find(known).found, ~gone)
+                and int(e.swept) == size0 - table.size() > 0, "phase 10: erase_if")
+        self.time_sharded("erase_if", table.erase_if, [
+            (self.Pred.key_in_range(2**60 + i * 2**54, 2**60 + (i + 1) * 2**54),)
+            for i in range(runs)])
+        sizes = [s.size() for s in table.shards]
+        budget = min(n // SHARDS, local.capacity // 4)
+        v = self.sharded_op("evict_if", table.evict_if, self.Pred.always(), budget)
+        want = sum(min(budget, x) for x in sizes)
+        require(int(v.count) == want and int(v.evicted.mask.sum()) == want
+                and table.size() == sum(sizes) - want, "phase 10: evict_if count")
+        fl = u64.flip(v.evicted.scores).reshape(SHARDS, budget)
+        live = v.evicted.mask.reshape(SHARDS, budget)
+        require(bool((fl[:, 1:] >= fl[:, :-1])[live[:, 1:]].all()),
+                "phase 10: a shard's stream is not coldest first")
+        require(not bool(table.contains(v.evicted.keys).any()), "phase 10: an evicted key is found")
+        self.time_sharded("evict_if", table.evict_if, [(self.Pred.always(), budget)] * runs)
+        st = self.sharded_op("stats", table.stats)
+        require(int(st.size) == table.size() and st.capacity == sz.capacity
+                and int(st.occupancy_hist.sum()) == sz.capacity // 128, "phase 10: stats")
+        nb = min(64, table.num_buckets)
+        ex = self.sharded_op("export_batch", table.export_batch, 0, nb)
+        # the lanes shuffled: shard-major, a data shard's lanes would all go
+        # to one owner and overflow its routing budget
+        perm = torch.randperm(ex.mask.numel(), generator=self.gen, device=self.dev)
+        lanes = torch.where(ex.mask, ex.keys, u64.EMPTY)[perm]
+        require(ex.mask.numel() == SHARDS * nb * 128
+                and torch.equal(table.contains(lanes), ex.mask[perm]), "phase 10: export_batch")
+        log(f"phase 10: find_or_insert {h} hits / {n - h} misses; erase_if swept "
+            f"{int(e.swept)}; evict_if {int(v.count)} ({budget} a shard); stats size "
+            f"{int(st.size)}, λ {float(st.load_factor):.6f}; export_batch(0, {nb}): "
+            f"{int(ex.mask.sum())} live of {ex.mask.numel()} lanes")
+
+        # 5 DLRM steps of phase 5's stream
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        model = DLRM(DIM, NUM_SPARSE, DENSE_FEATURES, device=self.dev, generator=gen)
+        rng = np.random.default_rng(SEED)
+        steps = {"lookup_train": [], "apply_grads": []}
+        for step in range(sz.train_steps):
+            toks, dense_x, labels = self.train_batch(rng, sz.train_batch)
+            self.sync()
+            a = self.mark()
+            _t, rows, ovf = self.sharded_op("lookup_train", table.lookup, toks, train=True)
+            b = self.mark()
+            rows = rows.detach().requires_grad_(True)
+            loss = model.loss(rows, dense_x, labels)
+            loss.backward()
+            model.sgd_(TRAIN_LR)
+            c = self.mark()
+            self.sharded_op("apply_grads", table.apply_grads, toks, rows.grad)
+            d = self.mark()
+            self.sync()
+            require(bool(torch.isfinite(loss)) and int(ovf) == 0,
+                    f"phase 10 step {step}: loss not finite or keys overflowed")
+            ms = [self.elapsed_ms(a, b), self.elapsed_ms(b, c), self.elapsed_ms(c, d)]
+            if step > 0:
+                steps["lookup_train"].append(ms[0])
+                steps["apply_grads"].append(ms[2])
+            log(f"phase 10 step {step}: {toks.numel()} keys; lookup_train {ms[0]:.3f} ms, "
+                f"forward+backward {ms[1]:.3f} ms, apply_grads {ms[2]:.3f} ms; loss "
+                f"{float(loss.detach()):.6f}; λ {table.load_factor():.6f}")
+        for k, v in steps.items():
+            self.sharded_ms[k] = statistics.median(v)
+
+        # 10 admitting and 10 readonly engine waves of 2^16 lanes
+        req = sz.serve_samples * NUM_SPARSE
+        wrng = np.random.default_rng(SEED + 11)
+        for policy in ("admit", "readonly"):
+            eng = OnlineEmbeddingEngine(table, wave_size=sz.serve_wave, miss_policy=policy)
+            lat, hits = [], []
+            for i in range(10):
+                keys = zipf_keys(wrng, req, SERVE_ALPHA, 2 * table.capacity)
+                eng.submit(EmbeddingRequest(rid=i, keys=keys))
+                rep = self.sharded_op(f"{policy} wave", eng.step)
+                r = eng.completed[-1]
+                require(r.rid == i and r.values.shape == (req, DIM)
+                        and bool(np.isfinite(r.values).all()), f"phase 10 {policy} wave {i}")
+                lat.append(rep.latency_s * 1e3)
+                hits.append(rep.hits / max(rep.size, 1))
+            self.sharded_ms[f"{policy} wave"] = statistics.median(lat[1:])
+            log(f"phase 10: {policy} waves of {sz.serve_wave} lanes ({req} keys): latency ms "
+                + ", ".join(f"{x:.3f}" for x in lat) + "; hit rates "
+                + ", ".join(f"{x:.4f}" for x in hits))
+        del table, eng
+        self.free()
+        self.sharded_report()
+
+    def sharded_report(self):
+        """Each timed sharded op beside the same op on the unsharded config B
+        table of phases 3-5 in this run (when they ran)."""
+        un = dict(self.unsharded)
+        for k in ("lookup_train", "apply_grads"):
+            if f"{k} steps" in un:
+                un[k] = statistics.median(un.pop(f"{k} steps"))
+        for name, t in self.sharded_ms.items():
+            base = un.get(name)
+            log(f"phase 10 op {name}: sharded {t:.3f} ms"
+                + (f", unsharded {base:.3f} ms, ratio {t / base:.2f}" if base else "")
+                + (f" (median of {self.sz.timed_runs})" if "wave" not in name
+                   and name not in ("lookup_train", "apply_grads") else
+                   f" (median of steps 1-{self.sz.train_steps - 1})" if "wave" not in name
+                   else " (median of waves 2-10)"))
+
+
     # ----------------------------------------------------------------- report
 
     def report(self):
@@ -3089,13 +3488,15 @@ class Smoke:
             # rest of the op surface's phase 4 for the kernels it added, the
             # training path's phase 5 for update_scan, each with the serving
             # path's phase 8; no op calls bucket_stats, so no path launches it;
-            # find_scan_many: phase 9's counted find_many_kernel call
+            # find_scan_many: phase 9's counted find_many_kernel call; and
+            # each with the sharded table's phase 10
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": path.get(name, 0) + self.launches_serve.get(name, 0),
+                "launches": (path.get(name, 0) + self.launches_serve.get(name, 0)
+                             + self.launches_sharded.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

@@ -9,7 +9,8 @@ of it.  Ops run on the card unless the caller asks for the CPU:
 The training path: ``repro_torch.embedding.HKVEmbedding`` (lookup_train,
 lookup_serve, apply_grads) and ``repro_torch.models.dlrm.DLRM``.  The tier
 hierarchy: ``TieredHKVTable`` (an HBM hot tier over a cold tier whose value
-plane is in pinned host memory, ``value_tier='hmem'``).
+plane is in pinned host memory, ``value_tier='hmem'``).  The sharded table:
+``ShardedHKVTable`` over a mesh from ``repro_torch.launch.mesh.make_dev_mesh``.
 """
 
 from repro_torch.core.api import (HKVTable, KVTable, OpSession, dedupe_keys, normalize_keys,
@@ -19,7 +20,10 @@ from repro_torch.core.ops import RowUpdate
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
 from repro_torch.core.tiered import TieredHKVTable, TieredState, translate_scores
+from repro_torch.distributed import ShardedHKVEmbedding, ShardedHKVTable
+from repro_torch.launch.mesh import Mesh, make_dev_mesh, make_mesh
 
-__all__ = ["EvictionStream", "HKVConfig", "HKVState", "HKVTable", "KVTable", "OpSession",
-           "RowUpdate", "SweepPredicate", "TieredHKVTable", "TieredState", "dedupe_keys",
+__all__ = ["EvictionStream", "HKVConfig", "HKVState", "HKVTable", "KVTable", "Mesh", "OpSession",
+           "RowUpdate", "ShardedHKVEmbedding", "ShardedHKVTable", "SweepPredicate",
+           "TieredHKVTable", "TieredState", "dedupe_keys", "make_dev_mesh", "make_mesh",
            "normalize_keys", "table_signature", "translate_scores"]

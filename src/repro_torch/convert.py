@@ -12,7 +12,11 @@ can be passed in directly, without this module importing JAX.  The value
 plane is placed for the table's tier: ``value_tier='hmem'`` on the card puts
 it in pinned host memory (``core.table.place_value_tier``).  A JAX
 ``TieredState`` (hot and cold states) comes across with
-``tiered_state_from_arrays``.
+``tiered_state_from_arrays``.  A JAX sharded table's state (every array
+leaf the shards' planes concatenated along the bucket axis in shard order,
+the clocks and epoch replicated) splits into the port's per-shard states
+with ``sharded_state_from_arrays`` and joins back with
+``sharded_state_to_arrays``.
 
 The op results that carry 64-bit words convert the same way, to dicts
 named as the JAX result's fields: ``stream_to_arrays`` (an
@@ -132,6 +136,61 @@ def tiered_state_from_arrays(tiered: Any, device=None, hot_tier: str = "hbm",
 def tiered_state_to_arrays(state) -> dict[str, dict[str, np.ndarray]]:
     """The port's ``TieredState`` -> {"hot": ..., "cold": ...} in the JAX layout."""
     return {"hot": state_to_arrays(state.hot), "cold": state_to_arrays(state.cold)}
+
+
+def _split_leaves(arrays: Any, n_shards: int) -> list:
+    """A JAX-layout state with concatenated planes -> n_shards dicts, each
+    shard's planes and the replicated scalars."""
+    get = _get(arrays)
+    out = [{} for _ in range(n_shards)]
+    for f in FIELDS:
+        a = get(f)
+        parts = np.split(a, n_shards) if a.ndim else [a] * n_shards
+        for d, part in zip(out, parts):
+            d[f] = part
+    return out
+
+
+def sharded_state_from_arrays(arrays: Any, devices, value_tier: str = "hbm",
+                              cold_tier: str = "hmem") -> tuple:
+    """A JAX ``ShardedHKVTable``'s state -> the port's per-shard states,
+    shard i on ``devices[i]`` (one device a shard, in shard order).  A
+    tiered state (``hot`` and ``cold``) splits tier by tier: the hot planes
+    placed for `value_tier`, the cold ones for `cold_tier`."""
+    from repro_torch.core.tiered import TieredState
+
+    n = len(devices)
+    if _has(arrays, "hot"):
+        part = (lambda f: arrays[f]) if isinstance(arrays, Mapping) else \
+            (lambda f: getattr(arrays, f))
+        hot, cold = _split_leaves(part("hot"), n), _split_leaves(part("cold"), n)
+        return tuple(TieredState(hot=state_from_arrays(h, d, value_tier),
+                                 cold=state_from_arrays(c, d, cold_tier))
+                     for h, c, d in zip(hot, cold, devices))
+    return tuple(state_from_arrays(a, d, value_tier)
+                 for a, d in zip(_split_leaves(arrays, n), devices))
+
+
+def sharded_state_to_arrays(states) -> dict:
+    """The port's per-shard states -> one JAX-layout state, the planes
+    concatenated in shard order (tiered: {"hot": ..., "cold": ...}).  The
+    shards' clocks and epochs must agree: they advance in lockstep."""
+    from repro_torch.core.tiered import TieredState
+
+    states = list(states)
+    if isinstance(states[0], TieredState):
+        return {"hot": sharded_state_to_arrays([s.hot for s in states]),
+                "cold": sharded_state_to_arrays([s.cold for s in states])}
+    per = [state_to_arrays(s) for s in states]
+    for f in ("clock_hi", "clock_lo", "epoch"):
+        if len({int(p[f]) for p in per}) != 1:
+            raise ValueError(f"the shards' {f} disagree: {[int(p[f]) for p in per]}")
+    return {f: (np.concatenate([p[f] for p in per]) if per[0][f].ndim else per[0][f])
+            for f in FIELDS}
+
+
+def _has(arrays: Any, f: str) -> bool:
+    return f in arrays if isinstance(arrays, Mapping) else hasattr(arrays, f)
 
 
 def _words(prefix: str, x: torch.Tensor) -> dict[str, np.ndarray]:

@@ -51,12 +51,16 @@ def normalize_keys(keys: Any, device: Optional[torch.device] = None) -> torch.Te
       * signed integers (numpy array, python int or list, torch tensor):
         non-negative ids are the key, NEGATIVE ids become the EMPTY
         padding sentinel (the embedding layer's convention);
-      * unsigned integers narrower than 64 bits: zero-extended.
+      * unsigned integers narrower than 64 bits: zero-extended;
+      * a torch uint64 tensor: the exact 64 bits (a bit-cast view; the
+        form in which normalized keys pass through a handle again).
     A signed id cannot exceed 2**63 - 1, so keys at or above 2**63 enter
-    through numpy uint64.
+    through numpy uint64 or a torch uint64 tensor.
     """
     if isinstance(keys, torch.Tensor):
-        if keys.dtype in (torch.uint8, torch.uint16, torch.uint32):
+        if keys.dtype == torch.uint64:
+            out = keys.view(torch.int64)
+        elif keys.dtype in (torch.uint8, torch.uint16, torch.uint32):
             out = keys.to(torch.int64)
         elif keys.dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
             k = keys.to(torch.int64)

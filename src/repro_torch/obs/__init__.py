@@ -9,10 +9,10 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.telemetry import (OpTelemetry, TelemetrySink, host_telemetry,
                                        observe_erase, observe_evict_if, observe_find,
                                        observe_sweep, observe_update, observe_upsert,
-                                       probe_counters, tier_motion)
+                                       probe_counters, psum_telemetry, tier_motion)
 from repro_torch.obs.trace import NOOP_TRACER, NoopTracer, Tracer, as_tracer
 
 __all__ = ["MetricsRegistry", "NOOP_TRACER", "NoopTracer", "OpTelemetry", "TelemetrySink",
            "Tracer", "as_tracer", "host_telemetry", "observe_erase", "observe_evict_if",
            "observe_find", "observe_sweep", "observe_update", "observe_upsert",
-           "probe_counters", "tier_motion"]
+           "probe_counters", "psum_telemetry", "tier_motion"]

@@ -55,8 +55,8 @@ few finds of 2**20 keys at 128 slots do):
                    pairs lost at the cold boundary), recorded by the tier
                    hierarchy (``core/tiered.py``)
 
-The reference's ``psum_telemetry`` (a sum across a device mesh) comes
-with the sharded table.
+``psum_telemetry`` sums the shard-local records of a sharded op into one
+whole-mesh record (the reference's sum across the mesh's axes).
 """
 
 from __future__ import annotations
@@ -312,6 +312,19 @@ def tier_motion(promoted=0, demoted=0, dropped=0) -> OpTelemetry:
     """Tier-hierarchy motion record (``core/tiered.py`` folds its result
     counters in through this)."""
     return OpTelemetry.of(promoted=promoted, demoted=demoted, dropped=dropped)
+
+
+def psum_telemetry(records, device: Optional[torch.device] = None) -> OpTelemetry:
+    """One whole-mesh record: the shard-local records summed counter by
+    counter (the reference's ``psum`` over every mesh axis), on `device`
+    (default: the first record's)."""
+    records = list(records)
+    if device is None:
+        device = records[0].lanes.device if records else torch.device("cpu")
+    tel = OpTelemetry(*[v.to(device) for v in OpTelemetry.zero()])
+    for r in records:
+        tel = tel.merge(OpTelemetry(*[v.to(device) for v in r]))
+    return tel
 
 
 def host_telemetry(tel: OpTelemetry) -> OpTelemetry:

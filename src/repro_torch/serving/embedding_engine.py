@@ -3,8 +3,9 @@ port of ``repro/serving/embedding_engine.py``).
 
 Continuous online embedding storage (§1, Fig. 1) means a table read under
 heavy traffic WHILE an online trainer keeps ingesting and updating.  This
-engine is that read path, over an `HKVTable` or a `TieredHKVTable` (the
-reference's sharded and dictionary tables are not ported yet).
+engine is that read path, over an `HKVTable`, a `TieredHKVTable`, a
+`DictKVTable` or a `ShardedHKVTable` (whose owners admit with their own
+init rows, and whose readonly waves promote on tiered shards).
 
 Admission comes in two modes (`admission=`):
 
@@ -309,17 +310,19 @@ class OnlineEmbeddingEngine:
 
     def _build_wave_fn(self, table):
         from repro_torch.baselines import DictKVTable  # the baselines sit beside serving
+        from repro_torch.distributed import ShardedHKVTable  # the mesh sits beside serving
 
-        if not isinstance(table, (HKVTable, TieredHKVTable, DictKVTable)):
+        if not isinstance(table, (HKVTable, TieredHKVTable, DictKVTable, ShardedHKVTable)):
             raise NotImplementedError(
-                f"the engine serves HKVTable, TieredHKVTable and DictKVTable; "
-                f"{type(table).__name__} waits for the sharded table (ROADMAP queue 1, item 14)")
+                f"the engine serves HKVTable, TieredHKVTable, DictKVTable and "
+                f"ShardedHKVTable; not {type(table).__name__}")
         policy, promote = self.miss_policy, self.promote
         is_tiered = isinstance(table, TieredHKVTable)
+        is_sharded = isinstance(table, ShardedHKVTable)
         default_row = self._default_row
         # Does this policy change the table?  Admission always does; a
-        # readonly wave only through tiered promotion
-        self._mutates = policy == "admit" or (bool(promote) and is_tiered)
+        # readonly wave only through tiered or sharded promotion
+        self._mutates = policy == "admit" or (bool(promote) and (is_tiered or is_sharded))
 
         def init_rows(table, lanes):
             if default_row is None:
@@ -333,13 +336,16 @@ class OnlineEmbeddingEngine:
             # key at or above 2**63 would be padding as a signed id
             init = init_rows(table, lanes)
             if policy == "admit":
-                r = table.find_or_insert(lanes, init)
+                # a sharded table's owners recompute the init rows from the
+                # key (caller init is not routed), so its rows are the
+                # stored ones
+                r = table.find_or_insert(lanes) if is_sharded else table.find_or_insert(lanes, init)
                 # clients get exactly dim columns; reactive demotions are
                 # what this wave's admissions pushed hot->cold
                 return (r.table, r.values[:, :table.dim], r.found, r.found,
                         getattr(r, "demoted", 0))
             # readonly: READER role, default-row fallback on a miss
-            if is_tiered:
+            if is_tiered or is_sharded:
                 r = table.find(lanes, promote=bool(promote))
                 succ = r.table if promote else table
             else:

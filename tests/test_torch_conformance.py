@@ -10,11 +10,12 @@ capability table:
   dict_oa    `DictKVTable` over open addressing (WarpCore family)
   dict_p2c   `DictKVTable` over bucketed power-of-two choices (BGHT)
   tiered     `TieredHKVTable` (hot tier over a cold 'hmem' tier)
+  sharded    `ShardedHKVTable` on a 1-shard mesh on the CPU
+  sharded_card  the same on a ("data", "model") (2, 4) mesh on the card,
+             eight shards sharing it; marked `cuda`
 
-The reference's sixth family, `ShardedHKVTable`, waits for the port of
-the sharded table (ROADMAP queue 1, item 14).  The port's tables change in
-place: an op's `.table` is the same handle, so the helpers below chain as
-the reference's do.
+The port's tables change in place: an op's `.table` is the same handle,
+so the helpers below chain as the reference's do.
 """
 
 import numpy as np
@@ -23,8 +24,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
-from repro_torch import (HKVTable, KVTable, SweepPredicate, TieredHKVTable,  # noqa: E402
-                         normalize_keys)
+from repro_torch import (HKVTable, KVTable, ShardedHKVTable, SweepPredicate,  # noqa: E402
+                         TieredHKVTable, make_dev_mesh, make_mesh, normalize_keys)
 from repro_torch.baselines import DictKVTable  # noqa: E402
 from repro_torch.core import ops as core_ops  # noqa: E402
 from repro_torch.embedding.sparse_opt import SparseOptimizer  # noqa: E402
@@ -34,12 +35,16 @@ DIM = 4
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 IMPLS = ["hkv", pytest.param("hkv_card", marks=pytest.mark.cuda), "dict_oa", "dict_p2c",
-         "tiered"]
+         "tiered", "sharded", pytest.param("sharded_card", marks=pytest.mark.cuda)]
 
 HKV_CAPS = dict(has_export=True, caller_init=True, has_scores=True, has_find_rows=True,
                 has_row_update=True)
+# sharded: owners recompute the init rows (no caller init); no full-row
+# reads or structured row updates through the handle
+SHARDED_CAPS = dict(has_export=True, caller_init=False, has_scores=True, has_find_rows=False,
+                    has_row_update=False)
 CAPS = {
-    # the reference's capability table (its sharded row waits for item 14)
+    # the reference's capability table
     "hkv": HKV_CAPS,
     "hkv_card": HKV_CAPS,
     "dict_oa": dict(has_export=True, caller_init=True, has_scores=False,
@@ -48,6 +53,8 @@ CAPS = {
                      has_find_rows=False, has_row_update=False),
     "tiered": dict(has_export=True, caller_init=True, has_scores=True,
                    has_find_rows=False, has_row_update=False),
+    "sharded": SHARDED_CAPS,
+    "sharded_card": SHARDED_CAPS,
 }
 
 
@@ -65,6 +72,13 @@ def make_table(impl: str):
     if impl == "tiered":
         return TieredHKVTable.create(hot_capacity=128, cold_capacity=2 * 128, dim=DIM,
                                      device="cpu")
+    if impl == "sharded":
+        return ShardedHKVTable.create(make_mesh((1,), ("d",), device="cpu"),
+                                      capacity=4 * 128, dim=DIM)
+    if impl == "sharded_card":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        return ShardedHKVTable.create(make_dev_mesh(2, 4), capacity=8 * 128, dim=DIM)
     raise AssertionError(impl)
 
 
@@ -91,7 +105,7 @@ def _dev(table, x):
 
 def read(table, keys):
     """Pure-reader find: (values, found)."""
-    if isinstance(table, TieredHKVTable):
+    if isinstance(table, (TieredHKVTable, ShardedHKVTable)):
         r = table.find(keys, promote=False)
     else:
         r = table.find(keys)
@@ -108,7 +122,10 @@ def upsert(table, keys, values):
 
 
 def find_or_insert(table, keys, init):
-    r = table.find_or_insert(keys, _dev(table, init))
+    if CAPS_CURRENT["caller_init"]:
+        r = table.find_or_insert(keys, _dev(table, init))
+    else:
+        r = table.find_or_insert(keys)
     return r.table, _np(r.values[:, :DIM]), _np(r.found)
 
 
@@ -192,7 +209,8 @@ class TestInserterContract:
         init = rows_for(k) + 0.5
         t, vals1, found1 = find_or_insert(table, k, init)
         assert not found1[: len(KEYS)].any()
-        assert np.allclose(vals1[: len(KEYS)], init.numpy()[: len(KEYS)])
+        if CAPS_CURRENT["caller_init"]:
+            assert np.allclose(vals1[: len(KEYS)], init.numpy()[: len(KEYS)])
         t, vals2, found2 = find_or_insert(t, k, rows_for(k) - 9.0)
         assert found2[: len(KEYS)].all()
         assert np.allclose(vals2[: len(KEYS)], vals1[: len(KEYS)])
@@ -413,3 +431,18 @@ class TestKeyNormalization:
         assert isinstance(table, KVTable)
         protocol_roundtrip(table)
         assert repro_torch.table_signature(table)
+
+
+def test_sharded_over_tiered_protocol_conformance():
+    """tests/test_tiered.py's sharded-over-tiered case: each shard a
+    TieredHKVTable, driven through the one protocol path."""
+    from repro_torch.embedding import HKVEmbedding
+
+    table = ShardedHKVTable.create(
+        make_mesh((1,), ("data",), device="cpu"),
+        HKVEmbedding(capacity=4 * 128, dim=3, hot_capacity=128,
+                     optimizer=SparseOptimizer("sgd")))
+    assert isinstance(table.shards[0], TieredHKVTable)
+    table = protocol_roundtrip(table)
+    r = table.find_or_insert(np.arange(1, 65, dtype=np.uint64))
+    assert bool(r.found.all())

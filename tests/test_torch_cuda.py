@@ -1054,3 +1054,94 @@ def test_seeded_replay_on_auto_against_the_oracle(dev):
     from test_torch_fuzz import DifferentialHarness, seeded_replay
 
     seeded_replay(DifferentialHarness(device=dev, backend="auto"), seed=4)
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["flat", "tiered"])
+def test_sharded_table_on_the_card_matches_plain(dev, tiered):
+    """A ("data", "model") (2, 4) mesh of eight shards sharing the card,
+    through 'auto' and 'plain': every op's statuses, found flags, overflow,
+    streams, export lanes and every shard's keys, digests and scores equal,
+    and the values too, but for the gradient sums (float32 atomics on the
+    card, at the source and again at the owner), within 1e-5 for gradients
+    at a batch-mean loss's scale.  Each owner op runs on every shard:
+    apply_grads is one update_scan a shard."""
+    from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+
+    kw = dict(capacity=8 * 8 * 128, dim=32, optimizer=SparseOptimizer("rowwise_adagrad",
+                                                                       lr=0.05))
+    if tiered:
+        kw["hot_capacity"] = 8 * 2 * 128
+    mesh = repro_torch.make_dev_mesh(2, 4)
+    tk = repro_torch.ShardedHKVTable.create(mesh, HKVEmbedding(backend="auto", **kw))
+    tp = repro_torch.ShardedHKVTable.create(mesh, HKVEmbedding(backend="plain", **kw))
+    g = np.random.default_rng(13)
+    worst = [0.0]
+
+    def same(a, b, ctx, atol=0.0):
+        if a.dtype.is_floating_point and atol:
+            err = (a - b).abs().max().item() if a.numel() else 0.0
+            worst[0] = max(worst[0], err)
+            assert err <= atol, (ctx, err)
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), ctx
+
+    def same_states(ctx, atol=0.0):
+        for i, (a, b) in enumerate(zip(tk.shards, tp.shards)):
+            tiers = (("hot", a.hot, b.hot), ("cold", a.cold, b.cold)) if tiered else (("", a, b),)
+            for name, x, y in tiers:
+                for f in ("keys", "digests", "scores", "values"):
+                    same(getattr(x.state, f).to(dev), getattr(y.state, f).to(dev),
+                         f"{ctx}: shard {i} {name} {f}", atol if f == "values" else 0.0)
+                assert (x.state.clock, x.state.epoch) == (y.state.clock, y.state.epoch), ctx
+
+    def keys(n):
+        k = g.integers(0, 2**64 - 2, size=n, dtype=np.uint64)
+        k[::13] = np.uint64(2**64 - 1)
+        return k
+
+    for step in range(3):
+        k, v = keys(4096), torch.randn(4096, 32, device=dev)
+        a, b = tk.insert_or_assign(k, v), tp.insert_or_assign(k, v)
+        same(a.status, b.status, f"insert {step}")
+        assert int(a.overflow) == int(b.overflow) == 0
+        mix = np.concatenate([k[:2048], keys(2048)])
+        a, b = tk.find(mix), tp.find(mix)
+        same(a.values, b.values, "find values")
+        same(a.found, b.found, "find found")
+        a, b = tk.find_or_insert(mix[::-1].copy()), tp.find_or_insert(mix[::-1].copy())
+        same(a.values, b.values, "find_or_insert values")
+        same(a.found, b.found, "find_or_insert found")
+        same(tk.contains(mix), tp.contains(mix), "contains")
+        same_states(f"step {step}")
+    w = torch.randn(4096, 32, device=dev)
+    tk.assign(mix, w)
+    tp.assign(mix, w)
+    tk.erase(mix[::3].copy())
+    tp.erase(mix[::3].copy())
+    pred = repro_torch.SweepPredicate.key_in_range(2**62, 2**63)
+    assert int(tk.erase_if(pred).swept) == int(tp.erase_if(pred).swept) > 0
+    a, b = tk.evict_if(repro_torch.SweepPredicate.always(), 64), \
+        tp.evict_if(repro_torch.SweepPredicate.always(), 64)
+    for x, y in zip(a.evicted, b.evicted):
+        same(x, y, "evict_if stream")
+    for bucket in range(tk.num_buckets):
+        for x, y in zip(tk.export_batch(bucket, 1), tp.export_batch(bucket, 1)):
+            same(x, y, f"export {bucket}")
+    assert tk.size() == tp.size() > 0
+    sa, sb = tk.stats(), tp.stats()
+    same(sa.occupancy_hist, sb.occupancy_hist, "stats")
+    same(sa.score_q, sb.score_q, "stats")
+    same_states("the sweeps")
+    for step in range(3):
+        toks = torch.from_numpy(g.integers(-2, 5000, size=(256, 26))).to(dev)
+        _, ra, oa = tk.lookup(toks, train=True)
+        _, rb, ob = tp.lookup(toks, train=True)
+        same(ra, rb, f"lookup {step}", 1e-5)
+        assert int(oa) == int(ob)
+        grads = torch.randn(256, 26, 32, device=dev) / 256
+        _build.reset_counts()
+        tk.apply_grads(toks, grads)
+        assert dict(_build.launch_counts) == {"update_scan": tk.n_shards}
+        tp.apply_grads(toks, grads)
+        same_states(f"train step {step}", 1e-5)
+    same(tk.lookup(toks, train=False)[1], tp.lookup(toks, train=False)[1], "serve", 1e-5)

@@ -39,6 +39,25 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_files_were_found():
     assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    port = ROOT / "src" / "repro_torch"
+    for path in (port / "distributed" / "__init__.py", port / "distributed" / "table_sharding.py",
+                 port / "launch" / "mesh.py"):
+        assert path in PORT_FILES, path
+
+
+def test_sharded_entry_points_raise_without_a_card(monkeypatch):
+    """A mesh defaults to the card and raises without one; a mesh of CPU
+    devices makes a sharded table on the CPU."""
+    from repro_torch import ShardedHKVTable, make_dev_mesh, make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: make_dev_mesh(2, 4), lambda: make_mesh((8,), ("data",)),
+                 lambda: make_dev_mesh(1, 2, device=["cpu", "cuda:0"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    t = ShardedHKVTable.create(make_dev_mesh(2, 4, device="cpu"), capacity=8 * 128, dim=4)
+    assert t.n_shards == 8 and all(s.device.type == "cpu" for s in t.shards)
+    assert t.size() == 0
 
 
 def test_create_without_device_raises_without_a_card(monkeypatch):

@@ -14,6 +14,7 @@ reference makes with `base.assign(...)`, are `base.snapshot().assign(...)`
 in the port, whose tables change in place.
 """
 
+import functools
 import threading
 
 import numpy as np
@@ -647,5 +648,98 @@ def test_wave_function_rebuilds_on_a_signature_change():
 def test_engine_refuses_tables_it_does_not_serve():
     eng = pserve.OnlineEmbeddingEngine(ppub.StaticSource(object()), wave_size=4)
     eng.submit(pserve.EmbeddingRequest(rid=0, keys=np.arange(1, 3, dtype=np.uint64)))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="ShardedHKVTable; not object"):
         eng.step()
+
+
+# =============================================================================
+# The engine over a sharded table (a 1-shard mesh)
+# =============================================================================
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_ops():
+    """The reference's sharded handle with the ops its engine calls, and
+    the prefill, jitted: its engine calls them eagerly, and eager
+    shard_map compiles on every call (tens of seconds on the CPU)."""
+    import dataclasses
+
+    import jax
+
+    from repro.distributed import table_sharding as jts
+
+    foi = jax.jit(lambda t, kh, kl: (lambda r: (r.table, r.values, r.found, r.overflow))(
+        t.find_or_insert(jcore.U64(kh, kl))))
+    find = jax.jit(lambda t, kh, kl: (lambda r: (r.table, r.values, r.found, r.overflow))(
+        t.find(jcore.U64(kh, kl), promote=False)))
+    put = jax.jit(lambda t, kh, kl, v: t.insert_or_assign(jcore.U64(kh, kl), v).table)
+
+    @dataclasses.dataclass(frozen=True)
+    class JitSharded(jts.ShardedHKVTable):
+        def _base(self):
+            return jts.ShardedHKVTable(state=self.state, semb=self.semb, mesh=self.mesh)
+
+        def find_or_insert(self, keys, *, telemetry=None):
+            t, v, f, o = foi(self._base(), keys.hi, keys.lo)
+            return jts.ShardedFindOrInsert(table=self.with_state(t.state), values=v, found=f,
+                                           overflow=o)
+
+        def find(self, keys, *, promote=True, telemetry=None):
+            assert not promote            # flat shards: a promotion is a pure read
+            t, v, f, o = find(self._base(), keys.hi, keys.lo)
+            return jts.ShardedFind(values=v, found=f, overflow=o, table=self.with_state(t.state))
+
+    def make(keys, vals):
+        t = jts.ShardedHKVTable.create(jax.make_mesh((1,), ("d",)), capacity=4 * 128, dim=DIM)
+        t = put(t, *_planes(keys), jnp.asarray(vals))
+        return JitSharded(state=t.state, semb=t.semb, mesh=t.mesh)
+
+    return make
+
+
+def _planes(keys):
+    keys = np.asarray(keys, np.uint64)
+    return (jnp.asarray((keys >> np.uint64(32)).astype(np.uint32)),
+            jnp.asarray((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+
+
+@pytest.mark.parametrize("admission", ["wave", "continuous"])
+@pytest.mark.parametrize("policy", ["admit", "readonly"])
+def test_engine_over_a_sharded_table_matches_the_reference(policy, admission):
+    """Admission runs the owners' find_or_insert (their own init rows), a
+    readonly wave the pure-reader find; per-request values and found
+    flags, wave reports, counters and the drained shards as the
+    reference's."""
+    rng = np.random.default_rng(7)
+    resident = rng.integers(1, 2**63, size=PAD).astype(np.uint64)
+    vals = rng.normal(size=(PAD, DIM)).astype(np.float32)
+    reqs = [np.concatenate([resident[i * 20:(i + 1) * 20],
+                            rng.integers(1, 2**63, size=15 + 7 * i).astype(np.uint64)])
+            for i in range(4)]
+    reqs[2][:5] = reqs[0][20:25]                       # keys admitted by request 0
+
+    def scenario(pkg):
+        if pkg is JAX:
+            t = _jax_sharded_ops()(resident, vals)
+        else:
+            t = repro_torch.ShardedHKVTable.create(
+                repro_torch.make_mesh((1,), ("d",), device="cpu"), capacity=4 * 128, dim=DIM)
+            t.insert_or_assign(resident, torch.from_numpy(vals))
+        eng = pkg.serving.OnlineEmbeddingEngine(t, wave_size=WAVE, miss_policy=policy,
+                                                admission=admission)
+        for rid, keys in enumerate(reqs):
+            eng.submit(pkg.serving.EmbeddingRequest(rid=rid, keys=keys.copy()))
+        eng.run_until_drained()
+        served = eng.source.snapshot()[1]
+        eng.drained = ([{f: np.asarray(getattr(served.state, f)) for f in convert.FIELDS}]
+                       if pkg is JAX else [convert.sharded_state_to_arrays(served.state)])
+        return eng
+
+    ej, ep = both(scenario)
+    same_engines(ej, ep, f"sharded {policy} {admission}")
+    found = np.concatenate([r.found for r in sorted(ep.completed, key=lambda r: r.rid)])
+    assert found.any() and not found.all()
+    if policy == "admit":
+        assert ep.completed[2].found[:5].all() and ep.source.offered > 0
+    else:
+        assert ep.source.offered == 0

@@ -511,3 +511,64 @@ def test_probe_counters_chunking_is_exact(monkeypatch):
               ju64.from_uint64(q.numpy().view(np.uint64)), telemetry=sj)
     pops.find(pstate, nd, q, telemetry=sp)
     assert sp.snapshot() == sj.snapshot()
+
+
+# =============================================================================
+# The sharded table: one whole-mesh record an op, the shards' sum
+# =============================================================================
+
+
+def test_psum_telemetry_sums_shard_records():
+    a = OpTelemetry.of(lanes=3, hits=2, probed_buckets=5, updated=1)
+    b = OpTelemetry.of(lanes=4, misses=4, probed_buckets=7, rejected=2)
+    got = obs_telemetry.psum_telemetry([a, b, OpTelemetry.zero()])
+    assert got.to_dict() == a.merge(b).to_dict()
+    assert all(v.dtype == torch.int64 for v in got)
+    assert obs_telemetry.psum_telemetry([]).to_dict() == OpTelemetry.zero().to_dict()
+
+
+def test_sharded_records_match_the_reference_on_one_shard():
+    """insert_or_assign, find and find_or_insert on a 1-shard mesh record
+    `sharded_insert_or_assign`, `sharded_find` and
+    `sharded_find_or_insert` equal to the reference's (the (2, 4) mesh's
+    records are held in test_torch_sharding.py), and their results are the
+    same with the sink on and off."""
+    import jax
+
+    from repro.core import U64
+    from repro.distributed.table_sharding import ShardedHKVTable as JSharded
+
+    @jax.jit
+    def j_ops(t, kh, kl, v, qh, ql):
+        s = JSink()
+        r = t.insert_or_assign(U64(kh, kl), v, telemetry=s)
+        f = r.table.find(U64(qh, ql), telemetry=s)
+        o = f.table.find_or_insert(U64(qh, ql), telemetry=s)
+        return r.status, f.values, o.values, o.found, s.by_op
+
+    rng = np.random.default_rng(21)
+    keys = rng.integers(1, 2**63, size=4 * N).astype(np.uint64)
+    q = np.concatenate([keys[:2 * N], rng.integers(1, 2**63, size=2 * N).astype(np.uint64)])
+    vals = rng.normal(size=(4 * N, DIM)).astype(np.float32)
+    planes = lambda k: (jnp.asarray((k >> np.uint64(32)).astype(np.uint32)),  # noqa: E731
+                        jnp.asarray((k & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+    jt = JSharded.create(jax.make_mesh((1,), ("d",)), capacity=2 * 128, dim=DIM)
+    st, fv, ov, of, by_op = j_ops(jt, *planes(keys), jnp.asarray(vals), *planes(q))
+    mesh = repro_torch.make_mesh((1,), ("d",), device="cpu")
+    runs = []
+    for sink in (TelemetrySink(), None):
+        pt = repro_torch.ShardedHKVTable.create(mesh, capacity=2 * 128, dim=DIM)
+        r = pt.insert_or_assign(keys, torch.from_numpy(vals), telemetry=sink)
+        f = pt.find(q, telemetry=sink)
+        o = pt.find_or_insert(q, telemetry=sink)
+        runs.append((r.status, f.values, o.values, o.found, sink))
+    for (got, want) in zip(runs[0][:4], (st, fv, ov, of)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for a, b in zip(runs[0][:4], runs[1][:4]):
+        assert torch.equal(a, b)
+    sink = runs[0][4]
+    assert set(sink.by_op) == set(by_op) == {"sharded_insert_or_assign", "sharded_find",
+                                             "sharded_find_or_insert"}
+    for op, tel in by_op.items():
+        assert sink.by_op[op].to_dict() == {k: int(v) for k, v in tel._asdict().items()}, op
+    assert sink.by_op["sharded_insert_or_assign"].to_dict()["rejected"] > 0
