@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs ten phases; any failure exits non-zero:
+sm_90a (first use), then runs eleven phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -171,6 +171,31 @@ sm_90a (first use), then runs ten phases; any failure exits non-zero:
    SHARDED_ROUTES (each owner op on each of the 8 shards), and each op is
    timed (median of 5) beside the same op on phases 3, 4 and 5's unsharded
    config B tables in the same run, with the ratio.
+11. the LM training path with the HKV embedding: qwen2-0.5b at its
+   published widths (24 layers, d_model 896, 14 heads with 2 KV heads,
+   d_ff 4864, vocab 151,936, bfloat16) through the port's launcher,
+   ``repro_torch.launch.train.main`` with ``--backend hkv --optimizer
+   adamw``, batch 8 x seq 4096 (train_4k's length; cut: its global batch
+   of 256 to 8 for one card), the table one shard of 303,872 slots at V =
+   897 on a (1, 1) mesh.  Run A: 8 steps, a checkpoint every 4; each
+   step's split (lookup, forward+backward, clip+adamw, apply_grads), its
+   distinct tokens and its launches, checked against TRAIN_LM_ROUTES; the
+   checkpoints' bytes, host-copy and write times; tokens/s over the wall
+   time of steps 1-6 (the step-4 checkpoint inside) and of steps 1-7 to the
+   run's end; the last checkpoint restored onto the run's final state, bit
+   for bit; gather_rows and scatter_rows held against their plain versions
+   at the lanes each of the run's launches got, on the run's V = 897 plane.
+   Run A2: run A again, uninterrupted: what two runs differ by.  Run B:
+   the same with a failure injected at step 6, restored from step 4 and
+   replayed: its final table's keys, digests, scores and occupancy equal
+   run A's, its losses, parameters and table values within LM_NOISE_TIMES
+   of A2's differences.  Then SDPA (what the blocks run on the card)
+   against the port's plain blocked attention, forward and gradient, at
+   qwen2's head shapes and at h2o-danube-1.8b's window (4096 at seq 8192,
+   batch 1), both timed; 3 steps of ``--backend dense`` at the same shape;
+   and one HKV step under ``torch.profiler`` (device time by operator, and
+   its share of the profiled window's wall time).  The free disk space is
+   checked before the first checkpoint.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -186,7 +211,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same ten phases at a tiny size on the
+result.  ``--rehearse`` runs the same eleven phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -335,6 +360,55 @@ SHARDED_ROUTES = {op: {k: SHARDS * v for k, v in r.items()} for op, r in {
     "apply_grads": TRAIN_ROUTES["apply_grads"], "lookup_serve": ROUTES["find"][2],
     "admit wave": ROUTES["find_or_insert"][2], "readonly wave": ROUTES["find"][2],
     "assign": {}, "erase": {}, "export_batch": {}, "stats": {}}.items()}
+# the LM training path (phase 11): qwen2-0.5b at its published widths through
+# the port's launcher (``repro_torch.launch.train``), the token embedding in a
+# ShardedHKVTable of one shard on a (1, 1) mesh.  A step is one sharded
+# lookup (the owner's dual-bucket find_or_insert: claim_scan only when the
+# step's batch holds a token the table has not seen) and one apply_grads
+# (update_scan)
+LM_ARCH = "qwen2-0.5b"
+TRAIN_LM_ROUTES = {"lookup": TRAIN_ROUTES["lookup_train"],
+                   "apply_grads": TRAIN_ROUTES["apply_grads"]}
+LM_STEPS, LM_CKPT_EVERY, LM_FAIL_AT = 8, 4, 6
+LM_LR = 3e-4                       # the launcher's adamw
+LM_GLOBAL_BATCH = 256              # the train_4k shape's global batch
+# run B (restored at step 4 and replayed) against run A, on the card, is held
+# to what two uninterrupted runs of the same code differ by, measured in the
+# same call (run A2 against run A).  Two runs of one bfloat16 training differ,
+# restore or not: the card sums in orders that change from run to run (float32
+# atomics in apply_grads' index_add_ and in the attention's backward),
+# bfloat16 rounds each layer's result, and both optimizers turn a noise-level
+# gradient into a full step (adamw divides a coordinate by its own scale;
+# rowwise_adagrad steps a row by lr along its gradient's direction).  So run B
+# is one more sample of the same spread, and each of its differences is held
+# to a multiple of A2's.  The bulk statistics hold the replay: the mean
+# absolute difference over all 494M parameters and over the trained rows'
+# elements, and the median row's difference relative to its largest element,
+# average over millions of elements, and on an H100 run B's came within 7% of
+# A2's in every run that measured them (the median row in four runs, 1.50% to
+# 1.56%; the means in two, parameters 2.72e-6 to 2.79e-6, rows 7.0e-4 to
+# 7.59e-4): 1.5 times A2's.  A replay off its data, its optimizer state or its
+# table moves them far more.  The largest differences are extremes of a few
+# noise-led coordinates: a parameter's saturates near 8 adamw steps (8 x lr
+# 3e-4 = 2.4e-3; 2.2e-3 to 2.9e-3 measured), 3 times A2's; a row element's
+# ranged 0.052 to 0.175 (ten differences from six runs) and the losses'
+# (relative, the largest of 8 steps) 7.7e-5 to 3.0e-4 (nine from five), a
+# factor of 3.4 and 3.9 between two samples: 10 times A2's, which catches a
+# run gone wrong (the run's losses differ by more than 1e-2 from one batch to
+# the next), not a few rows replayed wrong; those hide in the noise, and the
+# restore itself is checked bit for bit on run A's last checkpoint. The floors
+# stand where A2 came out nearly equal.  Keys, digests, scores and occupancy
+# are exact.
+LM_NOISE_TIMES = {"loss": 10, "params": 3, "params_mean": 1.5, "values": 10, "values_mean": 1.5,
+                  "median_row": 1.5}
+LM_NOISE_FLOOR = {"loss": 1e-5, "params": 3e-5, "params_mean": 1e-7, "values": 1e-3,
+                  "values_mean": 1e-5, "median_row": 1e-3}
+# the card's attention (SDPA) against the port's plain blocked attention:
+# bfloat16 operands; the plain form keeps float32 scores and products and
+# rounds only its outputs, SDPA's kernels round P to bfloat16 before the PV
+# product, so the two differ at bfloat16's precision: relative L2 error
+# 1e-2 for the output and each gradient
+LM_ATTN_RTOL = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,16 +428,21 @@ class Sizes:
     serve_waves: int         # waves of runs 1 and 2 (the twins: half)
     serve_ticks: int         # ticks of run 3 (burst arrivals)
     many_capacity: int       # phase 9's NUM_SPARSE tables of find_many_kernel
+    lm_batch: int            # phase 11's sequences a step (the global batch of 256, cut)
+    lm_seq: int              # phase 11's sequence length (train_4k's)
+    swa_seq: int             # phase 11's danube attention check: sequence and window
+    swa_window: int
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
              hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5,
              hot_capacity=2**24, serve_wave=2**16, serve_samples=2520, serve_waves=24,
-             serve_ticks=48, many_capacity=2**22)
+             serve_ticks=48, many_capacity=2**22, lm_batch=8, lm_seq=4096, swa_seq=8192,
+             swa_window=4096)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
              hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3,
              hot_capacity=2**9, serve_wave=2**7, serve_samples=4, serve_waves=8, serve_ticks=12,
-             many_capacity=2**10)
+             many_capacity=2**10, lm_batch=2, lm_seq=32, swa_seq=256, swa_window=64)
 DIM = 32
 
 
@@ -443,6 +522,7 @@ class Smoke:
         self.launches_train: dict[str, int] = {}
         self.launches_serve: dict[str, int] = {}
         self.launches_sharded: dict[str, int] = {}
+        self.launches_lm: dict[str, int] = {}
         self.train_cmp: dict[str, float] = {}
         # unsharded config B op times of phases 3-5 (ms), for phase 10's ratios
         self.unsharded: dict[str, float] = {}
@@ -613,7 +693,8 @@ class Smoke:
                   ("the serving path", self.phase_serve),
                   ("telemetry, baselines and the multi-table find at config B",
                    self.phase_tel_base),
-                  ("the sharded table", self.phase_sharded)]
+                  ("the sharded table", self.phase_sharded),
+                  ("the LM training path with the HKV embedding", self.phase_lm)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -3332,6 +3413,416 @@ class Smoke:
                    else " (median of waves 2-10)"))
 
 
+    # phase 11 -------------------------------------------------------------
+
+    def lm_argv(self, ckpt_dir, backend: str = "hkv", steps: int = LM_STEPS,
+                every: int = LM_CKPT_EVERY) -> list:
+        """The launcher's arguments: qwen2-0.5b's published widths on the
+        card (its smoke config in the rehearsal), adamw, seq 4096."""
+        sz = self.sz
+        return (["--arch", LM_ARCH, "--backend", backend, "--optimizer", "adamw",
+                 "--batch", str(sz.lm_batch), "--seq", str(sz.lm_seq), "--steps", str(steps),
+                 "--checkpoint-every", str(every), "--ckpt-dir", str(ckpt_dir),
+                 "--seed", str(SEED), "--device", self.dev.type]
+                + (["--smoke"] if self.dev.type == "cpu" else []))
+
+    def lm_config(self):
+        import dataclasses as dc
+
+        from repro_torch.configs import get_arch
+
+        arch = get_arch(LM_ARCH)
+        lm = arch.smoke if self.dev.type == "cpu" else arch.lm
+        return dc.replace(lm, embedding_backend="hkv", tied_head=False)
+
+    def phase_lm(self):
+        """The port's LM training path (see the module note)."""
+        import numpy as np
+
+        from repro_torch import tree
+        from repro_torch.data import TokenStream
+        from repro_torch.kernels import ops as kops
+        from repro_torch.launch import train
+        from repro_torch.models.lm import CompositeLM
+        from repro_torch.train import checkpoint as ckpt
+
+        torch, sz = self.torch, self.sz
+        self.free()
+        lm = self.lm_config()
+        n_params = sum(p.numel() for p in tree.leaves(CompositeLM(lm).init(device="meta")))
+        cap = train.hkv_capacity(lm.vocab)
+        # parameters and adamw's two moments, float32; the table's planes
+        ckpt_bytes = 3 * 4 * n_params + cap * ((lm.d_model + 1) * 4 + 17)
+        root = ROOT / "runs" / "chip_smoke_lm"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        free = shutil.disk_usage(root).free
+        # two step directories of one run and the third one's .tmp
+        require(free >= 3 * ckpt_bytes,
+                f"phase 11: {free / 1e9:.1f} GB free under {root}, the checkpoints need "
+                f"{3 * ckpt_bytes / 1e9:.1f} GB (3 of {ckpt_bytes / 1e9:.2f} GB)")
+        log(f"phase 11: {LM_ARCH} {'smoke config' if self.dev.type == 'cpu' else 'at full width'}"
+            f": {lm.num_layers} layers, d_model {lm.d_model}, "
+            f"{lm.segments[0].block.heads} heads / {lm.segments[0].block.kv_heads} KV heads, "
+            f"d_ff {lm.segments[0].block.d_ff}, vocab {lm.vocab}, {lm.dtype}, "
+            f"{n_params} parameters (untied head, no embedding table); HKV table {cap} slots "
+            f"at V = {lm.d_model + 1} (rowwise_adagrad), one shard on a (1, 1) mesh; batch "
+            f"{sz.lm_batch} x seq {sz.lm_seq} = {sz.lm_batch * sz.lm_seq} tokens a step; cut: "
+            f"the train_4k shape's global batch of {LM_GLOBAL_BATCH} to {sz.lm_batch} for one "
+            f"card; {free / 1e9:.1f} GB free for checkpoints of ~{ckpt_bytes / 1e9:.2f} GB")
+
+        stream = TokenStream(seed=SEED, batch=sz.lm_batch, seq=sz.lm_seq, vocab=lm.vocab)
+        seen: set = set()
+        distinct, fresh = [], []
+        for step in range(LM_STEPS):
+            toks = np.unique(stream.batch_at(step)[0])
+            distinct.append(toks.size)
+            fresh.append(bool(len(set(toks.tolist()) - seen)))
+            seen.update(toks.tolist())
+
+        # run A: LM_STEPS steps, checkpoints every LM_CKPT_EVERY.  The lanes
+        # that each gather_rows and scatter_rows launch of the path gets are
+        # kept (the wrappers are wrapped where kernels/ops.py calls them),
+        # to hold both against their plain versions after the run
+        counts = self._build.launch_counts
+        per_step, mark, walls = [], {}, []
+        row_calls = {"gather": [], "scatter": []}
+        gather_rows, scatter_rows = kops.gather_rows, kops.scatter_rows
+
+        def gather(values, rows, mask, width=None):
+            row_calls["gather"].append((rows.clone(), mask.clone(), width))
+            return gather_rows(values, rows, mask, width)
+
+        def scatter(values, rows, updates, mask, add):
+            row_calls["scatter"].append((rows.clone(), mask.clone(), add))
+            return scatter_rows(values, rows, updates, mask, add)
+
+        with self.stage_lanes() as lanes:
+            def hook(step):
+                """Called by TrainDriver before each step, after its batch
+                is on the card: the launches and victim stages since the
+                last call are the last step's, and `walls` the wall clock."""
+                self.sync()
+                walls.append(time.perf_counter())
+                now, victims = dict(counts), len(lanes["victim"])
+                if mark:
+                    per_step.append(({k: v - mark["counts"].get(k, 0) for k, v in now.items()
+                                      if v != mark["counts"].get(k, 0)},
+                                     victims - mark["victims"]))
+                mark.update(counts=now, victims=victims)
+
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            self.sync()
+            self._build.reset_counts()
+            kops.gather_rows, kops.scatter_rows = gather, scatter
+            try:
+                t0 = time.perf_counter()
+                hist_a = train.main(self.lm_argv(root / "a"), failure_injector=hook)
+                t_a = time.perf_counter() - t0
+                hook(LM_STEPS)
+            finally:
+                kops.gather_rows, kops.scatter_rows = gather_rows, scatter_rows
+            self.launches_lm = dict(counts)
+        peak = torch.cuda.max_memory_allocated() if self.dev.type == "cuda" else 0
+        route = {}
+        for r in TRAIN_LM_ROUTES.values():
+            for k, v in r.items():
+                route[k] = route.get(k, 0) + v
+        require(len(per_step) == LM_STEPS, f"phase 11: {len(per_step)} steps counted")
+        for step, ((got, claims), m) in enumerate(zip(per_step, hist_a["metrics"])):
+            require(claims == int(fresh[step]),
+                    f"phase 11 step {step}: {claims} victim stages, the batch has "
+                    f"{'a' if fresh[step] else 'no'} token the table has not seen")
+            want = self.route(route, claims > 0)
+            if self.dev.type == "cuda":
+                require(got == want, f"phase 11 step {step}: launches {got}, TRAIN_LM_ROUTES "
+                        f"give {want}")
+            require(np.isfinite(m["loss"]) and m["emb_overflow"] == 0,
+                    f"phase 11 step {step}: loss {m['loss']}, overflow {m['emb_overflow']}")
+            log(f"phase 11 run A step {step}: lookup {m['lookup_ms']:.3f} ms, forward+backward "
+                f"{m['fwd_bwd_ms']:.3f} ms, clip+adamw {m['opt_ms']:.3f} ms, apply_grads "
+                f"{m['apply_ms']:.3f} ms; loss {m['loss']:.6f}, grad norm {m['grad_norm']:.4f}; "
+                f"{distinct[step]} distinct tokens; launches {json.dumps(got)}")
+        parts = ("lookup_ms", "fwd_bwd_ms", "opt_ms", "apply_ms")
+        med = {k: statistics.median(m[k] for m in hist_a["metrics"][1:]) for k in parts}
+        step_ms = statistics.median(sum(m[k] for k in parts) for m in hist_a["metrics"][1:])
+        tokens = sz.lm_batch * sz.lm_seq
+        # the wall clock at each step's start (its batch on the card), and at
+        # the run's end: a step's wall time holds its syncs, the next batch's
+        # copy and, after steps 3 and 7, a checkpoint's host copy (the last
+        # one's write too, which the run waits for)
+        wall_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+        wall_step_ms = statistics.median(wall_ms[1:])
+        last = LM_STEPS - 1
+        wall_tps = (last - 1) * tokens / (walls[last] - walls[1])
+        wall_tps_end = last * tokens / (walls[LM_STEPS] - walls[1])
+        log(f"phase 11 run A: medians over steps 1-{last} of the parts' CUDA-event spans: step "
+            f"{step_ms:.3f} ms (lookup {med['lookup_ms']:.3f}, forward+backward "
+            f"{med['fwd_bwd_ms']:.3f}, clip+adamw {med['opt_ms']:.3f}, apply_grads "
+            f"{med['apply_ms']:.3f}); wall time a step {', '.join(f'{x:.3f}' for x in wall_ms)} "
+            f"ms (median of steps 1-{last} {wall_step_ms:.3f}); tokens/s over the wall time of "
+            f"steps 1-{last - 1} (the step-{LM_CKPT_EVERY} checkpoint inside) {wall_tps:.1f}, of "
+            f"steps 1-{last} to the run's end (the last checkpoint written) {wall_tps_end:.1f}; "
+            f"distinct tokens a step {statistics.median(distinct[1:])} (of {tokens}), "
+            f"{len(seen)} over the run; peak memory {peak / 2**30:.2f} GiB; the run {t_a:.1f} s; "
+            f"launches over the run {json.dumps(self.launches_lm)}")
+        for p in hist_a["checkpoints"]:
+            log(f"phase 11 run A checkpoint at step {p.step}: {p.nbytes} bytes, save_async host "
+                f"copy {p.host_copy_s:.3f} s, write {p.write_s:.3f} s "
+                f"({p.nbytes / p.write_s / 1e9:.2f} GB/s)")
+
+        # the last checkpoint restored onto run A's final state: bit for bit
+        state_a = hist_a["state"]
+        self.sync()
+        t0 = time.perf_counter()
+        restored, extra = ckpt.restore(str(root / "a"), LM_STEPS, state_a)
+        self.sync()
+        t_restore = time.perf_counter() - t0
+        require(extra == {"seed": SEED, "step": LM_STEPS}, f"phase 11: checkpoint extra {extra}")
+        self.lm_same(restored, state_a, "restore of run A's last checkpoint", exact=True)
+        log(f"phase 11: restore of step {LM_STEPS} ({hist_a['checkpoints'][-1].nbytes} bytes) "
+            f"{t_restore:.3f} s; every leaf bit for bit the saved state's")
+        del restored
+        shutil.rmtree(root / "a")
+        self.lm_rows(state_a[2].state[0].values, row_calls)
+        del row_calls
+        self.free()
+
+        # run A2: run A again: what two runs of the same code differ by
+        t0 = time.perf_counter()
+        hist_a2 = train.main(self.lm_argv(root / "a2"))
+        t_a2 = time.perf_counter() - t0
+        noise_loss = max(abs(a - b) / abs(a) for a, b in zip(hist_a["loss"], hist_a2["loss"]))
+        noise = self.lm_same(hist_a2["state"], state_a, "run A2 against run A", exact=False)
+        log(f"phase 11 run A2 (run A again, uninterrupted): final table keys, digests, scores "
+            f"and occupancy equal run A's; losses within a relative {noise_loss:.3g}, parameters "
+            f"within {noise['params']:.3g} (mean {noise['params_mean']:.3g}), table values within "
+            f"{noise['values']:.3g} (mean {noise['values_mean']:.3g}), the median row within "
+            f"{noise['median_row']:.3g} of its largest element; the run {t_a2:.1f} s")
+        del hist_a2
+        shutil.rmtree(root / "a2")
+        self.free()
+
+        # run B: the same, with a failure at step LM_FAIL_AT (once)
+        armed = {"on": True}
+
+        def boom(step):
+            if step == LM_FAIL_AT and armed["on"]:
+                armed["on"] = False
+                raise RuntimeError("injected failure")
+
+        t0 = time.perf_counter()
+        hist_b = train.main(self.lm_argv(root / "b"), failure_injector=boom)
+        t_b = time.perf_counter() - t0
+        restores = [s for s, _ in hist_b["restores"]]
+        require(hist_b["restarts"] == 1 and restores == [LM_CKPT_EVERY],
+                f"phase 11 run B: {hist_b['restarts']} restarts, restored {restores}")
+        # steps 0..LM_FAIL_AT-1, then LM_CKPT_EVERY.. replayed
+        replay = hist_b["loss"][LM_FAIL_AT:]
+        losses_b = hist_b["loss"][:LM_CKPT_EVERY] + replay
+        require(len(losses_b) == LM_STEPS, f"phase 11 run B: {len(hist_b['loss'])} losses")
+        diffs = self.lm_same(hist_b["state"], state_a, "run B against run A", exact=False)
+        diffs["loss"] = max(abs(a - b) / abs(a) for a, b in zip(hist_a["loss"], losses_b))
+        noise["loss"] = noise_loss
+        bounds = {k: max(LM_NOISE_TIMES[k] * noise[k], LM_NOISE_FLOOR[k]) for k in LM_NOISE_TIMES}
+        held = "; ".join(f"{k} {diffs[k]:.3g} (A2 {noise[k]:.3g}, bound {bounds[k]:.3g})"
+                         for k in LM_NOISE_TIMES)
+        require(all(diffs[k] <= bounds[k] for k in LM_NOISE_TIMES),
+                f"phase 11 run B against run A, beside run A2's differences: {held}")
+        log(f"phase 11 run B: failure at step {LM_FAIL_AT}, restored step {restores[0]} in "
+            f"{hist_b['restores'][0][1]:.3f} s, replayed; final table keys, digests, scores "
+            f"and occupancy equal run A's; its differences from run A (losses relative, the "
+            f"median row relative to its largest element, the rest absolute) beside run A2's: "
+            f"{held}; the run {t_b:.1f} s")
+        del state_a, hist_a, hist_b
+        self.free()
+
+        self.lm_attention()
+
+        # the same shape on the dense backend: what the HKV embedding costs
+        t0 = time.perf_counter()
+        hist_d = train.main(self.lm_argv(root / "d", "dense", steps=3, every=3))
+        t_d = time.perf_counter() - t0
+        dense_ms = statistics.median(m["fwd_bwd_ms"] + m["opt_ms"] for m in hist_d["metrics"][1:])
+        log(f"phase 11 dense backend (tied {lm.vocab} x {lm.d_model} table in the parameters): "
+            f"steps 1-2 median {dense_ms:.3f} ms (forward+backward "
+            f"{statistics.median(m['fwd_bwd_ms'] for m in hist_d['metrics'][1:]):.3f}, "
+            f"clip+adamw {statistics.median(m['opt_ms'] for m in hist_d['metrics'][1:]):.3f}); "
+            f"losses {', '.join(f'{x:.6f}' for x in hist_d['loss'])}; the run {t_d:.1f} s; the "
+            f"HKV step over the dense one: {step_ms - dense_ms:+.3f} ms "
+            f"({step_ms / dense_ms:.3f}x)")
+        del hist_d
+        self.free()
+        self.lm_profile(root, wall_step_ms)
+        shutil.rmtree(root, ignore_errors=True)
+        self.free()
+
+    def lm_profile(self, root, wall_step_ms: float):
+        """One HKV step (after two) under ``torch.profiler`` on the card: the
+        device time by operator, and the card's busy share of the profiled
+        window's wall time (the step, from its batch on the card to a
+        synchronize; the profiler's own cost inflates the window) and of run
+        A's median wall step."""
+        torch = self.torch
+        if self.dev.type != "cuda":
+            log("phase 11 profile: on the card only")
+            return
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.launch import train
+
+        driver = train.build(train.parse_args(self.lm_argv(root / "p", steps=3)))
+        state = driver.state
+        for step in range(2):
+            state, _ = driver.step_fn(state, driver.batch_fn(step))
+        batch = driver.batch_fn(2)
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = driver.step_fn(state, batch)
+            self.sync()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        device_ms = sum(e.self_device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA) / 1e3
+        ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        log(f"phase 11 profile of one HKV step: {device_ms:.3f} ms of device time in a "
+            f"{window_ms:.3f} ms window, a busy share of {device_ms / window_ms:.3f} (idle "
+            f"{1 - device_ms / window_ms:.3f}); {device_ms / wall_step_ms:.3f} of run A's median "
+            f"wall step ({wall_step_ms:.3f} ms); by operator: "
+            + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms ({e.count})"
+                        for e in ops[:16]))
+        del driver, state, batch
+
+    def lm_rows(self, values, calls):
+        """gather_rows and scatter_rows against their plain versions on the
+        LM path's own plane (run A's final values, V = d_model + 1) at the
+        lanes, mask and width each of run A's launches got: bit for bit.
+        scatter_rows writes copies of the plane, in the launch's mode, rows
+        drawn once per distinct target row (lanes aimed at one row carry the
+        same row, as the path's init rows do); both are timed on the last
+        launch's lanes."""
+        torch, runs = self.torch, self.sz.timed_runs
+        r_tot, v = values.shape
+        if self.dev.type != "cuda":
+            log("phase 11: the row kernels at the path's lanes: on the card only (the CPU path "
+                "takes the plain stages)")
+            return
+        require(calls["gather"] and calls["scatter"],
+                f"phase 11: run A launched gather_rows {len(calls['gather'])} and scatter_rows "
+                f"{len(calls['scatter'])} times")
+        for i, (rows, mask, width) in enumerate(calls["gather"]):
+            self.check_equal("gather_rows", (self.ga.gather_rows(values, rows, mask, width),),
+                             (self.ga.gather_rows_plain(values, rows.clamp(0, r_tot - 1), mask,
+                                                        width),),
+                             f"LM lookup {i}: {rows.shape[0]} lanes, V={v} width {width or v}")
+        for i, (rows, mask, add) in enumerate(calls["scatter"]):
+            uniq, inv = torch.unique(rows, return_inverse=True)
+            upd = torch.randn((uniq.shape[0], v), generator=self.gen, device=self.dev)[inv]
+            got, want = values.clone(), values.clone()
+            self.sc.scatter_rows(got, rows, upd.to(values.dtype), mask, add)
+            self.sc.scatter_rows_plain(want, rows, upd.to(values.dtype), mask, add)
+            self.check_equal("scatter_rows", (got,), (want,),
+                             f"LM lookup {i}: {int(mask.sum())} of {rows.shape[0]} lanes, V={v} "
+                             f"{'add' if add else 'set'}")
+            del got, want
+        rows, mask, width = calls["gather"][-1]
+        t_g = self.time_ms(lambda: self.ga.gather_rows(values, rows, mask, width), runs)
+        rows_c = rows.clamp(0, r_tot - 1)
+        t_gp = self.time_ms(lambda: self.ga.gather_rows_plain(values, rows_c, mask, width), 2)
+        rows, mask, add = calls["scatter"][-1]
+        upd = torch.randn((rows.shape[0], v), generator=self.gen, device=self.dev)
+        plane = values.clone()
+        t_s = self.time_ms(lambda: self.sc.scatter_rows(plane, rows, upd, mask, add), runs)
+        t_sp = self.time_ms(lambda: self.sc.scatter_rows_plain(plane, rows, upd, mask, add), 2)
+        log(f"phase 11: gather_rows ({len(calls['gather'])} launches) and scatter_rows "
+            f"({len(calls['scatter'])}) bit for bit their plain versions at run A's lanes on its "
+            f"V = {v} plane; the last launch's lanes: gather_rows {t_g:.4f} ms (plain "
+            f"{t_gp:.4f}), scatter_rows {t_s:.4f} ms (plain {t_sp:.4f})")
+        del plane, upd
+        self.free()
+
+    def lm_same(self, got, want, ctx: str, exact: bool) -> dict:
+        """Two train states (params, adamw state, sharded table): the table's
+        keys, digests, scores, clock and occupancy must be equal, and with
+        `exact` every parameter, moment and value too.  Returns the largest
+        and the mean absolute differences of the parameters and of the
+        trained rows' values, and the median row's relative to its largest
+        element."""
+        import numpy as np
+
+        from repro_torch import convert, tree
+
+        torch = self.torch
+        (gp, go, gt), (wp, wo, wt) = got, want
+        worst = dict.fromkeys(LM_NOISE_TIMES, 0.0)
+        total, n_params = 0.0, 0
+        for i, (a, b) in enumerate(zip(tree.leaves((gp, go)), tree.leaves((wp, wo)))):
+            require(a.dtype == b.dtype and a.shape == b.shape, f"phase 11 {ctx}: leaf {i}")
+            if exact or not a.dtype.is_floating_point:
+                require(torch.equal(a, b), f"phase 11 {ctx}: leaf {i} differs")
+            elif i < len(tree.leaves(gp)):
+                d = (a.float() - b.float()).abs()
+                worst["params"] = max(worst["params"], d.max().item())
+                total, n_params = total + d.double().sum().item(), n_params + d.numel()
+        worst["params_mean"] = total / max(n_params, 1)
+        ga, wa = convert.sharded_state_to_arrays(gt.state), convert.sharded_state_to_arrays(wt.state)
+        for f in convert.FIELDS:
+            if f == "values" and not exact:
+                d = np.abs(ga[f] - wa[f])
+                worst["values"] = float(d.max())
+                scale = np.abs(wa[f][:, :-1]).max(axis=1)
+                live = scale > 0
+                worst["values_mean"] = float(d[live, :-1].mean())
+                worst["median_row"] = float(np.median(d[live, :-1].max(axis=1) / scale[live]))
+            else:
+                require(np.array_equal(ga[f], wa[f]), f"phase 11 {ctx}: table {f} differ")
+        require(gt.size() == wt.size(), f"phase 11 {ctx}: occupancy {gt.size()}, {wt.size()}")
+        return worst
+
+    def lm_attention(self):
+        """The card's attention (SDPA, what the blocks run there) against the
+        port's plain blocked attention, forward and gradient, at qwen2-0.5b's
+        head shapes (14 heads, 2 KV heads, dim 64) at the phase's batch and
+        sequence, and h2o-danube-1.8b's (32 / 8, dim 80) with its window
+        at twice the sequence, batch 1.  Both timed, forward and backward."""
+        from repro_torch.models.common import blocked_causal_attention, sdpa_causal_attention
+
+        torch, sz = self.torch, self.sz
+        dtype = torch.bfloat16 if self.dev.type == "cuda" else torch.float32
+        for name, b, s, hq, hkv, dh, window in (
+                ("qwen2-0.5b", sz.lm_batch, sz.lm_seq, 14, 2, 64, None),
+                ("h2o-danube-1.8b", 1, sz.swa_seq, 32, 8, 80, sz.swa_window)):
+            q, k, v = (torch.randn((b, s, h, dh), generator=self.gen, device=self.dev).to(dtype)
+                       for h in (hq, hkv, hkv))
+            do = torch.randn((b, s, hq, dh), generator=self.gen, device=self.dev).to(dtype)
+
+            def run(fn):
+                qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                out = fn(qq, kk, vv, window=window)
+                return (out.detach(), *torch.autograd.grad(out, (qq, kk, vv), do))
+
+            lib, plain = run(sdpa_causal_attention), run(blocked_causal_attention)
+            errs = []
+            for what, a, w in zip(("out", "dq", "dk", "dv"), lib, plain):
+                rel = ((a.float() - w.float()).norm() / w.float().norm()).item()
+                errs.append(f"{what} {rel:.3g} (max abs {(a.float() - w.float()).abs().max().item():.3g})")
+                require(rel <= LM_ATTN_RTOL, f"phase 11 attention {name}: {what} differs by a "
+                        f"relative {rel} (bound {LM_ATTN_RTOL})")
+            t_lib = self.time_ms(lambda: run(sdpa_causal_attention), 3)
+            t_plain = self.time_ms(lambda: run(blocked_causal_attention), 3)
+            log(f"phase 11 attention {name} (batch {b}, seq {s}, {hq}/{hkv} heads, dim {dh}, "
+                f"window {window}, {dtype}): SDPA against the plain blocked form, relative L2 "
+                f"error {', '.join(errs)} (bound {LM_ATTN_RTOL}); forward+backward SDPA "
+                f"{t_lib:.3f} ms, plain {t_plain:.3f} ms (median of 3)")
+            del q, k, v, do, lib, plain
+            self.free()
+
+
     # ----------------------------------------------------------------- report
 
     def report(self):
@@ -3489,14 +3980,15 @@ class Smoke:
             # training path's phase 5 for update_scan, each with the serving
             # path's phase 8; no op calls bucket_stats, so no path launches it;
             # find_scan_many: phase 9's counted find_many_kernel call; and
-            # each with the sharded table's phase 10
+            # each with the sharded table's phase 10 and the LM path's phase 11
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": (path.get(name, 0) + self.launches_serve.get(name, 0)
-                             + self.launches_sharded.get(name, 0)),
+                             + self.launches_sharded.get(name, 0)
+                             + self.launches_lm.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

@@ -13,17 +13,22 @@ plane is in pinned host memory, ``value_tier='hmem'``).  The sharded table:
 ``ShardedHKVTable`` over a mesh from ``repro_torch.launch.mesh.make_dev_mesh``.
 """
 
-from repro_torch.core.api import (HKVTable, KVTable, OpSession, dedupe_keys, normalize_keys,
-                                  table_signature)
+from repro_torch.core.api import (HKVTable, KVTable, OpSession, TableEvictIf, TableFindOrInsert,
+                                  TableInsertAndEvict, TableSweep, TableUpsert, dedupe_keys,
+                                  normalize_keys, table_signature)
 from repro_torch.core.merge import EvictionStream
 from repro_torch.core.ops import RowUpdate
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
-from repro_torch.core.tiered import TieredHKVTable, TieredState, translate_scores
+from repro_torch.core.tiered import (TieredDemote, TieredEvictIf, TieredFind, TieredFindOrInsert,
+                                     TieredHKVTable, TieredState, TieredSweep, TieredUpsert,
+                                     translate_scores)
 from repro_torch.distributed import ShardedHKVEmbedding, ShardedHKVTable
 from repro_torch.launch.mesh import Mesh, make_dev_mesh, make_mesh
 
 __all__ = ["EvictionStream", "HKVConfig", "HKVState", "HKVTable", "KVTable", "Mesh", "OpSession",
            "RowUpdate", "ShardedHKVEmbedding", "ShardedHKVTable", "SweepPredicate",
-           "TieredHKVTable", "TieredState", "dedupe_keys", "make_dev_mesh", "make_mesh",
-           "normalize_keys", "table_signature", "translate_scores"]
+           "TableEvictIf", "TableFindOrInsert", "TableInsertAndEvict", "TableSweep", "TableUpsert",
+           "TieredDemote", "TieredEvictIf", "TieredFind", "TieredFindOrInsert", "TieredHKVTable",
+           "TieredState", "TieredSweep", "TieredUpsert", "dedupe_keys", "make_dev_mesh",
+           "make_mesh", "normalize_keys", "table_signature", "translate_scores"]

@@ -39,6 +39,15 @@ The dictionary baselines' states come across the same way:
 ``dlrm_params_from_jax`` carries the reference DLRM's parameter dict
 (``bottom1``, ``bottom2``, ``top1``, ``top2`` as numpy arrays) into a state
 dict for the port's ``models.dlrm.DLRM``.
+
+``lm_params_from_jax`` carries a reference ``CompositeLM`` parameter tree
+(dicts and lists of numpy arrays, ``None`` for an empty slot, a segment's
+leaves stacked [repeats, count, ...] as the reference stacks them) into
+the port's tree of the same structure, and ``lm_params_to_numpy`` back;
+``opt_state_from_jax`` carries the dense optimizers' states (whose trees
+mirror the parameters', with an int32 step count) the same way.  A torch
+generator cannot reproduce ``jax.random``, so parameters drawn by the
+reference come across this way.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core import table as table_mod
 from repro_torch.core import u64
 from repro_torch.core.predicates import SweepPredicate
@@ -264,3 +274,25 @@ def dlrm_params_from_jax(params_np: Mapping) -> dict[str, torch.Tensor]:
     """The reference DLRM's parameters (numpy arrays, [fan_in, fan_out] as
     the port's) -> a state dict for ``DLRM.load_state_dict``."""
     return {k: torch.from_numpy(np.array(params_np[k], dtype=np.float32)) for k in DLRM_PARAMS}
+
+
+def _tree_from_numpy(arrays: Any, device=None) -> Any:
+    device = table_mod.resolve_device(device)
+    return tree.map(lambda a: values_from_numpy(a).to(device), arrays)
+
+
+def lm_params_from_jax(params_np: Any, device=None) -> Any:
+    """A reference LM parameter tree (numpy leaves) -> the port's, each leaf
+    a tensor of the same dtype and bits on `device` (default: the card)."""
+    return _tree_from_numpy(params_np, device)
+
+
+def lm_params_to_numpy(params: Any) -> Any:
+    """The port's LM parameter tree -> numpy leaves, the same structure."""
+    return tree.map(values_to_numpy, params)
+
+
+def opt_state_from_jax(state_np: Any, device=None) -> Any:
+    """A reference dense optimizer's state (numpy leaves: moments, int8
+    blocks and scales, factored moments, the int32 count) -> the port's."""
+    return _tree_from_numpy(state_np, device)

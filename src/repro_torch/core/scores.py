@@ -36,6 +36,10 @@ class ScorePolicy:
     def is_custom(self) -> bool:
         return self.name == "custom"
 
+    @property
+    def counts_frequency(self) -> bool:
+        return self.name in ("lfu", "epoch_lfu")
+
     def _need_custom(self, custom):
         if custom is None:
             raise ValueError("policy 'custom' requires caller-supplied scores")

@@ -78,6 +78,10 @@ class HKVConfig:
     def policy(self) -> ScorePolicy:
         return get_policy(self.score_policy)
 
+    def bytes_per_entry(self) -> int:
+        # key 8 B + digest 1 B + score 8 B (paper §5.1: 17 B metadata) + value
+        return 17 + self.total_value_dim * self.value_dtype.itemsize
+
 
 @dataclasses.dataclass
 class HKVState:
@@ -95,6 +99,10 @@ class HKVState:
         return self.keys.device
 
     @property
+    def num_buckets(self) -> int:
+        return self.keys.shape[0]
+
+    @property
     def slots_per_bucket(self) -> int:
         return self.keys.shape[1]
 
@@ -105,6 +113,14 @@ class HKVState:
 
     def occupied_mask(self) -> torch.Tensor:
         return ~u64.empty_lanes(self.keys)
+
+    def load_factor(self) -> torch.Tensor:
+        """float32 []: live slots over all slots."""
+        return self.occupied_mask().sum().to(torch.float32) / float(self.keys.numel())
+
+    def bucket_occupancy(self) -> torch.Tensor:
+        """int32 [B]: live entries per bucket."""
+        return self.occupied_mask().sum(dim=1, dtype=torch.int32)
 
     @property
     def host_values(self) -> bool:

@@ -1,6 +1,6 @@
-"""Seeded Zipfian key streams and request arrival processes (the port's
-copy of the key and arrival generators of ``repro/data/synthetic.py``,
-numpy only, bit for bit the reference's).
+"""Seeded Zipfian key streams, request arrival processes and LM token
+batches (the port's copy of ``repro/data/synthetic.py``, numpy only, bit
+for bit the reference's).
 
 `zipf_ranks` draws ranks from a truncated Zipf(α) through the analytic
 inverse CDF of the harmonic approximation; `zipf_keys` maps ranks through
@@ -9,6 +9,8 @@ generators give the request sizes of the serving engine's ticks.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -97,3 +99,34 @@ def arrival_sizes(kind: str, rng: np.random.Generator, ticks: int,
         raise ValueError(
             f"arrival kind {kind!r}; one of {ARRIVAL_KINDS}") from None
     return fn(rng, ticks, wave_size, **kwargs)
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic LM token batches with Zipfian unigram statistics.
+
+    Yields (tokens, labels) int32 [batch, seq]: labels are tokens shifted
+    by one (next-token LM).  `rank`/`world` slice the global batch for DP;
+    each batch is a pure function of (seed, step, rank, world).
+    """
+
+    seed: int
+    batch: int           # per-host batch after DP slicing
+    seq: int
+    vocab: int
+    alpha: float = 1.0
+    rank: int = 0
+    world: int = 1
+
+    def batch_at(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.rank, self.world]))
+        toks = zipf_ranks(rng, self.batch * (self.seq + 1), self.alpha, self.vocab)
+        toks = toks.reshape(self.batch, self.seq + 1).astype(np.int32)
+        return toks[:, :-1], toks[:, 1:]
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1

@@ -1,0 +1,281 @@
+"""Shared LM machinery for training: norms, rotary positions, activations,
+dense init, the loss, and causal attention (port of the training half of
+``repro/models/common.py``).
+
+Attention has two implementations behind one entry point,
+`causal_attention(..., impl=)`, chosen by the device of the queries
+(`attention_impl`) unless the caller names one:
+
+  "blocked"  `blocked_causal_attention`: the reference's flash-style
+             two-level blocking in plain torch (an online-softmax forward
+             over KV chunks, a backward that recomputes p per chunk pair),
+             with grouped GQA (KV heads never expanded) and the SWA band;
+  "sdpa"     ``F.scaled_dot_product_attention`` (causal, or the band as a
+             mask), the card's library call for the same function.  The
+             reference computes attention in plain jnp, outside any Pallas
+             kernel, so a library call stands for it here.
+
+`apply_mrope`, `sinusoidal_embedding` and `decode_attention` wait for the
+ports of the other architectures and of LM serving (ROADMAP 15b, 15d).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms, positions, activations, init, loss
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.to(torch.float32))).to(dtype)
+
+
+def init_rms(d: int, device=None) -> torch.Tensor:
+    return torch.zeros((d,), dtype=torch.float32, device=device)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, Dh], positions: [B, S] int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs  # [B, S, Dh/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+    }[name]
+
+
+def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int, scale=None,
+               device=None) -> torch.Tensor:
+    """[d_in, d_out] float32 from N(0, scale^2), scale 1/sqrt(d_in) by
+    default ('meta' draws nothing)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    gen = None if torch.device(device).type == "meta" else generator
+    return torch.randn((d_in, d_out), generator=gen, device=device) * scale
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE; labels < 0 are masked out."""
+    mask = labels >= 0
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+# ---------------------------------------------------------------------------
+# Blocked causal attention (flash-style, plain torch)
+# ---------------------------------------------------------------------------
+
+def _band_mask(q_pos, kv_pos, window, s_valid):
+    mask = q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - kv_pos[None, :]) < window
+    mask &= (kv_pos < s_valid)[None, :]
+    return mask
+
+
+def _chunk_live(qi, kj, q_chunk, kv_chunk, window) -> bool:
+    """Is any (q, kv) pair of this chunk pair inside the causal band?"""
+    last_q = qi * q_chunk + q_chunk - 1
+    first_q = qi * q_chunk
+    first_kv = kj * kv_chunk
+    last_kv = kj * kv_chunk + kv_chunk - 1
+    live = last_q >= first_kv
+    if window is not None:
+        live = live and (first_q - last_kv) < window
+    return live
+
+
+def _ein(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An einsum with float32 products and sums (the reference's
+    preferred_element_type=float32 on its bfloat16 operands)."""
+    return torch.einsum(spec, a.to(torch.float32), b.to(torch.float32))
+
+
+def _blocks(q, k, v, q_chunk, kv_chunk):
+    b, s, hq, dh = q.shape
+    g = k.shape[2]
+    r = hq // g
+    nq, nkv = s // q_chunk, k.shape[1] // kv_chunk
+    qb = q.reshape(b, nq, q_chunk, g, r, dh).permute(1, 0, 3, 4, 2, 5)
+    kb = k.reshape(b, nkv, kv_chunk, g, dh).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(b, nkv, kv_chunk, g, dh).permute(1, 0, 3, 2, 4)
+    return qb, kb, vb
+
+
+def _unblock_q(x, shape):
+    b, s, hq, dh = shape
+    # [nq, B, G, R, qc, dh] -> [B, S, Hq, dh]
+    return x.permute(1, 0, 4, 2, 3, 5).reshape(b, s, hq, dh)
+
+
+def _flash_fwd_impl(q, k, v, window, q_chunk, kv_chunk, s_valid):
+    """Grouped-GQA flash forward: q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh].  Returns
+    (out [B,S,Hq,Dh], lse [nq,B,G,R,qc]): O(S*Dh) residuals."""
+    b, s, hq, dh = q.shape
+    g = k.shape[2]
+    r = hq // g
+    nq, nkv = s // q_chunk, k.shape[1] // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    qb, kb, vb = _blocks(q, k, v, q_chunk, kv_chunk)
+    q_base = torch.arange(q_chunk, device=q.device)
+    kv_base = torch.arange(kv_chunk, device=q.device)
+    outs, lses = [], []
+    for qi in range(nq):
+        qc = qb[qi]
+        m = torch.full((b, g, r, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, g, r, q_chunk), dtype=torch.float32, device=q.device)  # noqa: E741
+        acc = torch.zeros((b, g, r, q_chunk, dh), dtype=torch.float32, device=q.device)
+        for kj in range(nkv):
+            if not _chunk_live(qi, kj, q_chunk, kv_chunk, window):
+                continue
+            sc = _ein("bgrqd,bgkd->bgrqk", qc, kb[kj]) * scale
+            mask = _band_mask(qi * q_chunk + q_base, kj * kv_chunk + kv_base, window, s_valid)
+            sc = torch.where(mask[None, None, None], sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)  # noqa: E741
+            acc = acc * alpha[..., None] + _ein("bgrqk,bgkd->bgrqd", p.to(vb.dtype), vb[kj])
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l.clamp(min=1e-30)))
+    return _unblock_q(torch.stack(outs), q.shape), torch.stack(lses)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, window, q_chunk, kv_chunk, s_valid):
+    """Flash backward: recompute p per chunk pair; O(S*Dh) live memory.
+    dk/dv sum over the rep dim inside the chunk (at Hkv width)."""
+    b, s, hq, dh = q.shape
+    s_kv, g = k.shape[1], k.shape[2]
+    nq, nkv = s // q_chunk, s_kv // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    qb, kb, vb = _blocks(q, k, v, q_chunk, kv_chunk)
+    dob = _blocks(dout, k, v, q_chunk, kv_chunk)[0]
+    outb = _blocks(out, k, v, q_chunk, kv_chunk)[0]
+    delta = torch.sum(dob.to(torch.float32) * outb.to(torch.float32), dim=-1)
+    q_base = torch.arange(q_chunk, device=q.device)
+    kv_base = torch.arange(kv_chunk, device=q.device)
+    dk = torch.zeros((nkv, b, g, kv_chunk, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for qi in range(nq):
+        qc, doc, lsec, delc = qb[qi], dob[qi], lse[qi], delta[qi]
+        dq = torch.zeros(qc.shape, dtype=torch.float32, device=q.device)
+        for kj in range(nkv):
+            if not _chunk_live(qi, kj, q_chunk, kv_chunk, window):
+                continue
+            kc, vc = kb[kj], vb[kj]
+            sc = _ein("bgrqd,bgkd->bgrqk", qc, kc) * scale
+            mask = _band_mask(qi * q_chunk + q_base, kj * kv_chunk + kv_base, window, s_valid)
+            p = torch.where(mask[None, None, None], torch.exp(sc - lsec[..., None]), 0.0)
+            dv[kj] += _ein("bgrqk,bgrqd->bgkd", p.to(doc.dtype), doc)
+            dp = _ein("bgrqd,bgkd->bgrqk", doc, vc)
+            ds = p * (dp - delc[..., None]) * scale
+            dq += _ein("bgrqk,bgkd->bgrqd", ds.to(kc.dtype), kc)
+            dk[kj] += _ein("bgrqk,bgrqd->bgkd", ds.to(qc.dtype), qc)
+        dqs.append(dq)
+    dq = _unblock_q(torch.stack(dqs), q.shape).to(q.dtype)
+    dk = dk.permute(1, 0, 3, 2, 4).reshape(b, s_kv, g, dh).to(k.dtype)
+    dv = dv.permute(1, 0, 3, 2, 4).reshape(b, s_kv, g, dh).to(v.dtype)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window, q_chunk, kv_chunk, s_valid):
+        out, lse = _flash_fwd_impl(q, k, v, window, q_chunk, kv_chunk, s_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (window, q_chunk, kv_chunk, s_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, out, lse, dout, *ctx.cfg), None, None, None, None)
+
+
+def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             window: Optional[int] = None, q_chunk: int = 512,
+                             kv_chunk: int = 1024) -> torch.Tensor:
+    """Flash-style causal (optionally banded) attention in plain torch.
+    q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh].
+
+    Forward: two-level blocking with an online-softmax carry, never an
+    S x S matrix.  Backward (an autograd Function): recomputes p per chunk
+    pair, so residuals are O(S x Dh).  SWA skips chunk pairs entirely
+    outside the band.  GQA is grouped: KV heads are never expanded to Hq.
+    """
+    b, s, hq, dh = q.shape
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, s)
+    pad_q = -(-s // q_chunk) * q_chunk - s
+    pad_kv = -(-s // kv_chunk) * kv_chunk - s
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    out = _Flash.apply(q, k, v, window, q_chunk, kv_chunk, s)
+    return out[:, :s]
+
+
+def sdpa_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The same function through ``F.scaled_dot_product_attention``: causal
+    with grouped KV heads, or (with a window) the band as a boolean mask
+    over KV heads expanded to Hq."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        s, rep = q.shape[1], q.shape[2] // k.shape[2]
+        pos = torch.arange(s, device=q.device)
+        mask = _band_mask(pos, pos, window, s)
+        kt, vt = kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    return out.transpose(1, 2)
+
+
+ATTENTION_IMPLS = ("blocked", "sdpa")
+
+
+def attention_impl(device) -> str:
+    """The attention a model on `device` runs: the library call on the card,
+    the reference's blocked form on the CPU."""
+    return "sdpa" if torch.device(device).type == "cuda" else "blocked"
+
+
+def causal_attention(q, k, v, *, window: Optional[int] = None, impl: Optional[str] = None):
+    """`impl` None: the implementation of `q`'s device (`attention_impl`)."""
+    impl = attention_impl(q.device) if impl is None else impl
+    if impl == "sdpa":
+        return sdpa_causal_attention(q, k, v, window=window)
+    if impl != "blocked":
+        raise ValueError(f"attention {impl!r}; one of {ATTENTION_IMPLS}")
+    return blocked_causal_attention(q, k, v, window=window)

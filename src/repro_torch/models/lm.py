@@ -1,0 +1,239 @@
+"""CompositeLM: a decoder as a segment/repeat block stack (port of the
+training half of ``repro/models/lm.py``).
+
+A model is `prelude + repeats x segments`; each StackSegment is `count`
+identical blocks of one BlockCfg, and a `shared` segment's parameters are
+stored once and reused every repeat.  The parameter tree is the
+reference's, leaf for leaf (``convert.lm_params_from_jax`` carries it
+across): a segment's leaves are stacked [count, ...] in the prelude and
+[repeats, count, ...] in the repeated part.  The forward unbinds each
+stacked leaf once (its backward is one stack), and runs the layers in a
+Python loop; `remat` is ``torch.utils.checkpoint`` around every block and
+every loss chunk.
+
+The embedding is backend-switchable: 'dense' (the table in
+``params["embed"]["table"]``, ``embedding/dense.py``) or 'hkv' (the rows
+arrive as `embeds`, found or inserted outside the differentiated function,
+and the head is untied).  The loss is computed in chunks of `loss_chunk`
+positions, so the [B, S, vocab] logits are never all live.
+
+Decoding (`prefill`, `decode_step`, `init_decode_state`) waits for ROADMAP
+item 15d, and the vision frontend, sinusoidal positions and the non-attn
+blocks for 15b; those raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
+from repro_torch.core.table import resolve_device
+from repro_torch.embedding import dense
+from repro_torch.models.blocks import BlockCfg, PosCtx, block_init, block_train
+from repro_torch.models.common import cross_entropy_loss, dense_init, init_rms, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class StackSegment:
+    block: BlockCfg
+    count: int
+    shared: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    d_model: int
+    vocab: int
+    segments: tuple
+    repeats: int = 1
+    prelude: tuple = ()
+    tied_head: bool = True
+    pos_embedding: str = "none"          # none | sinusoidal
+    embed_scale: bool = False            # gemma: x *= sqrt(d)
+    embedding_backend: str = "dense"     # dense | hkv
+    frontend: Optional[str] = None       # None | vision
+    dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    loss_chunk: int = 512
+    aux_weights: tuple = (("load_balance", 0.01), ("router_z", 0.001))
+    remat: bool = True                   # activation-checkpoint each block
+    # the reference's choice between a scan over layers and an unrolled loop
+    # in its train graph; the port always runs a Python loop over layers
+    scan_layers: bool = False
+
+    @property
+    def num_layers(self) -> int:
+        pre = sum(s.count for s in self.prelude)
+        rep = sum(s.count for s in self.segments) * self.repeats
+        return pre + rep
+
+
+def _unstack(t) -> list:
+    """A tree of stacked leaves [n, ...] -> n trees of [...] (one unbind per
+    leaf, so the backward stacks the n gradients once)."""
+    parts = tree.map(lambda a: a.unbind(0), t)
+    n = len(tree.leaves(parts, is_leaf=lambda x: isinstance(x, tuple))[0])
+    return [tree.map(lambda u, i=i: u[i], parts, is_leaf=lambda x: isinstance(x, tuple))
+            for i in range(n)]
+
+
+class CompositeLM:
+    def __init__(self, cfg: LMConfig, attention: Optional[str] = None):
+        """`attention` names the attention implementation of every block
+        (``models.common.causal_attention``); None, the default, runs the
+        one of the activations' device (``attention_impl``: the library
+        call on the card, the blocked form on the CPU)."""
+        if cfg.frontend is not None:
+            raise NotImplementedError("the vision frontend is not ported yet (ROADMAP item 15b)")
+        if cfg.pos_embedding != "none":
+            raise NotImplementedError(
+                f"pos_embedding {cfg.pos_embedding!r} is not ported yet (ROADMAP item 15b)")
+        self.cfg = cfg
+        self.attention = attention
+        self.dense = cfg.embedding_backend == "dense"
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, generator: Optional[torch.Generator] = None, device=None) -> dict:
+        """The parameter tree on `device` (default: the card; raises
+        without one; 'meta' allocates nothing), drawn with `generator`."""
+        cfg = self.cfg
+        device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+        params: dict = {"final_norm": init_rms(cfg.d_model, device)}
+        if self.dense:
+            params["embed"] = {"table": dense.init_table(cfg.vocab, cfg.d_model, device=device,
+                                                         generator=generator)}
+        if not cfg.tied_head or not self.dense:
+            params["head"] = dense_init(generator, cfg.d_model, cfg.vocab, device=device)
+
+        def stacked_init(block, *lead):
+            n = 1
+            for d in lead:
+                n *= d
+            layers = [block_init(block, generator, device) for _ in range(n)]
+            return tree.map(lambda *xs: torch.stack(xs).reshape(lead + xs[0].shape), *layers)
+
+        params["prelude"] = [stacked_init(s.block, s.count) for s in cfg.prelude]
+        params["repeat"], params["shared"] = [], []
+        for s in cfg.segments:
+            if s.shared:
+                params["shared"].append(block_init(s.block, generator, device))
+                params["repeat"].append(None)
+            else:
+                params["repeat"].append(stacked_init(s.block, cfg.repeats, s.count))
+                params["shared"].append(None)
+        return params
+
+    # --------------------------------------------------------------- forward
+
+    def _scaled(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.embed_scale:
+            d = torch.tensor(float(cfg.d_model), dtype=torch.float32, device=x.device)
+            x = x * torch.sqrt(d).to(cfg.dtype)
+        return x
+
+    def _inputs(self, params, tokens, embeds):
+        cfg = self.cfg
+        if embeds is not None:
+            x = embeds.to(cfg.dtype)
+        else:
+            x = dense.lookup(params["embed"]["table"], tokens).to(cfg.dtype)
+        x = self._scaled(x)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        return x, PosCtx(positions=positions)
+
+    def _block(self, bcfg: BlockCfg, lp: dict, x: torch.Tensor, pos: PosCtx):
+        if self.cfg.remat:
+            # per-block activation checkpointing: the backward recomputes the
+            # block from its input; only layer boundaries are saved
+            return checkpoint(block_train, bcfg, lp, x, pos, self.attention,
+                              use_reentrant=False)
+        return block_train(bcfg, lp, x, pos, self.attention)
+
+    def _apply_stack(self, params, x, pos):
+        cfg = self.cfg
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = {"load_balance": zero, "router_z": zero}
+
+        def run(seg: StackSegment, layers: list, x):
+            for lp in layers:
+                # an attention block with a dense FFN has no aux losses (the
+                # MoE FFN's fold in here with ROADMAP item 15b)
+                x, _ = self._block(seg.block, lp, x, pos)
+            return x
+
+        for seg, sp in zip(cfg.prelude, params["prelude"]):
+            x = run(seg, _unstack(sp), x)
+        if cfg.segments:
+            per_rep = [None if p is None else _unstack(p) for p in params["repeat"]]
+            for r in range(cfg.repeats):
+                for si, seg in enumerate(cfg.segments):
+                    layers = ([params["shared"][si]] if seg.shared
+                              else _unstack(per_rep[si][r]))
+                    x = run(seg, layers, x)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, aux_total
+
+    def hidden(self, params, tokens=None, *, embeds=None):
+        x, pos = self._inputs(params, tokens, embeds)
+        return self._apply_stack(params, x, pos)
+
+    # ------------------------------------------------------------------ loss
+
+    def _head(self, params) -> tuple[torch.Tensor, bool]:
+        """(the head's weight, whether it is the tied embedding table)."""
+        if self.cfg.tied_head and self.dense and "head" not in params:
+            return params["embed"]["table"], True
+        return params["head"], False
+
+    @staticmethod
+    def _project(w: torch.Tensor, tied: bool, h: torch.Tensor) -> torch.Tensor:
+        return dense.attend(w, h) if tied else h @ w.to(h.dtype)
+
+    def logits(self, params, hidden_chunk: torch.Tensor) -> torch.Tensor:
+        return self._project(*self._head(params), hidden_chunk)
+
+    @classmethod
+    def _chunk_ce(cls, w, tied: bool, hx, lx):
+        return cross_entropy_loss(cls._project(w, tied, hx), lx)
+
+    def loss(self, params, tokens=None, labels=None, *, embeds=None):
+        """(total loss, {"ce", "load_balance", "router_z"}): the mean of the
+        chunks' mean CE, plus the weighted aux losses."""
+        cfg = self.cfg
+        h, aux = self.hidden(params, tokens, embeds=embeds)
+        s = h.shape[1]
+        ck = min(cfg.loss_chunk, s)
+        if s % ck:
+            raise ValueError(f"sequence length {s} is not a multiple of loss_chunk {ck}")
+        w, tied = self._head(params)
+        ces = []
+        for i in range(0, s, ck):
+            hx, lx = h[:, i:i + ck], labels[:, i:i + ck]
+            if cfg.remat:
+                ces.append(checkpoint(self._chunk_ce, w, tied, hx, lx, use_reentrant=False))
+            else:
+                ces.append(self._chunk_ce(w, tied, hx, lx))
+        ce = torch.stack(ces).mean()
+        total = ce
+        for k, wt in cfg.aux_weights:
+            total = total + wt * aux.get(k, 0.0)
+        return total, {"ce": ce, **aux}
+
+    # ----------------------------------------------------------------- serve
+
+    def init_decode_state(self, batch: int, max_len: int):
+        raise NotImplementedError("LM decoding is not ported yet (ROADMAP item 15d)")
+
+    def decode_step(self, params, tokens, state, *, embeds=None):
+        raise NotImplementedError("LM decoding is not ported yet (ROADMAP item 15d)")
+
+    def prefill(self, params, tokens, max_len: int, *, embeds=None):
+        raise NotImplementedError("LM prefill is not ported yet (ROADMAP item 15d)")

@@ -160,3 +160,28 @@ def test_multi_table_find_and_baselines_do_not_fall_back_or_default_to_the_cpu(m
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(256, 4)
         assert make(256, 4, device="cpu").size() == 0
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    """The LM stack runs on the card: a model's parameters, carried JAX
+    parameters and the train launcher default to it and raise where there
+    is none; 'cpu' and 'meta' work, and the card's attention is the
+    library call."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models.common import attention_impl
+    from repro_torch.models.lm import CompositeLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = CompositeLM(get_arch("qwen2-0.5b").smoke)
+    for make in (model.init, lambda: convert.lm_params_from_jax({"w": np.zeros(2, np.float32)}),
+                 lambda: train.main(["--smoke", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert model.init(device="cpu")["final_norm"].device.type == "cpu"
+    assert model.init(device="meta")["final_norm"].device.type == "meta"
+    assert train.parse_args([]).device == "cuda"
+    assert (attention_impl("cuda"), attention_impl("cpu")) == ("sdpa", "blocked")

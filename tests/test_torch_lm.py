@@ -1,0 +1,413 @@
+"""The port's LM stack (``repro_torch.models``, ``repro_torch.configs``,
+``repro_torch.train.step``) against the JAX package's, on the CPU.
+
+Parameters are drawn by the reference (a torch generator cannot
+reproduce ``jax.random``) and carried across with
+``convert.lm_params_from_jax``; batches are made with numpy.
+
+  * For the smoke config of each of the four dense archs (qwen2-0.5b,
+    gemma-2b, yi-6b, h2o-danube-1.8b): the parameter tree leaf by leaf
+    (paths, shapes, dtypes, and the port's own init), loss and gradients
+    against JAX, both embedding backends, remat on equal to off; the full
+    configs' parameter counts equal the reference's.
+  * Blocked attention against naive attention and against the reference's,
+    with and without a window, forward and gradient, at several chunkings;
+    the SDPA form against it.
+  * `train_step` against the reference's over 3 steps; `train_step_hkv`
+    against the reference's step composed from its parts over 3 steps (the
+    sharded lookup, the embeds through numpy, ``value_and_grad`` of the
+    loss, clip, adamw, ``apply_updates``, ``apply_grads``): jax 0.9's
+    explicit sharding refuses the reference's own `train_step_hkv`, whose
+    ``value_and_grad`` runs over the embeds the sharded lookup returns.
+
+Tolerances, with their reasons: the model's matrix products and
+reductions (XLA's and torch's orders of summation differ) put the loss
+within a relative 2e-6 and each gradient leaf within 2e-5 of its largest
+magnitude.  Over 3 adamw steps (lr 3e-4) the parameters stay within an
+absolute 2e-5: adamw divides each coordinate's gradient by its own scale,
+so a coordinate whose gradient is at the level of that summation noise
+(the key bias, to which the softmax is nearly blind) moves by the noise's
+sign times lr; 7e-6 is the largest seen.  The table's rows (rowwise_adagrad's
+row mean on top) stay within 1e-5 of each row's magnitude.  Table keys,
+digests and scores and the overflow count are held exactly.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as jget  # noqa: E402
+from repro.distributed.table_sharding import ShardedHKVTable as JSharded  # noqa: E402
+from repro.embedding.dynamic import HKVEmbedding as JEmb  # noqa: E402
+from repro.embedding.sparse_opt import SparseOptimizer as JOpt  # noqa: E402
+from repro.models.common import blocked_causal_attention as jblocked  # noqa: E402
+from repro.models.lm import CompositeLM as JLM  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro.optim.optimizers import apply_updates as japply  # noqa: E402
+from repro.train.step import StepBuilder as JStep  # noqa: E402
+from repro.train.step import clip_by_global_norm as jclip  # noqa: E402
+from repro_torch import ShardedHKVTable, convert, make_dev_mesh, tree  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, PORTED_ARCHS, all_archs, get_arch  # noqa: E402
+from repro_torch.embedding import HKVEmbedding, SparseOptimizer  # noqa: E402
+from repro_torch.models.blocks import BlockCfg, block_init  # noqa: E402
+from repro_torch.models.common import (attention_impl, blocked_causal_attention,  # noqa: E402
+                                       causal_attention, sdpa_causal_attention)
+from repro_torch.models.lm import CompositeLM  # noqa: E402
+from repro_torch.models.moe import MoECfg  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.step import StepBuilder, clip_by_global_norm  # noqa: E402
+
+LOSS_RTOL = 2e-6
+GRAD_RTOL = 2e-5
+PARAM_ATOL = 2e-5
+VALUE_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_unoptimized():
+    """The JAX side's sharded table ops compiled without most optimizations
+    (compile time is most of their cost; only the row mean's order moves)."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", was)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _close(got, want, rtol, ctx):
+    got, want = _np(got).astype(np.float64), np.asarray(want).astype(np.float64)
+    assert got.shape == want.shape, ctx
+    err = np.abs(got - want).max() if got.size else 0.0
+    assert err <= rtol * max(np.abs(want).max(), 1e-30), f"{ctx}: {err}"
+
+
+def _paths(t, prefix=""):
+    """(path, leaf) pairs of a tree in pytree order."""
+    if t is None:
+        return []
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _paths(t[k], f"{prefix}/{k}")]
+    if isinstance(t, (list, tuple)):
+        return [x for i, c in enumerate(t) for x in _paths(c, f"{prefix}/{i}")]
+    return [(prefix, t)]
+
+
+def _batch(vocab, b=2, s=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, size=(b, s)).astype(np.int32),
+            rng.integers(0, vocab, size=(b, s)).astype(np.int32))
+
+
+def _models(name, backend="dense"):
+    """(JAX model, its params, port model, the same params) on a smoke config."""
+    lm = jget(name).smoke
+    if backend == "hkv":
+        lm = dataclasses.replace(lm, embedding_backend="hkv", tied_head=False)
+    jm = JLM(lm)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tlm = get_arch(name).smoke
+    if backend == "hkv":
+        tlm = dataclasses.replace(tlm, embedding_backend="hkv", tied_head=False)
+    return jm, jp, CompositeLM(tlm), convert.lm_params_from_jax(jax.tree.map(np.asarray, jp),
+                                                                 device="cpu")
+
+
+def _port_loss_grads(model, params, toks, labels, embeds=None):
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    p = tree.unflatten(params, leaves)
+    args = [torch.from_numpy(toks)] if embeds is None else [None]
+    if embeds is not None:
+        embeds = embeds.detach().requires_grad_()
+        leaves = leaves + [embeds]
+    loss, aux = model.loss(p, *args, torch.from_numpy(labels), embeds=embeds)
+    return loss.detach(), aux, torch.autograd.grad(loss, leaves)
+
+
+# =============================================================================
+# Configs and the parameter tree
+# =============================================================================
+
+
+def test_registry():
+    assert ARCH_NAMES == tuple(__import__("repro.configs", fromlist=["x"]).ARCH_NAMES)
+    assert PORTED_ARCHS == ("gemma-2b", "h2o-danube-1.8b", "qwen2-0.5b", "yi-6b")
+    assert [a.name for a in all_archs()] == list(PORTED_ARCHS)
+    for name in set(ARCH_NAMES) - set(PORTED_ARCHS):
+        with pytest.raises(NotImplementedError, match="15b"):
+            get_arch(name)
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+def test_configs_equal_the_reference(name):
+    ja, ta = jget(name), get_arch(name)
+    for jl, tl in ((ja.lm, ta.lm), (ja.smoke, ta.smoke)):
+        jd, td = dataclasses.asdict(jl), dataclasses.asdict(tl)
+        assert jd.pop("dtype") == jnp.dtype(str(td.pop("dtype")).removeprefix("torch."))
+        assert jd == td
+    assert (ja.family, ja.source, ja.shapes) == (ta.family, ta.source,
+                                                 tuple(type(ja.shapes[0])(**dataclasses.asdict(s))
+                                                       for s in ta.shapes))
+    assert ta.shape("train_4k").seq == 4096 and ta.param_count() == ja.param_count()
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("backend", ["dense", "hkv"])
+def test_param_tree_leaf_by_leaf(name, backend):
+    jm, jp, tm, tp = _models(name, backend)
+    own = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    want = [(path, np.asarray(x)) for path, x in _paths(jp)]
+    for got in (tp, own):
+        got = _paths(got)
+        assert [p for p, _ in got] == [p for p, _ in want]
+        for (path, g), (_, w) in zip(got, want):
+            assert tuple(g.shape) == w.shape and _np(g).dtype == w.dtype, path
+    for (path, g), (_, w) in zip(_paths(tp), want):
+        np.testing.assert_array_equal(_np(g), w, err_msg=path)
+    # the port's own draws: N(0, 1/fan_in) matrices, zero norms and biases
+    for path, g in _paths(own):
+        if path.rsplit("/", 1)[-1] in ("ln1", "ln2", "final_norm", "bq", "bk", "bv"):
+            assert not g.any(), path
+
+
+def test_unported_blocks_raise():
+    for kw in (dict(kind="mamba2"), dict(kind="attn", heads=2, kv_heads=1, d_ff=8,
+                                          moe=MoECfg(4, 2, 16, 8)),
+               dict(kind="attn", heads=2, kv_heads=1, d_ff=8, rope="mrope")):
+        with pytest.raises(NotImplementedError, match="15b"):
+            block_init(BlockCfg(d_model=16, **kw), device="cpu")
+    m = CompositeLM(get_arch("qwen2-0.5b").smoke)
+    for call in (lambda: m.prefill({}, None, 4), lambda: m.decode_step({}, None, None),
+                 lambda: m.init_decode_state(1, 4)):
+        with pytest.raises(NotImplementedError, match="15d"):
+            call()
+
+
+# =============================================================================
+# Loss and gradients against JAX
+# =============================================================================
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+def test_loss_and_grads_equal_the_reference(name):
+    jm, jp, tm, tp = _models(name)
+    toks, labels = _batch(tm.cfg.vocab)
+    (jl, jaux), jg = jax.value_and_grad(
+        lambda p: jm.loss(p, jnp.asarray(toks), jnp.asarray(labels)), has_aux=True)(jp)
+    loss, aux, grads = _port_loss_grads(tm, tp, toks, labels)
+    _close(loss, jl, LOSS_RTOL, f"{name} loss")
+    _close(aux["ce"], jaux["ce"], LOSS_RTOL, f"{name} ce")
+    assert float(aux["load_balance"]) == float(jaux["load_balance"]) == 0.0
+    assert float(loss) < np.log(tm.cfg.vocab) * 3
+    for (path, want), got in zip(_paths(jg), grads):
+        _close(got, want, GRAD_RTOL, f"{name} grad {path}")
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b"])
+def test_hkv_backend_loss_and_grads(name):
+    """Embeds passed in (the HKV backend, untied head): the loss, the
+    parameters' gradients and the embeds' gradient against JAX."""
+    jm, jp, tm, tp = _models(name, "hkv")
+    toks, labels = _batch(tm.cfg.vocab, seed=1)
+    e = np.random.default_rng(2).normal(size=toks.shape + (tm.cfg.d_model,)).astype(np.float32)
+    (jl, _), (jg, jeg) = jax.value_and_grad(
+        lambda p, x: jm.loss(p, None, jnp.asarray(labels), embeds=x), argnums=(0, 1),
+        has_aux=True)(jp, jnp.asarray(e))
+    loss, _, grads = _port_loss_grads(tm, tp, toks, labels, embeds=torch.from_numpy(e))
+    _close(loss, jl, LOSS_RTOL, "loss")
+    for (path, want), got in zip(_paths(jg), grads[:-1]):
+        _close(got, want, GRAD_RTOL, f"grad {path}")
+    _close(grads[-1], jeg, GRAD_RTOL, "embeds' grad")
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+def test_remat_equals_no_remat(name):
+    _, _, tm, tp = _models(name)
+    toks, labels = _batch(tm.cfg.vocab, seed=3)
+    plain = CompositeLM(dataclasses.replace(tm.cfg, remat=False))
+    l1, _, g1 = _port_loss_grads(tm, tp, toks, labels)
+    l2, _, g2 = _port_loss_grads(plain, tp, toks, labels)
+    assert float(l1) == float(l2)
+    for a, b in zip(g1, g2):
+        np.testing.assert_array_equal(_np(a), _np(b))
+
+
+def test_sdpa_model_equals_blocked():
+    """The whole model with the library attention against the blocked one."""
+    _, _, tm, tp = _models("h2o-danube-1.8b")
+    toks, labels = _batch(tm.cfg.vocab, b=2, s=64, seed=4)
+    lb, _, gb = _port_loss_grads(tm, tp, toks, labels)
+    ls, _, gs = _port_loss_grads(CompositeLM(tm.cfg, attention="sdpa"), tp, toks, labels)
+    _close(ls, lb, LOSS_RTOL, "loss")
+    for a, b in zip(gs, gb):
+        _close(a, b, GRAD_RTOL, "grad")
+    assert attention_impl("cpu") == "blocked" and attention_impl("cuda") == "sdpa"
+
+
+def test_attention_default_follows_the_device(monkeypatch):
+    """A model built without `attention` runs the implementation of its
+    activations' device: the blocked form on the CPU, and the library call
+    wherever `attention_impl` names it (the card)."""
+    from repro_torch.models import common
+
+    _, _, tm, tp = _models("qwen2-0.5b")
+    assert tm.attention is None and get_arch("qwen2-0.5b").model(smoke=True).attention is None
+    toks, labels = _batch(tm.cfg.vocab, b=2, s=32, seed=5)
+    lb, _, _ = _port_loss_grads(CompositeLM(tm.cfg, attention="blocked"), tp, toks, labels)
+    ld, _, _ = _port_loss_grads(tm, tp, toks, labels)
+    assert float(ld) == float(lb)
+    monkeypatch.setattr(common, "attention_impl", lambda device: "sdpa")
+    ls, _, _ = _port_loss_grads(CompositeLM(tm.cfg, attention="sdpa"), tp, toks, labels)
+    ld, _, _ = _port_loss_grads(tm, tp, toks, labels)
+    assert float(ld) == float(ls)
+
+
+# =============================================================================
+# Blocked attention
+# =============================================================================
+
+
+def _naive(q, k, v, window=None):
+    h, g = q.shape[2], k.shape[2]
+    kk, vv = k.repeat_interleave(h // g, dim=2), v.repeat_interleave(h // g, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kk) / np.sqrt(q.shape[-1])
+    pos = torch.arange(q.shape[1])
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    p = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("chunks", [(16, 16), (64, 32), (8, 64), (24, 24), (24, 40)])
+def test_blocked_attention_matches_naive_and_the_reference(window, chunks):
+    rng = np.random.default_rng(3)
+    b, s, h, dh = 2, 64, 4, 16
+    qn, kn, vn = (rng.normal(size=(b, s, hh, dh)).astype(np.float32) for hh in (h, 2, 2))
+    do = rng.normal(size=(b, s, h, dh)).astype(np.float32)
+    qc, kc = chunks
+
+    def grads(fn):
+        q, k, v = (torch.from_numpy(x).requires_grad_() for x in (qn, kn, vn))
+        out = fn(q, k, v)
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), torch.from_numpy(do)))
+
+    got = grads(lambda q, k, v: blocked_causal_attention(q, k, v, window=window, q_chunk=qc,
+                                                         kv_chunk=kc))
+    want = grads(lambda q, k, v: _naive(q, k, v, window))
+    sdpa = grads(lambda q, k, v: sdpa_causal_attention(q, k, v, window=window))
+    for name, a, w, sd in zip(("out", "dq", "dk", "dv"), got, want, sdpa):
+        np.testing.assert_allclose(_np(a), _np(w), rtol=2e-4, atol=2e-4, err_msg=name)
+        np.testing.assert_allclose(_np(sd), _np(w), rtol=2e-4, atol=2e-4, err_msg=name)
+    if (-s % qc) == (-s % kc):
+        # the reference pads q and kv to one length (chunk pairs that pad
+        # them to two lengths are the port's alone)
+        jf = lambda q, k, v: jblocked(q, k, v, window=window, q_chunk=qc, kv_chunk=kc)  # noqa: E731
+        jout, jvjp = jax.vjp(jf, *(jnp.asarray(x) for x in (qn, kn, vn)))
+        for name, a, j in zip(("out", "dq", "dk", "dv"), got, (jout, *jvjp(jnp.asarray(do)))):
+            np.testing.assert_allclose(_np(a), np.asarray(j), rtol=2e-5, atol=2e-5, err_msg=name)
+    with pytest.raises(ValueError):
+        causal_attention(torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+                         impl="flash")
+
+
+# =============================================================================
+# The train steps against JAX
+# =============================================================================
+
+
+def _jax_tree(t):
+    return jax.tree.map(jnp.asarray, convert.lm_params_to_numpy(t))
+
+
+def test_train_step_equals_the_reference():
+    jm, jp, tm, tp = _models("qwen2-0.5b")
+    jb, tb = JStep(jm, jadamw()), StepBuilder(tm, adamw())
+    js, ts = jadamw().init(jp), adamw().init(tp)
+    for step in range(3):
+        toks, labels = _batch(tm.cfg.vocab, seed=10 + step)
+        jp, js, jmet = jb.train_step(jp, js, {"tokens": jnp.asarray(toks),
+                                              "labels": jnp.asarray(labels)})
+        tp, ts, tmet = tb.train_step(tp, ts, {"tokens": torch.from_numpy(toks),
+                                              "labels": torch.from_numpy(labels)})
+        _close(tmet["loss"], jmet["loss"], LOSS_RTOL, f"step {step} loss")
+        _close(tmet["grad_norm"], jmet["grad_norm"], GRAD_RTOL, f"step {step} grad norm")
+    for (path, want), got in zip(_paths(jp), tree.leaves(tp)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=PARAM_ATOL,
+                                   err_msg=f"param {path}")
+    assert int(ts["count"]) == int(js["count"]) == 3
+
+
+@jax.jit
+def _j_lookup(t, toks):
+    return t.lookup(toks, train=True)
+
+
+@jax.jit
+def _j_grads(t, toks, g):
+    return t.apply_grads(toks, g)
+
+
+def test_train_step_hkv_equals_the_reference_composition():
+    """3 HKV steps on a 1-shard mesh in both packages (qwen2-0.5b smoke,
+    rowwise_adagrad table of the launcher's capacity, adamw)."""
+    jm, jp, tm, tp = _models("qwen2-0.5b", "hkv")
+    vocab, d = tm.cfg.vocab, tm.cfg.d_model
+    cap = max(256, (2 * vocab // 128) * 128)
+    jt = JSharded.create(jax.make_mesh((1, 1), ("data", "model")),
+                         JEmb(capacity=cap, dim=d, optimizer=JOpt("rowwise_adagrad", lr=0.05)))
+    tt = ShardedHKVTable.create(make_dev_mesh(1, 1, device="cpu"),
+                                HKVEmbedding(capacity=cap, dim=d,
+                                             optimizer=SparseOptimizer("rowwise_adagrad", lr=0.05)))
+    jopt = jadamw()
+    js, tb = jopt.init(jp), StepBuilder(tm, adamw())
+    ts = adamw().init(tp)
+    for step in range(3):
+        toks, labels = _batch(vocab, b=2, s=32, seed=20 + step)
+        jtoks = jnp.asarray(toks)
+        # the reference's train_step_hkv, composed from its parts
+        jt, embeds, jovf = _j_lookup(jt, jtoks)
+        (jl, _), (jg, jeg) = jax.value_and_grad(
+            lambda p, e: jm.loss(p, None, jnp.asarray(labels), embeds=e), argnums=(0, 1),
+            has_aux=True)(jp, jnp.asarray(np.asarray(embeds)))
+        jg, jgn = jclip(jg, 1.0)
+        upd, js = jopt.update(jg, js, jp)
+        jp = japply(jp, upd)
+        jt = _j_grads(jt, jtoks, jeg)
+        tp, ts, tt, met = tb.train_step_hkv(tp, ts, tt, {"tokens": torch.from_numpy(toks),
+                                                         "labels": torch.from_numpy(labels)})
+        assert int(met["emb_overflow"]) == int(jovf) == 0
+        _close(met["loss"], jl, LOSS_RTOL, f"step {step} loss")
+        _close(met["grad_norm"], jgn, GRAD_RTOL, f"step {step} grad norm")
+        jstate = jax.tree.map(np.asarray, jt.state)
+        tstate = convert.sharded_state_to_arrays(tt.state)
+        for f in ("key_hi", "key_lo", "digests", "score_hi", "score_lo", "clock_hi", "clock_lo"):
+            np.testing.assert_array_equal(tstate[f], getattr(jstate, f), err_msg=f"step {step} {f}")
+        got, want = tstate["values"], jstate.values
+        scale = np.maximum(np.abs(want).max(axis=1), 1e-30)
+        assert (np.abs(got - want).max(axis=1) <= VALUE_RTOL * scale).all(), f"step {step} values"
+    for (path, want), got in zip(_paths(jp), tree.leaves(tp)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=PARAM_ATOL,
+                                   err_msg=f"param {path}")
+
+
+def test_clip_by_global_norm_equals_the_reference():
+    rng = np.random.default_rng(5)
+    g = {"a": rng.normal(size=(7, 5)).astype(np.float32), "b": [rng.normal(size=3).astype(np.float32)]}
+    for max_norm in (0.5, 1e9):
+        jg, jn = jclip(jax.tree.map(jnp.asarray, g), max_norm)
+        tg, tn = clip_by_global_norm(convert.lm_params_from_jax(g, device="cpu"), max_norm)
+        _close(tn, jn, 1e-6, "norm")
+        for a, b in zip(jax.tree.leaves(jg), tree.leaves(tg)):
+            _close(b, a, 1e-6, "clipped")
+
