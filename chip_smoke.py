@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs eleven phases; any failure exits non-zero:
+sm_90a (first use), then runs twelve phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -196,6 +196,34 @@ sm_90a (first use), then runs eleven phases; any failure exits non-zero:
    and one HKV step under ``torch.profiler`` (device time by operator, and
    its share of the profiled window's wall time).  The free disk space is
    checked before the first checkpoint.
+12. the rest of the model zoo.  (a) zamba2-1.2b at its published widths (38
+   mamba2 layers: a prelude of 2, then 6 x 6, at d_model 2048, d_state 64,
+   64 SSM heads, expand 2, conv 4; one shared attention block, 32 heads,
+   MHA, d_ff 8192, gelu, ungated, invoked 6 times; vocab 32,000; bfloat16;
+   1.088 B parameters) through the launcher with ``--backend hkv
+   --optimizer adamw``, batch 8 x seq 4096 (cut: train_4k's global batch of
+   256 to 8 for one card), the table one shard of 64,000 slots at V = 2049
+   on a (1, 1) mesh: 6 steps with a checkpoint every 4, each step's split,
+   launches (TRAIN_LM_ROUTES) and the run's peak memory; the step-4
+   checkpoint (prelude, repeat and shared leaves) restored onto the live
+   state before step 4, bit for bit; gather_rows and scatter_rows at every
+   launch's lanes on the run's V = 2049 plane, and update_scan
+   (rowwise_adagrad at dim 2048) on a copy of the plane taken before the
+   first apply_grads, bit for bit their plain versions and timed beside
+   their bounds; 2 steps of ``--backend dense`` (the tied head); one HKV
+   step under ``torch.profiler``, its device time split into the chunked
+   GLA's operators, ``aten::mm``, SDPA and the rest; and the chunked GLA
+   alone at the mamba2 block's shapes.  (b) xlstm-1.3b (42 mLSTM and 6
+   sLSTM blocks), musicgen-medium and qwen2-vl-2b at full depth, and
+   moonshot-v1-16b-a3b cut from 48 layers to 2 (its stacked expert wi
+   alone is 71 GB in float32), each at its published widths: a warm-up and
+   a timed step of ``StepBuilder.train_step_hkv`` with adamw at batch 8 x
+   seq 4096 (qwen2-vl's batch with 256 patch embeddings and arange M-RoPE
+   positions on all three axes), the loss finite and under 3 ln(vocab),
+   the split, peak memory and launches (TRAIN_LM_ROUTES), and update_scan
+   held against its plain version at the arch's V (2049 or 1537).
+   llama4-maverick-400b-a17b gets no card run: one MoE layer's experts are
+   64.4 GB in float32.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -211,7 +239,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same eleven phases at a tiny size on the
+result.  ``--rehearse`` runs the same twelve phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -225,6 +253,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -403,6 +432,19 @@ LM_NOISE_TIMES = {"loss": 10, "params": 3, "params_mean": 1.5, "values": 10, "va
                   "median_row": 1.5}
 LM_NOISE_FLOOR = {"loss": 1e-5, "params": 3e-5, "params_mean": 1e-7, "values": 1e-3,
                   "values_mean": 1e-5, "median_row": 1e-3}
+# the rest of the model zoo (phase 12).  (a) zamba2-1.2b through the launcher
+# at its published widths: ZOO_STEPS steps, a checkpoint every ZOO_CKPT_EVERY
+# (restored onto the live state before step ZOO_CKPT_EVERY), and
+# ZOO_DENSE_STEPS on the dense backend.  (b) each of ZOO_OTHERS at its
+# published widths, a warm-up and a timed HKV step; the layer count where one
+# card cannot hold the arch: moonshot's stacked expert wi alone is
+# 48 x 64 x 2048 x 2816 float32 = 71 GB, before wo, gradients and moments
+ZOO_ARCH = "zamba2-1.2b"
+ZOO_STEPS, ZOO_CKPT_EVERY, ZOO_DENSE_STEPS = 6, 4, 2
+ZOO_OTHERS = (("xlstm-1.3b", None), ("musicgen-medium", None), ("qwen2-vl-2b", None),
+              ("moonshot-v1-16b-a3b", 2))
+ZOO_OTHER_STEPS = 2
+GLA_RANGE = "chunked_gla"          # the profiler range phase 12 puts around the chunked GLA
 # the card's attention (SDPA) against the port's plain blocked attention:
 # bfloat16 operands; the plain form keeps float32 scores and products and
 # rounds only its outputs, SDPA's kernels round P to bfloat16 before the PV
@@ -523,6 +565,7 @@ class Smoke:
         self.launches_serve: dict[str, int] = {}
         self.launches_sharded: dict[str, int] = {}
         self.launches_lm: dict[str, int] = {}
+        self.launches_zoo: dict[str, int] = {}
         self.train_cmp: dict[str, float] = {}
         # unsharded config B op times of phases 3-5 (ms), for phase 10's ratios
         self.unsharded: dict[str, float] = {}
@@ -694,7 +737,8 @@ class Smoke:
                   ("telemetry, baselines and the multi-table find at config B",
                    self.phase_tel_base),
                   ("the sharded table", self.phase_sharded),
-                  ("the LM training path with the HKV embedding", self.phase_lm)]
+                  ("the LM training path with the HKV embedding", self.phase_lm),
+                  ("the rest of the model zoo", self.phase_zoo)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -3416,32 +3460,142 @@ class Smoke:
     # phase 11 -------------------------------------------------------------
 
     def lm_argv(self, ckpt_dir, backend: str = "hkv", steps: int = LM_STEPS,
-                every: int = LM_CKPT_EVERY) -> list:
-        """The launcher's arguments: qwen2-0.5b's published widths on the
+                every: int = LM_CKPT_EVERY, arch: str = LM_ARCH) -> list:
+        """The launcher's arguments: the arch's published widths on the
         card (its smoke config in the rehearsal), adamw, seq 4096."""
         sz = self.sz
-        return (["--arch", LM_ARCH, "--backend", backend, "--optimizer", "adamw",
+        return (["--arch", arch, "--backend", backend, "--optimizer", "adamw",
                  "--batch", str(sz.lm_batch), "--seq", str(sz.lm_seq), "--steps", str(steps),
                  "--checkpoint-every", str(every), "--ckpt-dir", str(ckpt_dir),
                  "--seed", str(SEED), "--device", self.dev.type]
                 + (["--smoke"] if self.dev.type == "cpu" else []))
 
-    def lm_config(self):
+    def lm_config(self, arch: str = LM_ARCH, layers=None):
+        """The arch's LM config as the launcher's HKV backend runs it (its
+        smoke config in the rehearsal); `layers` cuts each segment's count."""
         import dataclasses as dc
 
         from repro_torch.configs import get_arch
 
-        arch = get_arch(LM_ARCH)
-        lm = arch.smoke if self.dev.type == "cpu" else arch.lm
+        a = get_arch(arch)
+        lm = a.smoke if self.dev.type == "cpu" else a.lm
+        if layers is not None and self.dev.type == "cuda":
+            lm = dc.replace(lm, segments=tuple(dc.replace(s, count=layers) for s in lm.segments))
         return dc.replace(lm, embedding_backend="hkv", tied_head=False)
+
+    def lm_fresh(self, vocab: int, steps: int):
+        """Each step's distinct tokens and whether it holds one no earlier
+        step did (the launcher's TokenStream), and all tokens seen."""
+        import numpy as np
+
+        from repro_torch.data import TokenStream
+
+        stream = TokenStream(seed=SEED, batch=self.sz.lm_batch, seq=self.sz.lm_seq, vocab=vocab)
+        seen: set = set()
+        distinct, fresh = [], []
+        for step in range(steps):
+            toks = np.unique(stream.batch_at(step)[0])
+            distinct.append(toks.size)
+            fresh.append(bool(len(set(toks.tolist()) - seen)))
+            seen.update(toks.tolist())
+        return distinct, fresh, seen
+
+    @contextlib.contextmanager
+    def lm_capture(self):
+        """Wrap gather_rows, scatter_rows and update_scan where kernels/ops.py
+        calls them: the lanes each row-kernel launch gets (rows, mask, width
+        or mode), and the first update_scan launch's inputs with copies of
+        the planes from before it (the warm-up step's, outside the timed
+        steps), to hold each against its plain version after the run."""
+        from repro_torch.kernels import ops as kops
+
+        calls = {"gather": [], "scatter": [], "update": None}
+        saved = kops.gather_rows, kops.scatter_rows, kops.update_scan
+        gather_rows, scatter_rows, update_scan = saved
+
+        def gather(values, rows, mask, width=None):
+            calls["gather"].append((rows.clone(), mask.clone(), width))
+            return gather_rows(values, rows, mask, width)
+
+        def scatter(values, rows, updates, mask, add):
+            calls["scatter"].append((rows.clone(), mask.clone(), add))
+            return scatter_rows(values, rows, updates, mask, add)
+
+        def update(*args, **kw):
+            if calls["update"] is None:
+                calls["update"] = ([a.clone() if isinstance(a, self.torch.Tensor) else a
+                                    for a in args], dict(kw))
+            return update_scan(*args, **kw)
+
+        kops.gather_rows, kops.scatter_rows, kops.update_scan = gather, scatter, update
+        try:
+            yield calls
+        finally:
+            kops.gather_rows, kops.scatter_rows, kops.update_scan = saved
+
+    def lm_tally(self, lanes, before=None):
+        """A hook called before each step with its batch on the card (the
+        TrainDriver's failure injector): the launches and victim stages since
+        its last call are the last step's (`hook.per_step`), `hook.walls`
+        the wall clock at each call.  `before(step)` runs first; its time
+        is kept in `hook.paused` (by the index of the wall span it falls in)
+        and left out of `hook.wall_ms()`."""
+        counts = self._build.launch_counts
+        mark = {}
+
+        def hook(step):
+            if before is not None:
+                t0 = time.perf_counter()
+                before(step)
+                hook.paused[len(hook.walls) - 1] = time.perf_counter() - t0
+            self.sync()
+            hook.walls.append(time.perf_counter())
+            now, victims = dict(counts), len(lanes["victim"])
+            if mark:
+                hook.per_step.append(({k: v - mark["counts"].get(k, 0) for k, v in now.items()
+                                       if v != mark["counts"].get(k, 0)},
+                                      victims - mark["victims"]))
+            mark.update(counts=now, victims=victims)
+
+        hook.per_step, hook.walls, hook.paused = [], [], {}
+        hook.wall_ms = lambda: [((b - a) - hook.paused.get(i, 0.0)) * 1e3
+                                for i, (a, b) in enumerate(zip(hook.walls, hook.walls[1:]))]
+        return hook
+
+    def lm_check_steps(self, tag: str, per_step, metrics, fresh, distinct, vocab: int):
+        """Each step's launches against TRAIN_LM_ROUTES (claim_scan only when
+        its batch holds a token the table has not seen, the victim stages
+        too), its loss finite and under 3 ln(vocab) (an LM near its init
+        sits near ln(vocab)) and its overflow 0; one line a step."""
+        import numpy as np
+
+        route = {}
+        for r in TRAIN_LM_ROUTES.values():
+            for k, v in r.items():
+                route[k] = route.get(k, 0) + v
+        require(len(per_step) == len(metrics), f"{tag}: {len(per_step)} steps counted")
+        for step, ((got, claims), m) in enumerate(zip(per_step, metrics)):
+            require(claims == int(fresh[step]),
+                    f"{tag} step {step}: {claims} victim stages, the batch has "
+                    f"{'a' if fresh[step] else 'no'} token the table has not seen")
+            want = self.route(route, claims > 0)
+            if self.dev.type == "cuda":
+                require(got == want, f"{tag} step {step}: launches {got}, TRAIN_LM_ROUTES "
+                        f"give {want}")
+            require(np.isfinite(m["loss"]) and m["loss"] < 3 * np.log(vocab)
+                    and m["emb_overflow"] == 0,
+                    f"{tag} step {step}: loss {m['loss']} (bound {3 * np.log(vocab)}), overflow "
+                    f"{m['emb_overflow']}")
+            log(f"{tag} step {step}: lookup {m['lookup_ms']:.3f} ms, forward+backward "
+                f"{m['fwd_bwd_ms']:.3f} ms, clip+adamw {m['opt_ms']:.3f} ms, apply_grads "
+                f"{m['apply_ms']:.3f} ms; loss {m['loss']:.6f}, grad norm {m['grad_norm']:.4f}; "
+                f"{distinct[step]} distinct tokens; launches {json.dumps(got)}")
 
     def phase_lm(self):
         """The port's LM training path (see the module note)."""
         import numpy as np
 
         from repro_torch import tree
-        from repro_torch.data import TokenStream
-        from repro_torch.kernels import ops as kops
         from repro_torch.launch import train
         from repro_torch.models.lm import CompositeLM
         from repro_torch.train import checkpoint as ckpt
@@ -3470,80 +3624,25 @@ class Smoke:
             f"{sz.lm_batch} x seq {sz.lm_seq} = {sz.lm_batch * sz.lm_seq} tokens a step; cut: "
             f"the train_4k shape's global batch of {LM_GLOBAL_BATCH} to {sz.lm_batch} for one "
             f"card; {free / 1e9:.1f} GB free for checkpoints of ~{ckpt_bytes / 1e9:.2f} GB")
+        distinct, fresh, seen = self.lm_fresh(lm.vocab, LM_STEPS)
 
-        stream = TokenStream(seed=SEED, batch=sz.lm_batch, seq=sz.lm_seq, vocab=lm.vocab)
-        seen: set = set()
-        distinct, fresh = [], []
-        for step in range(LM_STEPS):
-            toks = np.unique(stream.batch_at(step)[0])
-            distinct.append(toks.size)
-            fresh.append(bool(len(set(toks.tolist()) - seen)))
-            seen.update(toks.tolist())
-
-        # run A: LM_STEPS steps, checkpoints every LM_CKPT_EVERY.  The lanes
-        # that each gather_rows and scatter_rows launch of the path gets are
-        # kept (the wrappers are wrapped where kernels/ops.py calls them),
-        # to hold both against their plain versions after the run
+        # run A: LM_STEPS steps, checkpoints every LM_CKPT_EVERY; the row
+        # kernels' lanes are kept to hold them against their plain versions
         counts = self._build.launch_counts
-        per_step, mark, walls = [], {}, []
-        row_calls = {"gather": [], "scatter": []}
-        gather_rows, scatter_rows = kops.gather_rows, kops.scatter_rows
-
-        def gather(values, rows, mask, width=None):
-            row_calls["gather"].append((rows.clone(), mask.clone(), width))
-            return gather_rows(values, rows, mask, width)
-
-        def scatter(values, rows, updates, mask, add):
-            row_calls["scatter"].append((rows.clone(), mask.clone(), add))
-            return scatter_rows(values, rows, updates, mask, add)
-
-        with self.stage_lanes() as lanes:
-            def hook(step):
-                """Called by TrainDriver before each step, after its batch
-                is on the card: the launches and victim stages since the
-                last call are the last step's, and `walls` the wall clock."""
-                self.sync()
-                walls.append(time.perf_counter())
-                now, victims = dict(counts), len(lanes["victim"])
-                if mark:
-                    per_step.append(({k: v - mark["counts"].get(k, 0) for k, v in now.items()
-                                      if v != mark["counts"].get(k, 0)},
-                                     victims - mark["victims"]))
-                mark.update(counts=now, victims=victims)
-
+        with self.lm_capture() as row_calls, self.stage_lanes() as lanes:
+            hook = self.lm_tally(lanes)
             if self.dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
             self.sync()
             self._build.reset_counts()
-            kops.gather_rows, kops.scatter_rows = gather, scatter
-            try:
-                t0 = time.perf_counter()
-                hist_a = train.main(self.lm_argv(root / "a"), failure_injector=hook)
-                t_a = time.perf_counter() - t0
-                hook(LM_STEPS)
-            finally:
-                kops.gather_rows, kops.scatter_rows = gather_rows, scatter_rows
+            t0 = time.perf_counter()
+            hist_a = train.main(self.lm_argv(root / "a"), failure_injector=hook)
+            t_a = time.perf_counter() - t0
+            hook(LM_STEPS)
             self.launches_lm = dict(counts)
         peak = torch.cuda.max_memory_allocated() if self.dev.type == "cuda" else 0
-        route = {}
-        for r in TRAIN_LM_ROUTES.values():
-            for k, v in r.items():
-                route[k] = route.get(k, 0) + v
-        require(len(per_step) == LM_STEPS, f"phase 11: {len(per_step)} steps counted")
-        for step, ((got, claims), m) in enumerate(zip(per_step, hist_a["metrics"])):
-            require(claims == int(fresh[step]),
-                    f"phase 11 step {step}: {claims} victim stages, the batch has "
-                    f"{'a' if fresh[step] else 'no'} token the table has not seen")
-            want = self.route(route, claims > 0)
-            if self.dev.type == "cuda":
-                require(got == want, f"phase 11 step {step}: launches {got}, TRAIN_LM_ROUTES "
-                        f"give {want}")
-            require(np.isfinite(m["loss"]) and m["emb_overflow"] == 0,
-                    f"phase 11 step {step}: loss {m['loss']}, overflow {m['emb_overflow']}")
-            log(f"phase 11 run A step {step}: lookup {m['lookup_ms']:.3f} ms, forward+backward "
-                f"{m['fwd_bwd_ms']:.3f} ms, clip+adamw {m['opt_ms']:.3f} ms, apply_grads "
-                f"{m['apply_ms']:.3f} ms; loss {m['loss']:.6f}, grad norm {m['grad_norm']:.4f}; "
-                f"{distinct[step]} distinct tokens; launches {json.dumps(got)}")
+        self.lm_check_steps("phase 11 run A", hook.per_step, hist_a["metrics"], fresh, distinct,
+                            lm.vocab)
         parts = ("lookup_ms", "fwd_bwd_ms", "opt_ms", "apply_ms")
         med = {k: statistics.median(m[k] for m in hist_a["metrics"][1:]) for k in parts}
         step_ms = statistics.median(sum(m[k] for k in parts) for m in hist_a["metrics"][1:])
@@ -3552,7 +3651,8 @@ class Smoke:
         # the run's end: a step's wall time holds its syncs, the next batch's
         # copy and, after steps 3 and 7, a checkpoint's host copy (the last
         # one's write too, which the run waits for)
-        wall_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+        walls = hook.walls
+        wall_ms = hook.wall_ms()
         wall_step_ms = statistics.median(wall_ms[1:])
         last = LM_STEPS - 1
         wall_tps = (last - 1) * tokens / (walls[last] - walls[1])
@@ -3580,12 +3680,12 @@ class Smoke:
         self.sync()
         t_restore = time.perf_counter() - t0
         require(extra == {"seed": SEED, "step": LM_STEPS}, f"phase 11: checkpoint extra {extra}")
-        self.lm_same(restored, state_a, "restore of run A's last checkpoint", exact=True)
+        self.lm_same(restored, state_a, "phase 11: restore of run A's last checkpoint", exact=True)
         log(f"phase 11: restore of step {LM_STEPS} ({hist_a['checkpoints'][-1].nbytes} bytes) "
             f"{t_restore:.3f} s; every leaf bit for bit the saved state's")
         del restored
         shutil.rmtree(root / "a")
-        self.lm_rows(state_a[2].state[0].values, row_calls)
+        self.lm_rows(state_a[2].state[0].values, row_calls, "phase 11")
         del row_calls
         self.free()
 
@@ -3594,7 +3694,7 @@ class Smoke:
         hist_a2 = train.main(self.lm_argv(root / "a2"))
         t_a2 = time.perf_counter() - t0
         noise_loss = max(abs(a - b) / abs(a) for a, b in zip(hist_a["loss"], hist_a2["loss"]))
-        noise = self.lm_same(hist_a2["state"], state_a, "run A2 against run A", exact=False)
+        noise = self.lm_same(hist_a2["state"], state_a, "phase 11 run A2 against run A", exact=False)
         log(f"phase 11 run A2 (run A again, uninterrupted): final table keys, digests, scores "
             f"and occupancy equal run A's; losses within a relative {noise_loss:.3g}, parameters "
             f"within {noise['params']:.3g} (mean {noise['params_mean']:.3g}), table values within "
@@ -3622,7 +3722,7 @@ class Smoke:
         replay = hist_b["loss"][LM_FAIL_AT:]
         losses_b = hist_b["loss"][:LM_CKPT_EVERY] + replay
         require(len(losses_b) == LM_STEPS, f"phase 11 run B: {len(hist_b['loss'])} losses")
-        diffs = self.lm_same(hist_b["state"], state_a, "run B against run A", exact=False)
+        diffs = self.lm_same(hist_b["state"], state_a, "phase 11 run B against run A", exact=False)
         diffs["loss"] = max(abs(a - b) / abs(a) for a, b in zip(hist_a["loss"], losses_b))
         noise["loss"] = noise_loss
         bounds = {k: max(LM_NOISE_TIMES[k] * noise[k], LM_NOISE_FLOOR[k]) for k in LM_NOISE_TIMES}
@@ -3658,68 +3758,135 @@ class Smoke:
         shutil.rmtree(root, ignore_errors=True)
         self.free()
 
-    def lm_profile(self, root, wall_step_ms: float):
+    def lm_profile(self, root, wall_step_ms: float, arch: str = LM_ARCH, tag: str = "phase 11",
+                   gla: bool = False):
         """One HKV step (after two) under ``torch.profiler`` on the card: the
         device time by operator, and the card's busy share of the profiled
         window's wall time (the step, from its batch on the card to a
-        synchronize; the profiler's own cost inflates the window) and of run
-        A's median wall step."""
+        synchronize; the profiler's own cost inflates the window) and of the
+        run's median wall step.  With `gla`, the device time split into the
+        chunked GLA's (its forward and the remat recompute inside a
+        "chunked_gla" range; its backward: the autograd nodes of the
+        forward's operators, matched by thread and sequence number),
+        `aten::mm`, SDPA and the rest."""
         torch = self.torch
         if self.dev.type != "cuda":
-            log("phase 11 profile: on the card only")
+            log(f"{tag} profile: on the card only")
             return
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         from repro_torch.launch import train
+        from repro_torch.models import ssm
 
-        driver = train.build(train.parse_args(self.lm_argv(root / "p", steps=3)))
+        driver = train.build(train.parse_args(self.lm_argv(root / "p", steps=3, arch=arch)))
         state = driver.state
         for step in range(2):
             state, _ = driver.step_fn(state, driver.batch_fn(step))
         batch = driver.batch_fn(2)
+        chunked_gla = ssm.chunked_gla
+
+        def ranged(*a, **kw):
+            with record_function(GLA_RANGE):
+                return chunked_gla(*a, **kw)
+
         self.sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, _ = driver.step_fn(state, batch)
-            self.sync()
-            window_ms = (time.perf_counter() - t0) * 1e3
+        if gla:
+            ssm.chunked_gla = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = driver.step_fn(state, batch)
+                self.sync()
+                window_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ssm.chunked_gla = chunked_gla
+        t0 = time.perf_counter()
         events = prof.key_averages()
-        device_ms = sum(e.self_device_time_total for e in events
-                        if e.device_type == DeviceType.CUDA) / 1e3
+        # the device's own events: kernels and copies; the GLA range's span on
+        # the device's timeline (a user annotation) is no work of its own
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != GLA_RANGE]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+                      and e.key != GLA_RANGE and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
-        log(f"phase 11 profile of one HKV step: {device_ms:.3f} ms of device time in a "
+        log(f"{tag} profile of one HKV step: {device_ms:.3f} ms of device time in a "
             f"{window_ms:.3f} ms window, a busy share of {device_ms / window_ms:.3f} (idle "
-            f"{1 - device_ms / window_ms:.3f}); {device_ms / wall_step_ms:.3f} of run A's median "
+            f"{1 - device_ms / window_ms:.3f}); {device_ms / wall_step_ms:.3f} of the run's median "
             f"wall step ({wall_step_ms:.3f} ms); by operator: "
             + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms ({e.count})"
-                        for e in ops[:16]))
+                        for e in ops[:16])
+            + f"; the profile's events summed in {time.perf_counter() - t0:.1f} s")
+        if gla:
+            by = lambda pick: sum(e.self_device_time_total for e in ops if pick(e.key)) / 1e3  # noqa: E731
+            mm_ms = by(lambda k: k == "aten::mm")
+            # SDPA's forward and backward kernels, whichever backend runs them
+            attn = [e for e in kernels
+                    if any(w in e.key.lower() for w in ("sdpa", "fmha", "flash", "attn", "attention"))]
+            sdpa_ms = sum(e.self_device_time_total for e in attn) / 1e3
+            bmm_ms = by(lambda k: k == "aten::bmm")
+            fwd_ms, bwd_ms = self.gla_device_ms(prof.events())
+            gla_ms = fwd_ms + bwd_ms
+            rest = device_ms - gla_ms - mm_ms - sdpa_ms
+            log(f"{tag} profile split: the chunked GLA {gla_ms:.3f} ms ({gla_ms / device_ms:.3f}; "
+                f"forward and recompute {fwd_ms:.3f}, backward {bwd_ms:.3f}), aten::mm "
+                f"{mm_ms:.3f} ms ({mm_ms / device_ms:.3f}), SDPA {sdpa_ms:.3f} ms "
+                f"({sdpa_ms / device_ms:.3f}; {len(attn)} kernels, e.g. "
+                f"{attn[0].key[:60] if attn else 'none'}), the rest {rest:.3f} ms "
+                f"({rest / device_ms:.3f}); aten::bmm (the GLA's einsums) {bmm_ms:.3f} ms")
         del driver, state, batch
 
-    def lm_rows(self, values, calls):
+    @staticmethod
+    def gla_device_ms(events) -> tuple[float, float]:
+        """Device ms of the chunked GLA in a profile: the kernels of the
+        operators inside the "chunked_gla" ranges (its forward and the remat
+        recompute), and those of the backward nodes of the operators the
+        forward ranges ran (autograd records each node's forward thread and
+        sequence number).  Each operator's own kernels are counted once."""
+        def below(roots):
+            todo, seen = [c for r in roots for c in r.cpu_children], []
+            while todo:
+                e = todo.pop()
+                seen.append(e)
+                todo.extend(e.cpu_children)
+            return seen
+
+        from torch.autograd import DeviceType
+
+        ranges = [e for e in events if e.name == GLA_RANGE and e.device_type != DeviceType.CUDA]
+        inside = below(ranges)
+        seqs = {(e.thread, e.sequence_nr) for e in inside if e.sequence_nr >= 0}
+        nodes = [e for e in events if e.name.startswith("autograd::engine::evaluate_function")
+                 and (e.fwd_thread, e.sequence_nr) in seqs]
+        fwd = sum(e.self_device_time_total for e in inside) / 1e3
+        bwd = sum(e.self_device_time_total for e in nodes + below(nodes)) / 1e3
+        return fwd, bwd
+
+    def lm_rows(self, values, calls, tag: str):
         """gather_rows and scatter_rows against their plain versions on the
-        LM path's own plane (run A's final values, V = d_model + 1) at the
-        lanes, mask and width each of run A's launches got: bit for bit.
-        scatter_rows writes copies of the plane, in the launch's mode, rows
-        drawn once per distinct target row (lanes aimed at one row carry the
-        same row, as the path's init rows do); both are timed on the last
-        launch's lanes."""
+        LM path's own plane (the run's final values, V = d_model + 1) at the
+        lanes, mask and width each of the run's launches got, and
+        update_scan on the copy of the plane taken before its first launch,
+        at that launch's queries and gradients: bit for bit.  scatter_rows
+        writes copies of the plane, in the launch's mode, rows drawn once per
+        distinct target row (lanes aimed at one row carry the same row, as
+        the path's init rows do); the row kernels are timed on the last
+        launch's lanes and update_scan on its launch's, each beside its
+        bound (bytes over the HBM rate)."""
         torch, runs = self.torch, self.sz.timed_runs
         r_tot, v = values.shape
         if self.dev.type != "cuda":
-            log("phase 11: the row kernels at the path's lanes: on the card only (the CPU path "
-                "takes the plain stages)")
+            log(f"{tag}: the row kernels and update_scan at the path's lanes: on the card only "
+                "(the CPU path takes the plain stages)")
             return
-        require(calls["gather"] and calls["scatter"],
-                f"phase 11: run A launched gather_rows {len(calls['gather'])} and scatter_rows "
-                f"{len(calls['scatter'])} times")
+        require(calls["gather"] and calls["scatter"] and calls["update"] is not None,
+                f"{tag}: the run launched gather_rows {len(calls['gather'])}, scatter_rows "
+                f"{len(calls['scatter'])} times and update_scan {'never' if calls['update'] is None else 'once or more'}")
         for i, (rows, mask, width) in enumerate(calls["gather"]):
             self.check_equal("gather_rows", (self.ga.gather_rows(values, rows, mask, width),),
                              (self.ga.gather_rows_plain(values, rows.clamp(0, r_tot - 1), mask,
                                                         width),),
-                             f"LM lookup {i}: {rows.shape[0]} lanes, V={v} width {width or v}")
+                             f"{tag} LM lookup {i}: {rows.shape[0]} lanes, V={v} width {width or v}")
         for i, (rows, mask, add) in enumerate(calls["scatter"]):
             uniq, inv = torch.unique(rows, return_inverse=True)
             upd = torch.randn((uniq.shape[0], v), generator=self.gen, device=self.dev)[inv]
@@ -3727,24 +3894,67 @@ class Smoke:
             self.sc.scatter_rows(got, rows, upd.to(values.dtype), mask, add)
             self.sc.scatter_rows_plain(want, rows, upd.to(values.dtype), mask, add)
             self.check_equal("scatter_rows", (got,), (want,),
-                             f"LM lookup {i}: {int(mask.sum())} of {rows.shape[0]} lanes, V={v} "
-                             f"{'add' if add else 'set'}")
+                             f"{tag} LM lookup {i}: {int(mask.sum())} of {rows.shape[0]} lanes, "
+                             f"V={v} {'add' if add else 'set'}")
             del got, want
+        es = values.element_size()
         rows, mask, width = calls["gather"][-1]
+        n, m, w = rows.shape[0], int(mask.sum()), width or v
+        g_bytes = n * (rows.element_size() + 1) + m * w * es + n * w * es
         t_g = self.time_ms(lambda: self.ga.gather_rows(values, rows, mask, width), runs)
         rows_c = rows.clamp(0, r_tot - 1)
         t_gp = self.time_ms(lambda: self.ga.gather_rows_plain(values, rows_c, mask, width), 2)
         rows, mask, add = calls["scatter"][-1]
+        n, m = rows.shape[0], int(mask.sum())
+        s_bytes = n * (rows.element_size() + 1) + m * v * es * 2
         upd = torch.randn((rows.shape[0], v), generator=self.gen, device=self.dev)
         plane = values.clone()
         t_s = self.time_ms(lambda: self.sc.scatter_rows(plane, rows, upd, mask, add), runs)
         t_sp = self.time_ms(lambda: self.sc.scatter_rows_plain(plane, rows, upd, mask, add), 2)
-        log(f"phase 11: gather_rows ({len(calls['gather'])} launches) and scatter_rows "
-            f"({len(calls['scatter'])}) bit for bit their plain versions at run A's lanes on its "
-            f"V = {v} plane; the last launch's lanes: gather_rows {t_g:.4f} ms (plain "
-            f"{t_gp:.4f}), scatter_rows {t_s:.4f} ms (plain {t_sp:.4f})")
         del plane, upd
+        u = self.lm_update(calls["update"], tag)
+        ms = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+        log(f"{tag}: gather_rows ({len(calls['gather'])} launches), scatter_rows "
+            f"({len(calls['scatter'])}) and update_scan (the first apply_grads) bit for bit their "
+            f"plain versions at the run's lanes on its V = {v} plane; gather_rows at the last "
+            f"launch's {n} lanes, width {w}: {t_g:.4f} ms (plain {t_gp:.4f}, bound "
+            f"{ms(g_bytes):.4f} by bytes); scatter_rows ({m} of {n} lanes, "
+            f"{'add' if add else 'set'}): {t_s:.4f} ms (plain {t_sp:.4f}, bound {ms(s_bytes):.4f} "
+            f"by bytes); update_scan ({u['lanes']} lanes, {u['found']} found, {u['opt']} at dim "
+            f"{u['dim']}): {u['ms']:.4f} ms (plain {u['plain_ms']:.4f}, bound {u['bound']:.4f} by "
+            f"{u['by']})")
         self.free()
+
+    def lm_update(self, call, tag: str) -> dict:
+        """update_scan against its plain version on two copies of the plane
+        taken before the captured launch, at its queries and gradients (bit
+        for bit: found flags and the whole plane), then timed on a copy."""
+        import types
+
+        args, kw = call
+        digests, keys, before, b1, b2, qd, qk, qv, grads, opt, dim = args
+        got, want = before.clone(), before.clone()
+        f_got = self.up.update_scan(digests, keys, got, b1, b2, qd, qk, qv, grads, opt, dim, **kw)
+        f_want = self.up.update_scan_plain(digests, keys, want, b1, b2, qd, qk, qv, grads, opt,
+                                           dim, **kw)
+        v = before.shape[1]
+        self.check_equal("update_scan", (f_got, got), (f_want, want),
+                         f"{tag} apply_grads: {qk.shape[0]} lanes, {opt.name} at dim {dim}, V={v}")
+        del got, want
+        plane = before.clone()
+        runs = self.sz.timed_runs
+        t = self.time_ms(lambda: self.up.update_scan(digests, keys, plane, b1, b2, qd, qk, qv,
+                                                     grads, opt, dim, **kw), runs)
+        t_plain = self.time_ms(lambda: self.up.update_scan_plain(digests, keys, plane, b1, b2, qd,
+                                                                 qk, qv, grads, opt, dim, **kw), 2)
+        del plane
+        hit1 = self.find_mod.match_rows(keys, digests, b1, qk, qd, kw.get("use_digest", True))[0]
+        work = self.update_work(types.SimpleNamespace(digests=digests, keys=keys),
+                                types.SimpleNamespace(bucket1=b1, bucket2=b2, digest=qd), qk, qv,
+                                hit1, f_want.bool(), before, dim, opt.name, "lm")
+        bound, by = self.bound(work, "lm")
+        return {"lanes": qk.shape[0], "found": int(f_want.sum()), "opt": opt.name, "dim": dim,
+                "ms": t, "plain_ms": t_plain, "bound": bound, "by": by}
 
     def lm_same(self, got, want, ctx: str, exact: bool) -> dict:
         """Two train states (params, adamw state, sharded table): the table's
@@ -3762,9 +3972,9 @@ class Smoke:
         worst = dict.fromkeys(LM_NOISE_TIMES, 0.0)
         total, n_params = 0.0, 0
         for i, (a, b) in enumerate(zip(tree.leaves((gp, go)), tree.leaves((wp, wo)))):
-            require(a.dtype == b.dtype and a.shape == b.shape, f"phase 11 {ctx}: leaf {i}")
+            require(a.dtype == b.dtype and a.shape == b.shape, f"{ctx}: leaf {i}")
             if exact or not a.dtype.is_floating_point:
-                require(torch.equal(a, b), f"phase 11 {ctx}: leaf {i} differs")
+                require(torch.equal(a, b), f"{ctx}: leaf {i} differs")
             elif i < len(tree.leaves(gp)):
                 d = (a.float() - b.float()).abs()
                 worst["params"] = max(worst["params"], d.max().item())
@@ -3780,8 +3990,8 @@ class Smoke:
                 worst["values_mean"] = float(d[live, :-1].mean())
                 worst["median_row"] = float(np.median(d[live, :-1].max(axis=1) / scale[live]))
             else:
-                require(np.array_equal(ga[f], wa[f]), f"phase 11 {ctx}: table {f} differ")
-        require(gt.size() == wt.size(), f"phase 11 {ctx}: occupancy {gt.size()}, {wt.size()}")
+                require(np.array_equal(ga[f], wa[f]), f"{ctx}: table {f} differ")
+        require(gt.size() == wt.size(), f"{ctx}: occupancy {gt.size()}, {wt.size()}")
         return worst
 
     def lm_attention(self):
@@ -3822,6 +4032,320 @@ class Smoke:
             del q, k, v, do, lib, plain
             self.free()
 
+
+    # phase 12 -------------------------------------------------------------
+
+    def phase_zoo(self):
+        """The rest of the model zoo (see the module note): (a) zamba2-1.2b
+        through the launcher at its published widths; (b) four more archs a
+        warm-up and a timed HKV step each."""
+        from repro_torch import tree
+        from repro_torch.launch import train
+        from repro_torch.models.lm import CompositeLM
+        from repro_torch.train import checkpoint as ckpt
+
+        torch, sz = self.torch, self.sz
+        self.free()
+        lm = self.lm_config(ZOO_ARCH)
+        n_params = sum(p.numel() for p in tree.leaves(CompositeLM(lm).init(device="meta")))
+        cap = train.hkv_capacity(lm.vocab)
+        ckpt_bytes = 3 * 4 * n_params + cap * ((lm.d_model + 1) * 4 + 17)
+        root = ROOT / "runs" / "chip_smoke_zoo"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        free = shutil.disk_usage(root).free
+        require(free >= 3 * ckpt_bytes,
+                f"phase 12: {free / 1e9:.1f} GB free under {root}, the checkpoints need "
+                f"{3 * ckpt_bytes / 1e9:.1f} GB (3 of {ckpt_bytes / 1e9:.2f} GB)")
+        mamba, attn = lm.segments[0].block, lm.segments[1].block
+        n_mamba = lm.prelude[0].count + lm.segments[0].count * lm.repeats
+        log(f"phase 12 (a): {ZOO_ARCH} "
+            f"{'smoke config' if self.dev.type == 'cpu' else 'at its published widths'}: "
+            f"{n_mamba} mamba2 layers (a prelude of {lm.prelude[0].count}, then {lm.repeats} x "
+            f"{lm.segments[0].count}) at d_model {lm.d_model}, d_state {mamba.d_state}, "
+            f"{mamba.ssm_heads} SSM heads of {mamba.ssm_headdim}, expand {mamba.expand}, conv "
+            f"{mamba.conv_width}; one shared attention block ({attn.heads} heads / "
+            f"{attn.kv_heads} KV heads, d_ff {attn.d_ff}, {attn.act}, "
+            f"{'gated' if attn.gated else 'ungated'}) invoked {lm.repeats} times; vocab "
+            f"{lm.vocab}, {lm.dtype}; {n_params} parameters (untied head, no embedding table); "
+            f"HKV table {cap} slots at V = {lm.d_model + 1} (rowwise_adagrad), one shard on a "
+            f"(1, 1) mesh; batch {sz.lm_batch} x seq {sz.lm_seq} = {sz.lm_batch * sz.lm_seq} "
+            f"tokens a step; cut: the train_4k shape's global batch of {LM_GLOBAL_BATCH} to "
+            f"{sz.lm_batch} for one card; {free / 1e9:.1f} GB free for checkpoints of "
+            f"~{ckpt_bytes / 1e9:.2f} GB")
+        distinct, fresh, seen = self.lm_fresh(lm.vocab, ZOO_STEPS)
+        built, restore = {}, {}
+        build = train.build
+
+        def capture(args, failure_injector=None):
+            built["driver"] = build(args, failure_injector)
+            return built["driver"]
+
+        def check_ckpt(step):
+            """Before step ZOO_CKPT_EVERY: that step's checkpoint restored
+            onto the driver's live state, every leaf bit for bit."""
+            if step != ZOO_CKPT_EVERY:
+                return
+            ckpt.wait_async()
+            state = built["driver"].state
+            self.sync()
+            t0 = time.perf_counter()
+            restored, extra = ckpt.restore(str(root / "a"), step, state)
+            self.sync()
+            restore["s"] = time.perf_counter() - t0
+            require(extra == {"seed": SEED, "step": step}, f"phase 12: checkpoint extra {extra}")
+            self.lm_same(restored, state, f"phase 12: restore of the step-{step} checkpoint",
+                         exact=True)
+
+        counts = self._build.launch_counts
+        with self.lm_capture() as calls, self.stage_lanes() as lanes:
+            hook = self.lm_tally(lanes, before=check_ckpt)
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            self.sync()
+            self._build.reset_counts()
+            train.build = capture
+            try:
+                t0 = time.perf_counter()
+                hist = train.main(self.lm_argv(root / "a", steps=ZOO_STEPS, every=ZOO_CKPT_EVERY,
+                                               arch=ZOO_ARCH), failure_injector=hook)
+                t_run = time.perf_counter() - t0
+                hook(ZOO_STEPS)
+            finally:
+                train.build = build
+            self.launches_zoo = dict(counts)
+        del built["driver"]
+        peak = torch.cuda.max_memory_allocated() if self.dev.type == "cuda" else 0
+        require("s" in restore, f"phase 12: the step-{ZOO_CKPT_EVERY} checkpoint was not restored")
+        self.lm_check_steps(f"phase 12 {ZOO_ARCH}", hook.per_step, hist["metrics"], fresh,
+                            distinct, lm.vocab)
+        parts = ("lookup_ms", "fwd_bwd_ms", "opt_ms", "apply_ms")
+        med = {k: statistics.median(m[k] for m in hist["metrics"][1:]) for k in parts}
+        step_ms = statistics.median(sum(m[k] for k in parts) for m in hist["metrics"][1:])
+        tokens = sz.lm_batch * sz.lm_seq
+        wall_ms = hook.wall_ms()
+        wall_step_ms = statistics.median(wall_ms[1:ZOO_STEPS - 1])
+        log(f"phase 12 {ZOO_ARCH}: medians over steps 1-{ZOO_STEPS - 1} of the parts' CUDA-event "
+            f"spans: step {step_ms:.3f} ms (lookup {med['lookup_ms']:.3f}, forward+backward "
+            f"{med['fwd_bwd_ms']:.3f}, clip+adamw {med['opt_ms']:.3f}, apply_grads "
+            f"{med['apply_ms']:.3f}), {tokens / step_ms * 1e3:.1f} tokens/s of the parts' sum; "
+            f"wall time a step {', '.join(f'{x:.3f}' for x in wall_ms)} ms (the checkpoint "
+            f"restore before step {ZOO_CKPT_EVERY} left out; median of steps 1-{ZOO_STEPS - 2} "
+            f"{wall_step_ms:.3f}); distinct tokens a step {statistics.median(distinct[1:])} (of "
+            f"{tokens}), {len(seen)} over the run; peak memory {peak / 2**30:.2f} GiB; the run "
+            f"{t_run:.1f} s; launches over the run {json.dumps(self.launches_zoo)}")
+        for p in hist["checkpoints"]:
+            log(f"phase 12 {ZOO_ARCH} checkpoint at step {p.step}: {p.nbytes} bytes, save_async "
+                f"host copy {p.host_copy_s:.3f} s, write {p.write_s:.3f} s "
+                f"({p.nbytes / p.write_s / 1e9:.2f} GB/s)")
+        log(f"phase 12: restore of the step-{ZOO_CKPT_EVERY} checkpoint (prelude, repeat and "
+            f"shared leaves, adamw's moments, the table) onto the live state before step "
+            f"{ZOO_CKPT_EVERY}: {restore['s']:.3f} s; every leaf bit for bit")
+        self.lm_rows(hist["state"][2].state[0].values, calls, "phase 12")
+        del hist, calls
+        shutil.rmtree(root / "a")
+        self.free()
+
+        t0 = time.perf_counter()
+        hist_d = train.main(self.lm_argv(root / "d", "dense", steps=ZOO_DENSE_STEPS,
+                                         every=ZOO_DENSE_STEPS, arch=ZOO_ARCH))
+        t_d = time.perf_counter() - t0
+        dense = hist_d["metrics"][-1]
+        dense_ms = dense["fwd_bwd_ms"] + dense["opt_ms"]
+        log(f"phase 12 {ZOO_ARCH} dense backend (the tied {lm.vocab} x {lm.d_model} table in "
+            f"the parameters): step {ZOO_DENSE_STEPS - 1} {dense_ms:.3f} ms (forward+backward "
+            f"{dense['fwd_bwd_ms']:.3f}, clip+adamw {dense['opt_ms']:.3f}); losses "
+            f"{', '.join(f'{x:.6f}' for x in hist_d['loss'])}; the run {t_d:.1f} s; the HKV step "
+            f"over the dense one: {step_ms - dense_ms:+.3f} ms ({step_ms / dense_ms:.3f}x)")
+        require(all(x == x for x in hist_d["loss"]), "phase 12: the dense run's loss is NaN")
+        del hist_d
+        shutil.rmtree(root / "d")
+        self.free()
+        t0 = time.perf_counter()
+        self.lm_profile(root, wall_step_ms, arch=ZOO_ARCH, tag="phase 12", gla=True)
+        log(f"phase 12 profile: {time.perf_counter() - t0:.1f} s with its driver's build and "
+            "two steps")
+        shutil.rmtree(root, ignore_errors=True)
+        self.free()
+        self.zoo_gla(lm, med["fwd_bwd_ms"], n_mamba)
+        for name, layers in ZOO_OTHERS:
+            self.zoo_step(name, layers)
+
+    def zoo_gla(self, lm, fwd_bwd_ms: float, layers: int):
+        """The chunked GLA alone at the mamba2 block's shapes (q and k one
+        [B, S, N] row broadcast over the heads, v [B, S, H, P] in the model's
+        dtype, log a float32), forward and forward+backward timed with CUDA
+        events; a layer costs the step its forward, the remat recompute and
+        the backward."""
+        from repro_torch.models import ssm
+
+        torch, sz, g = self.torch, self.sz, self.gen
+        blk = lm.prelude[0].block
+        b, s, h, n, p = sz.lm_batch, sz.lm_seq, blk.ssm_heads, blk.d_state, blk.ssm_headdim
+        Bm, Cm = (torch.randn((b, s, n), generator=g, device=self.dev).to(lm.dtype)
+                  for _ in range(2))
+        v, dy = (torch.randn((b, s, h, p), generator=g, device=self.dev).to(lm.dtype)
+                 for _ in range(2))
+        log_a = -torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=g, device=self.dev) - 2.0)
+
+        def run(Bm, Cm, v, log_a):
+            return ssm.chunked_gla(Cm[:, :, None].expand(b, s, h, n),
+                                   Bm[:, :, None].expand(b, s, h, n), v, log_a)[0]
+
+        def fwd():
+            with torch.no_grad():
+                return run(Bm, Cm, v, log_a)
+
+        def fwd_bwd():
+            ins = [x.detach().requires_grad_() for x in (Bm, Cm, v, log_a)]
+            return torch.autograd.grad(run(*ins), ins, dy)
+
+        t_f, t_fb = self.time_ms(fwd, 3), self.time_ms(fwd_bwd, 3)
+        chunk = min(128, s)
+        # the four products of a chunk (scores, the intra-chunk and the
+        # inter-chunk outputs, the state update), forward, in float32
+        flops = 2 * -(-s // chunk) * b * h * (chunk * chunk * (n + p) + 2 * chunk * n * p)
+        est = layers * (t_f + t_fb)
+        log(f"phase 12 the chunked GLA alone at {ZOO_ARCH}'s shapes (B {b}, S {s}, {h} heads, N "
+            f"{n}, P {p}, chunk {chunk}, {lm.dtype} operands, float32 products): forward "
+            f"{t_f:.3f} ms ({flops / t_f / 1e9:.2f} TFLOP/s of its products; float32 peak "
+            f"{FP32_FLOPS_PER_S / 1e12:.0f}), forward+backward {t_fb:.3f} ms; {layers} layers x "
+            f"(forward + the remat recompute + backward) {est:.3f} ms, {est / fwd_bwd_ms:.3f} of "
+            f"the run's median forward+backward ({fwd_bwd_ms:.3f} ms)")
+        del Bm, Cm, v, dy, log_a
+        self.free()
+
+    def zoo_blocks(self, lm, tag: str):
+        """Each block kind of `lm` alone at the phase's batch and sequence:
+        one forward+backward of ``block_train`` (the block's parameters
+        drawn, its input and output gradient random in the model's dtype),
+        timed with CUDA events after the model's steps warmed the card."""
+        from repro_torch.models.blocks import PosCtx, block_init, block_train
+
+        torch, sz = self.torch, self.sz
+        b, s = sz.lm_batch, sz.lm_seq
+        pos = PosCtx(positions=torch.arange(s, dtype=torch.int32, device=self.dev).expand(b, s))
+        times = []
+        for seg in lm.segments:
+            params = {k: v.requires_grad_() for k, v in
+                      block_init(seg.block, self.gen, self.dev).items()}
+            x, dy = (torch.randn((b, s, lm.d_model), generator=self.gen, device=self.dev)
+                     .to(lm.dtype) for _ in range(2))
+
+            def run():
+                xx = x.detach().requires_grad_()
+                y, _ = block_train(seg.block, params, xx, pos)
+                return torch.autograd.grad(y, [xx, *params.values()], dy)
+
+            t = self.time_ms(run, 1, warmup=0)
+            times.append(f"{seg.block.kind} {t:.1f} ms (x {seg.count * lm.repeats} in the model)")
+            del params, x, dy
+            self.free()
+        log(f"{tag} blocks alone, one forward+backward each at batch {b} x seq {s}: "
+            + ", ".join(times))
+
+    def zoo_step(self, name: str, layers):
+        """(b): `name` at its published widths (each segment cut to `layers`
+        where one card cannot hold it), adamw, the launcher's table; a
+        warm-up and a timed step of ``StepBuilder.train_step_hkv`` on the
+        launcher's token stream (a vision arch's batch also carries
+        vision_tokens patch embeddings and arange M-RoPE positions on all
+        three axes).  Each step's launches against TRAIN_LM_ROUTES, the loss
+        finite and under 3 ln(vocab), peak memory, and update_scan held
+        against its plain version at this arch's V."""
+        from repro_torch import ShardedHKVTable, make_dev_mesh, tree
+        from repro_torch.configs import get_arch
+        from repro_torch.data import TokenStream
+        from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+        from repro_torch.launch import train
+        from repro_torch.models.lm import CompositeLM
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import StepBuilder
+
+        torch, sz, dev = self.torch, self.sz, self.dev
+        self.free()
+        t_arch = time.perf_counter()
+        arch = get_arch(name)
+        lm = self.lm_config(name, layers)
+        b, s, d = sz.lm_batch, sz.lm_seq, lm.d_model
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        params = CompositeLM(lm).init(gen, device=dev)
+        n_params = sum(p.numel() for p in tree.leaves(params))
+        opt = adamw()
+        opt_state = opt.init(params)
+        cap = train.hkv_capacity(lm.vocab)
+        table = ShardedHKVTable.create(
+            make_dev_mesh(1, 1, device=dev),
+            HKVEmbedding(capacity=cap, dim=d, optimizer=SparseOptimizer("rowwise_adagrad", lr=0.05)))
+        builder = StepBuilder(CompositeLM(lm), opt)
+        stream = TokenStream(seed=SEED, batch=b, seq=s, vocab=lm.vocab)
+        distinct, fresh, _ = self.lm_fresh(lm.vocab, ZOO_OTHER_STEPS)
+        sv = arch.vision_tokens if dev.type == "cuda" else 8   # the smoke sequence is 32
+
+        def batch_at(step):
+            toks, labels = stream.batch_at(step)
+            batch = {"tokens": torch.from_numpy(toks).to(dev),
+                     "labels": torch.from_numpy(labels).to(dev)}
+            if lm.frontend == "vision":
+                batch["frontend_embeds"] = torch.randn((b, sv, d), generator=gen, device=dev)
+                pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+                batch["mrope_positions"] = pos[None].expand(3, b, s)
+            return batch
+
+        metrics = []
+        counts = self._build.launch_counts
+        with self.lm_capture() as calls, self.stage_lanes() as lanes:
+            hook = self.lm_tally(lanes)
+            self.sync()
+            self._build.reset_counts()
+            for step in range(ZOO_OTHER_STEPS):
+                batch = batch_at(step)
+                hook(step)
+                params, opt_state, table, m = builder.train_step_hkv(params, opt_state, table,
+                                                                     batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            hook(ZOO_OTHER_STEPS)
+            for k, v in counts.items():
+                self.launches_zoo[k] = self.launches_zoo.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        tag = f"phase 12 {name}"
+        self.lm_check_steps(tag, hook.per_step, metrics, fresh, distinct, lm.vocab)
+        del params, opt_state, batch
+        self.free()
+        u = (self.lm_update(calls["update"], tag) if dev.type == "cuda" and calls["update"]
+             else None)
+        if any(x.block.kind == "slstm" for x in lm.segments):
+            self.zoo_blocks(lm, tag)
+        m = metrics[-1]
+        step_ms = sum(m[k] for k in ("lookup_ms", "fwd_bwd_ms", "opt_ms", "apply_ms"))
+        wall = hook.wall_ms()
+        cut = (f"; cut: {sum(x.count for x in get_arch(name).lm.segments) * lm.repeats} layers "
+               f"to {lm.num_layers} for one card" if layers and dev.type == "cuda" else "")
+        seg = lm.segments[0].block
+        log(f"{tag} ({arch.family}; {lm.num_layers} layers of "
+            + ", ".join(f"{x.count} x {x.block.kind}" for x in lm.segments)
+            + f", d_model {d}"
+            + (f", {seg.heads}/{seg.kv_heads} heads" if seg.heads else "")
+            + (f", MoE {seg.moe.num_experts} experts top-{seg.moe.top_k} d_ff {seg.moe.d_ff}"
+               if seg.moe else "")
+            + f", vocab {lm.vocab}, {lm.dtype}, {n_params} parameters{cut}; table {cap} slots at "
+            f"V = {d + 1}; batch {b} x seq {s}"
+            + (f" with frontend_embeds [{b}, {sv}, {d}] and mrope_positions [3, {b}, {s}]"
+               if lm.frontend == "vision" else "")
+            + f"): warm-up step wall {wall[0]:.1f} ms; timed step {step_ms:.3f} ms of CUDA-event "
+            f"spans (lookup {m['lookup_ms']:.3f}, forward+backward {m['fwd_bwd_ms']:.3f}, "
+            f"clip+adamw {m['opt_ms']:.3f}, apply_grads {m['apply_ms']:.3f}), wall {wall[1]:.3f} "
+            f"ms, {b * s / step_ms * 1e3:.1f} tokens/s of the spans; loss {m['loss']:.6f} (bound "
+            f"3 ln(vocab) = {3 * math.log(lm.vocab):.3f}); peak memory {peak / 2**30:.2f} GiB"
+            + (f"; update_scan bit for bit its plain version at V = {d + 1} ({u['lanes']} lanes, "
+               f"{u['found']} found): {u['ms']:.4f} ms (plain {u['plain_ms']:.4f}, bound "
+               f"{u['bound']:.4f} by {u['by']})" if u else "")
+            + f"; {time.perf_counter() - t_arch:.1f} s in all")
+        del table, calls, builder
+        self.free()
 
     # ----------------------------------------------------------------- report
 
@@ -3980,7 +4504,8 @@ class Smoke:
             # training path's phase 5 for update_scan, each with the serving
             # path's phase 8; no op calls bucket_stats, so no path launches it;
             # find_scan_many: phase 9's counted find_many_kernel call; and
-            # each with the sharded table's phase 10 and the LM path's phase 11
+            # each with the sharded table's phase 10 and the LM paths' phases
+            # 11 and 12
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
@@ -3988,7 +4513,8 @@ class Smoke:
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": (path.get(name, 0) + self.launches_serve.get(name, 0)
                              + self.launches_sharded.get(name, 0)
-                             + self.launches_lm.get(name, 0)),
+                             + self.launches_lm.get(name, 0)
+                             + self.launches_zoo.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

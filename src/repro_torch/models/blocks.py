@@ -1,12 +1,12 @@
-"""The attention block of the LM stack, with a dense FFN (port of the `attn`
-kind of ``repro/models/blocks.py``): GQA/MQA, an optional SWA band, QKV
-bias, RoPE, and a gated or plain FFN (silu or gelu).
+"""The block zoo of the LM stack (port of the training half of
+``repro/models/blocks.py``): attention (GQA/MQA, an optional SWA band, QKV
+bias, RoPE or M-RoPE, a dense FFN or a MoE), Mamba2 (SSD through the
+chunked GLA), mLSTM (the chunked GLA with a normalizer column) and sLSTM
+(a sequential scan with the exponential gate's stabilizer).
 
 A block is a function (cfg, params, x, pos) -> (x, aux) over a plain dict
-of tensors.  The other kinds of the reference (``mamba2``, ``mlstm``,
-``slstm``), the MoE FFN and M-RoPE wait for ROADMAP item 15b, and decoding
-over a KV cache for 15d: those configurations raise
-``NotImplementedError``.
+of tensors; aux holds the MoE FFN's losses and is empty otherwise.
+Decoding over a KV cache or a recurrent state waits for ROADMAP item 15d.
 """
 
 from __future__ import annotations
@@ -16,10 +16,12 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.common import (activation, apply_rope, causal_attention, dense_init,
-                                       init_rms, rms_norm)
-from repro_torch.models.moe import MoECfg
+from repro_torch.models import ssm
+from repro_torch.models.common import (activation, apply_mrope, apply_rope, causal_attention,
+                                       dense_init, init_rms, normal, rms_norm, scalar, softplus)
+from repro_torch.models.moe import MoECfg, moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,14 +70,9 @@ class PosCtx(NamedTuple):
     step: Optional[torch.Tensor] = None             # decode: current length
 
 
-def _require_ported(cfg: BlockCfg) -> None:
-    if cfg.kind != "attn":
-        raise NotImplementedError(
-            f"block kind {cfg.kind!r} is not ported yet (ROADMAP item 15b); the port has 'attn'")
-    if cfg.moe is not None:
-        raise NotImplementedError("the MoE FFN is not ported yet (ROADMAP item 15b)")
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP item 15b)")
+# =============================================================================
+# Attention block (+ dense or MoE FFN)
+# =============================================================================
 
 
 def _attn_init(cfg: BlockCfg, generator: Optional[torch.Generator], device) -> dict:
@@ -92,8 +89,11 @@ def _attn_init(cfg: BlockCfg, generator: Optional[torch.Generator], device) -> d
     if cfg.qkv_bias:
         for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
             p[name] = torch.zeros((width,), dtype=torch.float32, device=device)
-    p["ffn_wi"] = dense(cfg.d_model, cfg.d_ff * (2 if cfg.gated else 1))
-    p["ffn_wo"] = dense(cfg.d_ff, cfg.d_model)
+    if cfg.moe is not None:
+        p["moe"] = moe_init(cfg.moe, generator, device)
+    else:
+        p["ffn_wi"] = dense(cfg.d_model, cfg.d_ff * (2 if cfg.gated else 1))
+        p["ffn_wo"] = dense(cfg.d_ff, cfg.d_model)
     return p
 
 
@@ -114,11 +114,28 @@ def _qkv(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx):
     if cfg.rope == "rope":
         q = apply_rope(q, pos.positions, cfg.rope_theta)
         k = apply_rope(k, pos.positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        sec = _mrope_sections(hd)
+        q = apply_mrope(q, pos.mrope_positions, cfg.rope_theta, sec)
+        k = apply_mrope(k, pos.mrope_positions, cfg.rope_theta, sec)
     return q, k, v
+
+
+def _mrope_sections(hd: int):
+    """(t, h, w) frequency split covering head_dim/2 (Qwen2-VL uses 16/24/24
+    at hd=128; scaled proportionally elsewhere)."""
+    half = hd // 2
+    t = half // 4
+    hw = (half - t) // 2
+    return (t, hw, half - t - hw)
 
 
 def _ffn(cfg: BlockCfg, p: dict, x: torch.Tensor):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        b, s, d = h.shape
+        y, aux = moe_apply(cfg.moe, p["moe"], h.reshape(b * s, d))
+        return y.reshape(b, s, d), aux
     act = activation(cfg.act)
     u = h @ p["ffn_wi"].to(h.dtype)
     if cfg.gated:
@@ -139,14 +156,213 @@ def _attn_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx,
     return x + f, aux
 
 
+# =============================================================================
+# Mamba2 block (SSD via chunked GLA)
+# =============================================================================
+
+
+def _mamba2_init(cfg: BlockCfg, generator: Optional[torch.Generator], device) -> dict:
+    din, n, h = cfg.d_inner, cfg.d_state, cfg.ssm_heads
+    proj_out = 2 * din + 2 * n + h  # z, x, B, C, dt
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "ln": init_rms(cfg.d_model, device),
+        "in_proj": dense_init(generator, cfg.d_model, proj_out, device=device),
+        "conv_w": normal(generator, (cfg.conv_width, din), device) * 0.1,
+        "conv_b": torch.zeros((din,), **f32),
+        "A_log": torch.zeros((h,), **f32),        # a = -exp(A_log)
+        "D": torch.ones((h,), **f32),
+        "dt_bias": torch.full((h,), -2.0, **f32),
+        "out_norm": init_rms(din, device),
+        "out_proj": dense_init(generator, din, cfg.d_model, device=device),
+    }
+
+
+def _mamba2_split(cfg: BlockCfg, p: dict, x: torch.Tensor):
+    din, n, h = cfg.d_inner, cfg.d_state, cfg.ssm_heads
+    u = rms_norm(x, p["ln"], cfg.norm_eps) @ p["in_proj"].to(x.dtype)
+    return torch.split(u, [din, din, n, n, h], dim=-1)   # z, xs, B, C, dt
+
+
+def _mamba2_gla_inputs(cfg: BlockCfg, p: dict, xs, Bm, Cm, dt):
+    b, s, _ = xs.shape
+    h, pd, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.d_state
+    dt = softplus(dt.to(torch.float32) + p["dt_bias"])            # [B, S, H]
+    log_a = -torch.exp(p["A_log"]) * dt                            # [B, S, H] <= 0
+    xh = xs.reshape(b, s, h, pd)
+    v = xh * dt[..., None].to(xh.dtype)                            # dt-scaled input
+    k = Bm[:, :, None, :].expand(b, s, h, n)
+    q = Cm[:, :, None, :].expand(b, s, h, n)
+    return q, k, v, log_a, xh
+
+
+def _mamba2_out(cfg: BlockCfg, p: dict, x, y, xh, z):
+    b, s = x.shape[0], x.shape[1]
+    y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
+    y = y.reshape(b, s, cfg.d_inner) * F.silu(z)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    return x + y @ p["out_proj"].to(x.dtype)
+
+
+def _causal_conv(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over [B, S, C] with taps [W, C]; the taps are
+    summed from tap 0, in the reference's order."""
+    wlen = w.shape[0]
+    pad = F.pad(xs, (0, 0, wlen - 1, 0))
+    out = sum(pad[:, i:i + xs.shape[1], :] * w[i][None, None, :].to(xs.dtype)
+              for i in range(wlen))
+    return F.silu(out + b.to(xs.dtype))
+
+
+def _mamba2_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx, attention=None):
+    z, xs, Bm, Cm, dt = _mamba2_split(cfg, p, x)
+    xs = _causal_conv(xs, p["conv_w"], p["conv_b"])
+    q, k, v, log_a, xh = _mamba2_gla_inputs(cfg, p, xs, Bm, Cm, dt)
+    y, _ = ssm.chunked_gla(q, k, v, log_a)
+    return _mamba2_out(cfg, p, x, y, xh, z), {}
+
+
+# =============================================================================
+# mLSTM block (xLSTM matrix memory via chunked GLA with a normalizer column)
+# =============================================================================
+
+
+def _mlstm_init(cfg: BlockCfg, generator: Optional[torch.Generator], device) -> dict:
+    din, qb = cfg.d_inner, cfg.qkv_block
+    dense = lambda *a: dense_init(generator, *a, device=device)  # noqa: E731
+
+    # q/k/v are BLOCK-DIAGONAL projections (xLSTM's qkv_proj_blocksize):
+    # [din/qb, qb, qb] blocks
+    def bd():
+        return normal(generator, (din // qb, qb, qb), device) / math.sqrt(qb)
+
+    return {
+        "ln": init_rms(cfg.d_model, device),
+        "up": dense(cfg.d_model, 2 * din),   # u (mixer) + z (gate)
+        "wq": bd(),
+        "wk": bd(),
+        "wv": bd(),
+        "wgate": dense(din, 2 * cfg.ssm_heads),  # i, f pre-activations
+        "down": dense(din, cfg.d_model),
+    }
+
+
+def _block_diag_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[..., din] @ block-diag([G, qb, qb]) -> [..., din]."""
+    g, qb, _ = w.shape
+    xb = x.reshape(x.shape[:-1] + (g, qb))
+    return torch.einsum("...gb,gbc->...gc", xb, w.to(x.dtype)).reshape(x.shape)
+
+
+def _mlstm_qkv(cfg: BlockCfg, p: dict, x: torch.Tensor):
+    b, s, _ = x.shape
+    din, h = cfg.d_inner, cfg.ssm_heads
+    pd = din // h
+    u, z = torch.chunk(rms_norm(x, p["ln"], cfg.norm_eps) @ p["up"].to(x.dtype), 2, dim=-1)
+    q = _block_diag_proj(u, p["wq"]).reshape(b, s, h, pd) / math.sqrt(pd)
+    k = _block_diag_proj(u, p["wk"]).reshape(b, s, h, pd) / math.sqrt(pd)
+    v = _block_diag_proj(u, p["wv"]).reshape(b, s, h, pd)
+    gates = u @ p["wgate"].to(u.dtype)
+    i_pre, f_pre = torch.chunk(gates.to(torch.float32), 2, dim=-1)  # [B, S, H]
+    log_f = -softplus(-f_pre)                                        # log sigmoid(f)
+    ig = torch.sigmoid(i_pre)  # the sigmoid input gate (the reference's adaptation)
+    # normalizer column: v_aug = i * [v, 1]
+    ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
+    v_aug = torch.cat([v, ones], dim=-1) * ig[..., None].to(v.dtype)
+    return q, k, v_aug, log_f, z
+
+
+def _mlstm_out(cfg: BlockCfg, p: dict, x, y_aug, z):
+    y, norm = y_aug[..., :-1], y_aug[..., -1:]
+    y = y / torch.maximum(norm.abs(), scalar(1.0, norm))
+    b, s = x.shape[0], x.shape[1]
+    h = y.reshape(b, s, cfg.d_inner) * F.silu(z)
+    return x + h @ p["down"].to(x.dtype)
+
+
+def _mlstm_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx, attention=None):
+    q, k, v_aug, log_f, z = _mlstm_qkv(cfg, p, x)
+    y_aug, _ = ssm.chunked_gla(q, k, v_aug, log_f)
+    return _mlstm_out(cfg, p, x, y_aug, z), {}
+
+
+# =============================================================================
+# sLSTM block (scalar memory, exponential gating with stabilizer; sequential)
+# =============================================================================
+
+
+def _slstm_init(cfg: BlockCfg, generator: Optional[torch.Generator], device) -> dict:
+    d, h = cfg.d_model, cfg.ssm_heads
+    pd = d // h
+    return {
+        "ln": init_rms(d, device),
+        "wx": dense_init(generator, d, 4 * d, device=device),      # z, i, f, o from input
+        "r": normal(generator, (h, pd, 4 * pd), device) / math.sqrt(pd),
+        "out": dense_init(generator, d, d, device=device),
+    }
+
+
+def _slstm_cell(cfg: BlockCfg, r: torch.Tensor, xg, carry, one: torch.Tensor):
+    """One step. r: the recurrent weights [H, pd, 4pd] in the carry's dtype;
+    xg: [B, 4d] input gate pre-activations; carry: (c, n, h, m); one: a
+    float32 1 on the carry's device."""
+    b = xg.shape[0]
+    d, hh = cfg.d_model, cfg.ssm_heads
+    pd = d // hh
+    c, n, hprev, m = carry
+    # einsum("bhp,hpq->bhq"): one product a head
+    rec = torch.bmm(hprev.transpose(0, 1), r).transpose(0, 1)    # [B, H, 4pd]
+    g = xg.reshape(b, hh, 4 * pd) + rec
+    zg, ig, fg, og = torch.chunk(g.to(torch.float32), 4, dim=-1)
+    log_f = -softplus(-fg)
+    fm = log_f + m
+    m_new = torch.maximum(fm, ig)                          # stabilizer
+    i_s = torch.exp(ig - m_new)
+    f_s = torch.exp(fm - m_new)
+    c = f_s * c + i_s * torch.tanh(zg)
+    n = f_s * n + i_s
+    h = torch.sigmoid(og) * c / torch.maximum(n, one)
+    return (c, n, h.to(hprev.dtype), m_new), h
+
+
+def _slstm_carry(cfg: BlockCfg, batch: int, dtype, device):
+    """The scan's initial (c, n, h, m): m, the stabilizer, starts at -1e30."""
+    shape = (batch, cfg.ssm_heads, cfg.d_model // cfg.ssm_heads)
+    z32 = torch.zeros(shape, dtype=torch.float32, device=device)
+    return (z32, z32, torch.zeros(shape, dtype=dtype, device=device),
+            torch.full(shape, -1e30, dtype=torch.float32, device=device))
+
+
+def _slstm_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx, attention=None):
+    b, s, d = x.shape
+    xg = rms_norm(x, p["ln"], cfg.norm_eps) @ p["wx"].to(x.dtype)  # [B, S, 4d]
+    carry = _slstm_carry(cfg, b, x.dtype, x.device)
+    r, one = p["r"].to(x.dtype), scalar(1.0, carry[0])
+    hs = []
+    for xg_t in xg.unbind(1):   # one unbind: its backward is one stack
+        carry, h = _slstm_cell(cfg, r, xg_t, carry, one)
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    return x + h @ p["out"].to(x.dtype), {}
+
+
+# =============================================================================
+# dispatch tables
+# =============================================================================
+
+_INIT = {"attn": _attn_init, "mamba2": _mamba2_init, "mlstm": _mlstm_init,
+         "slstm": _slstm_init}
+_TRAIN = {"attn": _attn_train, "mamba2": _mamba2_train, "mlstm": _mlstm_train,
+          "slstm": _slstm_train}
+
+
 def block_init(cfg: BlockCfg, generator: Optional[torch.Generator] = None, device=None) -> dict:
-    _require_ported(cfg)
-    return _attn_init(cfg, generator, device)
+    return _INIT[cfg.kind](cfg, generator, device)
 
 
 def block_train(cfg: BlockCfg, params: dict, x: torch.Tensor, pos: PosCtx,
                 attention: Optional[str] = None):
-    """The block over a full sequence; `attention` names the implementation
-    (``models.common.causal_attention``; None: the one of `x`'s device)."""
-    _require_ported(cfg)
-    return _attn_train(cfg, params, x, pos, attention)
+    """The block over a full sequence; `attention` names the attention
+    blocks' implementation (``models.common.causal_attention``; None: the
+    one of `x`'s device)."""
+    return _TRAIN[cfg.kind](cfg, params, x, pos, attention)

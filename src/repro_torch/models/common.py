@@ -15,8 +15,7 @@ Attention has two implementations behind one entry point,
              reference computes attention in plain jnp, outside any Pallas
              kernel, so a library call stands for it here.
 
-`apply_mrope`, `sinusoidal_embedding` and `decode_attention` wait for the
-ports of the other architectures and of LM serving (ROADMAP 15b, 15d).
+`decode_attention` waits for the port of LM serving (ROADMAP item 15d).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,6 +60,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float = 10000.0,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: positions3 [3, B, S] = (t, h, w) ids; the
+    head_dim/2 frequency slots are split into (t, h, w) sections."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # [Dh/2]
+    sec = np.cumsum((0,) + tuple(sections))
+    if sec[-1] != dh // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must cover head_dim/2 = {dh // 2}")
+    ang = torch.cat([positions3[i][..., None].to(torch.float32) * freqs[sec[i]:sec[i + 1]]
+                     for i in range(3)], dim=-1)  # [B, S, Dh/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """MusicGen-style sinusoidal position embedding. positions: [B, S]."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim tensor of `like`'s dtype and device (a binary operator such
+    as ``torch.maximum`` takes no Python number)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference's ``jax.nn.softplus`` forms it
+    (logaddexp(x, 0)); torch's ``F.softplus`` returns x itself past 20."""
+    return torch.logaddexp(x, scalar(0.0, x))
+
+
 def activation(name: str):
     return {
         "silu": F.silu,
@@ -68,13 +106,18 @@ def activation(name: str):
     }[name]
 
 
+def normal(generator: Optional[torch.Generator], shape: tuple, device=None) -> torch.Tensor:
+    """float32 N(0, 1) of `shape` drawn with `generator` ('meta' draws nothing)."""
+    gen = None if torch.device(device).type == "meta" else generator
+    return torch.randn(shape, generator=gen, device=device)
+
+
 def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int, scale=None,
                device=None) -> torch.Tensor:
     """[d_in, d_out] float32 from N(0, scale^2), scale 1/sqrt(d_in) by
     default ('meta' draws nothing)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    gen = None if torch.device(device).type == "meta" else generator
-    return torch.randn((d_in, d_out), generator=gen, device=device) * scale
+    return normal(generator, (d_in, d_out), device) * scale
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,12 @@ arrive as `embeds`, found or inserted outside the differentiated function,
 and the head is untied).  The loss is computed in chunks of `loss_chunk`
 positions, so the [B, S, vocab] logits are never all live.
 
-Decoding (`prefill`, `decode_step`, `init_decode_state`) waits for ROADMAP
-item 15d, and the vision frontend, sinusoidal positions and the non-attn
-blocks for 15b; those raise ``NotImplementedError``.
+The inputs take the reference's stub vision frontend (`frontend_embeds`
+replace the first positions), M-RoPE positions (`mrope_positions`
+[3, B, S]) and sinusoidal positions.  The MoE blocks' aux losses fold
+into the loss with `aux_weights`.  Decoding (`prefill`, `decode_step`,
+`init_decode_state`) waits for ROADMAP item 15d and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from repro_torch import tree
 from repro_torch.core.table import resolve_device
 from repro_torch.embedding import dense
 from repro_torch.models.blocks import BlockCfg, PosCtx, block_init, block_train
-from repro_torch.models.common import cross_entropy_loss, dense_init, init_rms, rms_norm
+from repro_torch.models.common import (cross_entropy_loss, dense_init, init_rms, rms_norm,
+                                       sinusoidal_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +77,17 @@ class LMConfig:
         return pre + rep
 
 
+def _aux_zero(seg: StackSegment, device) -> dict:
+    if seg.block.moe is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return {"load_balance": zero, "router_z": zero, "dropped_frac": zero}
+    return {}
+
+
+def _aux_add(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a} if a else {}
+
+
 def _unstack(t) -> list:
     """A tree of stacked leaves [n, ...] -> n trees of [...] (one unbind per
     leaf, so the backward stacks the n gradients once)."""
@@ -88,11 +103,6 @@ class CompositeLM:
         (``models.common.causal_attention``); None, the default, runs the
         one of the activations' device (``attention_impl``: the library
         call on the card, the blocked form on the CPU)."""
-        if cfg.frontend is not None:
-            raise NotImplementedError("the vision frontend is not ported yet (ROADMAP item 15b)")
-        if cfg.pos_embedding != "none":
-            raise NotImplementedError(
-                f"pos_embedding {cfg.pos_embedding!r} is not ported yet (ROADMAP item 15b)")
         self.cfg = cfg
         self.attention = attention
         self.dense = cfg.embedding_backend == "dense"
@@ -138,16 +148,21 @@ class CompositeLM:
             x = x * torch.sqrt(d).to(cfg.dtype)
         return x
 
-    def _inputs(self, params, tokens, embeds):
+    def _inputs(self, params, tokens, embeds, frontend_embeds, mrope_positions):
         cfg = self.cfg
         if embeds is not None:
             x = embeds.to(cfg.dtype)
         else:
             x = dense.lookup(params["embed"]["table"], tokens).to(cfg.dtype)
         x = self._scaled(x)
+        if frontend_embeds is not None:  # the stub modality frontend (vision)
+            sv = frontend_embeds.shape[1]
+            x = torch.cat([frontend_embeds.to(cfg.dtype), x[:, sv:]], dim=1)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        return x, PosCtx(positions=positions)
+        if cfg.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_embedding(positions, cfg.d_model).to(cfg.dtype)
+        return x, PosCtx(positions=positions, mrope_positions=mrope_positions)
 
     def _block(self, bcfg: BlockCfg, lp: dict, x: torch.Tensor, pos: PosCtx):
         if self.cfg.remat:
@@ -163,10 +178,15 @@ class CompositeLM:
         aux_total = {"load_balance": zero, "router_z": zero}
 
         def run(seg: StackSegment, layers: list, x):
+            """The segment's layers; its aux losses (a MoE segment's) summed
+            from zero in layer order, then folded into the totals."""
+            aux = _aux_zero(seg, x.device)
             for lp in layers:
-                # an attention block with a dense FFN has no aux losses (the
-                # MoE FFN's fold in here with ROADMAP item 15b)
-                x, _ = self._block(seg.block, lp, x, pos)
+                x, a = self._block(seg.block, lp, x, pos)
+                aux = _aux_add(aux, a)
+            for k in ("load_balance", "router_z"):
+                if k in aux:
+                    aux_total[k] = aux_total[k] + aux[k]
             return x
 
         for seg, sp in zip(cfg.prelude, params["prelude"]):
@@ -181,8 +201,9 @@ class CompositeLM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux_total
 
-    def hidden(self, params, tokens=None, *, embeds=None):
-        x, pos = self._inputs(params, tokens, embeds)
+    def hidden(self, params, tokens=None, *, embeds=None, frontend_embeds=None,
+               mrope_positions=None):
+        x, pos = self._inputs(params, tokens, embeds, frontend_embeds, mrope_positions)
         return self._apply_stack(params, x, pos)
 
     # ------------------------------------------------------------------ loss
@@ -204,11 +225,13 @@ class CompositeLM:
     def _chunk_ce(cls, w, tied: bool, hx, lx):
         return cross_entropy_loss(cls._project(w, tied, hx), lx)
 
-    def loss(self, params, tokens=None, labels=None, *, embeds=None):
+    def loss(self, params, tokens=None, labels=None, *, embeds=None, frontend_embeds=None,
+             mrope_positions=None):
         """(total loss, {"ce", "load_balance", "router_z"}): the mean of the
         chunks' mean CE, plus the weighted aux losses."""
         cfg = self.cfg
-        h, aux = self.hidden(params, tokens, embeds=embeds)
+        h, aux = self.hidden(params, tokens, embeds=embeds, frontend_embeds=frontend_embeds,
+                             mrope_positions=mrope_positions)
         s = h.shape[1]
         ck = min(cfg.loss_chunk, s)
         if s % ck:

@@ -61,6 +61,15 @@ class _Marks:
         return dict(zip(names, spans))
 
 
+EXTRAS = ("frontend_embeds", "mrope_positions")
+
+
+def _extras(batch: dict) -> dict:
+    """The batch's model inputs beside tokens and labels (the vision
+    frontend's embeddings, M-RoPE positions), as the reference passes them."""
+    return {k: batch[k] for k in EXTRAS if k in batch}
+
+
 def _grad_leaves(params):
     """The parameter tree on fresh leaves that require grad (no copy)."""
     leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
@@ -81,11 +90,12 @@ class StepBuilder:
     # ------------------------------------------------------------- dense path
 
     def train_step(self, params, opt_state, batch):
-        """batch: {"tokens", "labels"} int [B, S]."""
+        """batch: {"tokens", "labels"} int [B, S] (+ frontend_embeds,
+        mrope_positions)."""
         marks = _Marks(batch["tokens"].device)
         marks.mark()
         p, leaves = _grad_leaves(params)
-        loss, aux = self.model.loss(p, batch["tokens"], batch["labels"])
+        loss, aux = self.model.loss(p, batch["tokens"], batch["labels"], **_extras(batch))
         grads = torch.autograd.grad(loss, leaves)
         marks.mark()
         params, opt_state, gnorm = self._update(params, opt_state,
@@ -108,7 +118,7 @@ class StepBuilder:
         marks.mark()
         p, leaves = _grad_leaves(params)
         e = embeds.detach().requires_grad_()
-        loss, aux = self.model.loss(p, None, batch["labels"], embeds=e)
+        loss, aux = self.model.loss(p, None, batch["labels"], embeds=e, **_extras(batch))
         *grads, egrads = torch.autograd.grad(loss, leaves + [e])
         marks.mark()
         params, opt_state, gnorm = self._update(params, opt_state,

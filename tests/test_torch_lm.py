@@ -5,11 +5,13 @@ Parameters are drawn by the reference (a torch generator cannot
 reproduce ``jax.random``) and carried across with
 ``convert.lm_params_from_jax``; batches are made with numpy.
 
-  * For the smoke config of each of the four dense archs (qwen2-0.5b,
-    gemma-2b, yi-6b, h2o-danube-1.8b): the parameter tree leaf by leaf
-    (paths, shapes, dtypes, and the port's own init), loss and gradients
-    against JAX, both embedding backends, remat on equal to off; the full
-    configs' parameter counts equal the reference's.
+  * For the smoke config of each of the ten archs: the configuration, the
+    parameter tree leaf by leaf (paths, shapes, dtypes, and the port's own
+    init) on both embedding backends, loss, aux losses and gradients
+    against JAX (qwen2-vl with its frontend inputs); the full configs'
+    parameter counts equal the reference's.  For the four dense archs: the
+    HKV backend's embeds and remat on equal to off (the other archs' are
+    in tests/test_torch_zoo.py).
   * Blocked attention against naive attention and against the reference's,
     with and without a window, forward and gradient, at several chunkings;
     the SDPA form against it.
@@ -23,7 +25,8 @@ reproduce ``jax.random``) and carried across with
 Tolerances, with their reasons: the model's matrix products and
 reductions (XLA's and torch's orders of summation differ) put the loss
 within a relative 2e-6 and each gradient leaf within 2e-5 of its largest
-magnitude.  Over 3 adamw steps (lr 3e-4) the parameters stay within an
+magnitude (zamba2's within 2e-4: its float32 stack is ill-conditioned,
+see GRAD_RTOL_OF).  Over 3 adamw steps (lr 3e-4) the parameters stay within an
 absolute 2e-5: adamw divides each coordinate's gradient by its own scale,
 so a coordinate whose gradient is at the level of that summation noise
 (the key bias, to which the softmax is nearly blind) moves by the noise's
@@ -54,16 +57,20 @@ from repro.train.step import clip_by_global_norm as jclip  # noqa: E402
 from repro_torch import ShardedHKVTable, convert, make_dev_mesh, tree  # noqa: E402
 from repro_torch.configs import ARCH_NAMES, PORTED_ARCHS, all_archs, get_arch  # noqa: E402
 from repro_torch.embedding import HKVEmbedding, SparseOptimizer  # noqa: E402
-from repro_torch.models.blocks import BlockCfg, block_init  # noqa: E402
 from repro_torch.models.common import (attention_impl, blocked_causal_attention,  # noqa: E402
                                        causal_attention, sdpa_causal_attention)
 from repro_torch.models.lm import CompositeLM  # noqa: E402
-from repro_torch.models.moe import MoECfg  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import StepBuilder, clip_by_global_norm  # noqa: E402
 
 LOSS_RTOL = 2e-6
 GRAD_RTOL = 2e-5
+# zamba2's smoke stack is ill-conditioned in float32: its hidden state departs
+# from a float64 run by 3.5e-6 to 5.9e-6 of its magnitude (the other archs'
+# by ~1e-7), and the reference's own jitted and eager gradients differ by up
+# to 1.1e-4 of a leaf's largest magnitude on some draws; 2.5e-5 is the
+# largest difference from the port seen on this file's draws
+GRAD_RTOL_OF = {"zamba2-1.2b": 2e-4}
 PARAM_ATOL = 2e-5
 VALUE_RTOL = 1e-5
 
@@ -120,14 +127,27 @@ def _models(name, backend="dense"):
                                                                  device="cpu")
 
 
-def _port_loss_grads(model, params, toks, labels, embeds=None):
+def _extras(arch, b, s, seed=0):
+    """The batch's frontend inputs for a vision arch (JAX's, the port's):
+    8 patch embeddings and M-RoPE positions, as tests/test_models.py:19-32
+    builds them; none for the other archs."""
+    if arch.lm.frontend != "vision":
+        return {}, {}
+    rng = np.random.default_rng(seed)
+    fe = rng.normal(size=(b, 8, arch.smoke.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (3, b, s)).copy()
+    return ({"frontend_embeds": jnp.asarray(fe), "mrope_positions": jnp.asarray(pos)},
+            {"frontend_embeds": torch.from_numpy(fe), "mrope_positions": torch.from_numpy(pos)})
+
+
+def _port_loss_grads(model, params, toks, labels, embeds=None, extras=None):
     leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
     p = tree.unflatten(params, leaves)
     args = [torch.from_numpy(toks)] if embeds is None else [None]
     if embeds is not None:
         embeds = embeds.detach().requires_grad_()
         leaves = leaves + [embeds]
-    loss, aux = model.loss(p, *args, torch.from_numpy(labels), embeds=embeds)
+    loss, aux = model.loss(p, *args, torch.from_numpy(labels), embeds=embeds, **(extras or {}))
     return loss.detach(), aux, torch.autograd.grad(loss, leaves)
 
 
@@ -138,16 +158,13 @@ def _port_loss_grads(model, params, toks, labels, embeds=None):
 
 def test_registry():
     assert ARCH_NAMES == tuple(__import__("repro.configs", fromlist=["x"]).ARCH_NAMES)
-    assert PORTED_ARCHS == ("gemma-2b", "h2o-danube-1.8b", "qwen2-0.5b", "yi-6b")
-    assert [a.name for a in all_archs()] == list(PORTED_ARCHS)
-    for name in set(ARCH_NAMES) - set(PORTED_ARCHS):
-        with pytest.raises(NotImplementedError, match="15b"):
-            get_arch(name)
+    assert PORTED_ARCHS == ARCH_NAMES
+    assert [a.name for a in all_archs()] == list(ARCH_NAMES)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_configs_equal_the_reference(name):
     ja, ta = jget(name), get_arch(name)
     for jl, tl in ((ja.lm, ta.lm), (ja.smoke, ta.smoke)):
@@ -157,10 +174,11 @@ def test_configs_equal_the_reference(name):
     assert (ja.family, ja.source, ja.shapes) == (ta.family, ta.source,
                                                  tuple(type(ja.shapes[0])(**dataclasses.asdict(s))
                                                        for s in ta.shapes))
+    assert ta.vision_tokens == ja.vision_tokens
     assert ta.shape("train_4k").seq == 4096 and ta.param_count() == ja.param_count()
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("name", ARCH_NAMES)
 @pytest.mark.parametrize("backend", ["dense", "hkv"])
 def test_param_tree_leaf_by_leaf(name, backend):
     jm, jp, tm, tp = _models(name, backend)
@@ -180,11 +198,7 @@ def test_param_tree_leaf_by_leaf(name, backend):
 
 
 def test_unported_blocks_raise():
-    for kw in (dict(kind="mamba2"), dict(kind="attn", heads=2, kv_heads=1, d_ff=8,
-                                          moe=MoECfg(4, 2, 16, 8)),
-               dict(kind="attn", heads=2, kv_heads=1, d_ff=8, rope="mrope")):
-        with pytest.raises(NotImplementedError, match="15b"):
-            block_init(BlockCfg(d_model=16, **kw), device="cpu")
+    """Decoding waits for ROADMAP item 15d."""
     m = CompositeLM(get_arch("qwen2-0.5b").smoke)
     for call in (lambda: m.prefill({}, None, 4), lambda: m.decode_step({}, None, None),
                  lambda: m.init_decode_state(1, 4)):
@@ -197,19 +211,23 @@ def test_unported_blocks_raise():
 # =============================================================================
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b", "yi-6b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_loss_and_grads_equal_the_reference(name):
     jm, jp, tm, tp = _models(name)
     toks, labels = _batch(tm.cfg.vocab)
-    (jl, jaux), jg = jax.value_and_grad(
-        lambda p: jm.loss(p, jnp.asarray(toks), jnp.asarray(labels)), has_aux=True)(jp)
-    loss, aux, grads = _port_loss_grads(tm, tp, toks, labels)
+    jx, tx = _extras(get_arch(name), *toks.shape)
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, jnp.asarray(toks), jnp.asarray(labels), **jx), has_aux=True))(jp)
+    loss, aux, grads = _port_loss_grads(tm, tp, toks, labels, extras=tx)
     _close(loss, jl, LOSS_RTOL, f"{name} loss")
-    _close(aux["ce"], jaux["ce"], LOSS_RTOL, f"{name} ce")
-    assert float(aux["load_balance"]) == float(jaux["load_balance"]) == 0.0
+    assert sorted(aux) == sorted(jaux)
+    for k in aux:
+        _close(aux[k], jaux[k], LOSS_RTOL, f"{name} {k}")
+    if not any(s.block.moe for s in tm.cfg.prelude + tm.cfg.segments):
+        assert float(aux["load_balance"]) == float(jaux["load_balance"]) == 0.0
     assert float(loss) < np.log(tm.cfg.vocab) * 3
     for (path, want), got in zip(_paths(jg), grads):
-        _close(got, want, GRAD_RTOL, f"{name} grad {path}")
+        _close(got, want, GRAD_RTOL_OF.get(name, GRAD_RTOL), f"{name} grad {path}")
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma-2b"])

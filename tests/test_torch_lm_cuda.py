@@ -28,7 +28,9 @@ from repro_torch import ShardedHKVTable, convert, make_dev_mesh, tree  # noqa: E
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.embedding import HKVEmbedding, SparseOptimizer  # noqa: E402
 from repro_torch.launch.train import hkv_capacity  # noqa: E402
+from repro_torch.models.blocks import BlockCfg, PosCtx, block_init, block_train  # noqa: E402
 from repro_torch.models.lm import CompositeLM  # noqa: E402
+from repro_torch.models.moe import MoECfg  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import StepBuilder  # noqa: E402
 
@@ -72,3 +74,96 @@ def test_hkv_steps_on_the_card_equal_the_cpu(card):
         np.testing.assert_array_equal(sg[f], sc[f], err_msg=f)
     scale = np.maximum(np.abs(sc["values"]).max(axis=1), 1e-30)
     assert (np.abs(sg["values"] - sc["values"]).max(axis=1) <= 1e-4 * scale).all()
+
+
+# the block kinds and FFNs ported after the attention block, at small widths
+BLOCKS = {
+    "mamba2": dict(kind="mamba2", d_model=64, d_state=16, ssm_heads=4, expand=2, conv_width=4),
+    "mlstm": dict(kind="mlstm", d_model=64, ssm_heads=2, expand=2, qkv_block=4),
+    "slstm": dict(kind="slstm", d_model=64, ssm_heads=4),
+    "attn_moe": dict(kind="attn", d_model=64, heads=4, kv_heads=2, d_ff=0,
+                     moe=MoECfg(num_experts=4, top_k=2, d_model=64, d_ff=32)),
+    "attn_mrope": dict(kind="attn", d_model=64, heads=4, kv_heads=1, head_dim=16, d_ff=128,
+                       qkv_bias=True, rope="mrope", rope_theta=1e6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_blocks_on_the_card_equal_the_cpu(card, name):
+    """block_train in float32 from the same parameters and input on the card
+    and on the CPU: the output within a relative 1e-4 and each gradient
+    within 1e-3 of its largest magnitude (the card's float32 products, its
+    SDPA kernels and the MoE combine's atomics sum in other orders), the
+    MoE's aux values within 1e-4."""
+    cfg = BlockCfg(**BLOCKS[name])
+    params = block_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    b, s = 2, (150 if name in ("mamba2", "mlstm") else 48)
+    x, dy = (torch.randn((b, s, cfg.d_model), generator=gen) for _ in range(2))
+    positions = torch.arange(s, dtype=torch.int32).expand(b, s)
+    pos3 = torch.stack([positions, positions // 4, positions % 7])
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        leaves = [p.to(dev).requires_grad_() for p in tree.leaves(params)]
+        xx = x.to(dev).requires_grad_()
+        y, aux = block_train(cfg, tree.unflatten(params, leaves), xx,
+                             PosCtx(positions=positions.to(dev), mrope_positions=pos3.to(dev)))
+        grads = torch.autograd.grad((y * dy.to(dev)).sum() + sum(aux.values(), 0.0),
+                                    leaves + [xx])
+        runs.append((y.detach().cpu(), {k: float(v) for k, v in aux.items()},
+                     [g.cpu() for g in grads]))
+    (yc, ac, gc), (yg, ag, gg) = runs
+    assert ((yg - yc).abs().max() <= 1e-4 * yc.abs().max()).item()
+    assert ac.keys() == ag.keys() and all(abs(ag[k] - ac[k]) <= 1e-4 * max(abs(ac[k]), 1)
+                                          for k in ac)
+    for a, c in zip(gg, gc):
+        assert ((a - c).abs().max() <= 1e-3 * c.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b", "moonshot-v1-16b-a3b",
+                                  "musicgen-medium"])
+def test_new_archs_hkv_steps_on_the_card_equal_the_cpu(card, arch):
+    """Two HKV steps of each block family's smoke config in float32, on the
+    card and on the CPU, as the test above holds qwen2-0.5b: keys, digests
+    and scores exact; the loss within a relative 2e-4 and the rows within
+    1e-3 of their largest element (zamba2's within 1e-2, its median row
+    within 1e-3: its float32 stack is ten times as sensitive to the order
+    of sums as the dense archs', see tests/test_torch_lm.py), the
+    parameters within 2 lr (adamw steps a noise-level coordinate by up to
+    lr)."""
+    cfg = dataclasses.replace(get_arch(arch).smoke, embedding_backend="hkv", tied_head=False)
+    params0 = CompositeLM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(41)
+    batches = [(rng.integers(0, cfg.vocab, size=(2, 32)), rng.integers(0, cfg.vocab, size=(2, 32)))
+               for _ in range(2)]
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        table = ShardedHKVTable.create(
+            make_dev_mesh(1, 1, device=dev),
+            HKVEmbedding(capacity=hkv_capacity(cfg.vocab), dim=cfg.d_model,
+                         optimizer=SparseOptimizer("rowwise_adagrad", lr=0.05)))
+        params = tree.map(lambda p: p.to(dev), params0)
+        builder, state = StepBuilder(CompositeLM(cfg), adamw()), adamw().init(params)
+        losses = []
+        for toks, labels in batches:
+            params, state, table, met = builder.train_step_hkv(params, state, table, {
+                "tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)})
+            assert int(met["emb_overflow"]) == 0
+            losses.append(float(met["loss"]))
+        runs.append((losses, params, convert.sharded_state_to_arrays(table.state)))
+    (lc, pc, sc), (lg, pg, sg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=2e-4)
+    for a, b in zip(tree.leaves(pg), tree.leaves(pc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=2 * 3e-4)
+    for f in ("key_hi", "key_lo", "digests", "score_hi", "score_lo"):
+        np.testing.assert_array_equal(sg[f], sc[f], err_msg=f)
+    scale = np.maximum(np.abs(sc["values"]).max(axis=1), 1e-30)
+    rel = np.abs(sg["values"] - sc["values"]).max(axis=1) / scale
+    # rowwise_adagrad steps a row by lr along its gradient's direction, so a
+    # row whose gradient is small carries zamba2's gradient noise (ten times
+    # the other archs') further: its rows are held at 1e-2 (1.8e-3 seen), the
+    # median row at 1e-3 like every arch's (1.6e-4 seen)
+    worst = 1e-2 if arch == "zamba2-1.2b" else 1e-3
+    assert (rel <= worst).all() and np.median(rel[scale > 1e-30]) <= 1e-3, (
+        f"rows off by {np.sort(rel)[-5:]} of their largest element, median "
+        f"{np.median(rel[scale > 1e-30])}")
