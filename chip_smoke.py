@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs twelve phases; any failure exits non-zero:
+sm_90a (first use), then runs thirteen phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -224,6 +224,36 @@ sm_90a (first use), then runs twelve phases; any failure exits non-zero:
    held against its plain version at the arch's V (2049 or 1537).
    llama4-maverick-400b-a17b gets no card run: one MoE layer's experts are
    64.4 GB in float32.
+13. LM serving, in bfloat16 at published widths.  (a) qwen2-0.5b at the
+   shape grid's prefill_32k (32 lanes, halved until the prefill fits) and
+   decode_32k's context: ``CompositeLM.prefill`` of 32,640 tokens a lane,
+   then 128 greedy ``decode_step``s that fill the 32,768-position state
+   (cut: decode_32k's 128 lanes to the prefill's batch), with the counts
+   set to 0 before and read after (the dense path launches no kernel):
+   prefill ms and tokens/s beside its products' bound at the bfloat16 peak,
+   each step's ms (CUDA events; median), tokens/s, the state's bytes, the
+   step's bound (the state and the weights as held, over the HBM rate) and
+   peak memory.  On that state: decode attention at the first layer (the
+   port's grouped form, the library call for the same function and the
+   reference's upcast form), timed; a profile of 3 steps; one step under
+   ``torch.cuda.set_sync_debug_mode("error")``; and a step whose
+   embeds come from ``HKVEmbedding.lookup_serve`` of the lanes' tokens on a
+   table holding the model's own rows (find_scan, the counts set to 0
+   before the lookup and read after the step, which must show it), its
+   logits bit for bit the dense step's on a copy of the state.  (b) the
+   ServingEngine over two waves of 4 lanes (the second padded with copies
+   of its lane 0): each lane's tokens equal a greedy loop over the same
+   padded batch.  (c) For qwen2-0.5b and SERVE_LM_OTHERS (zamba2-1.2b:
+   mamba2 and the shared block's 6 caches; h2o-danube-1.8b past its
+   window; xlstm-1.3b: mLSTM and sLSTM; musicgen-medium: sinusoidal
+   positions; qwen2-vl-2b: patch embeddings and M-RoPE; moonshot cut to 2
+   layers: the MoE at decode): prefill(t[:n-1]) then decode_step(t[n-1])
+   against prefill(t), in float32 within SERVE_F32_RTOL (and the same
+   decode from the state one position behind outside it, where the arch
+   reads the position) and in bfloat16 within SERVE_BF16_TIMES the
+   bfloat16 prefill's distance from the float32 one; then a greedy
+   generation, timed.  llama4-maverick has no
+   card run.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -239,7 +269,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same twelve phases at a tiny size on the
+result.  ``--rehearse`` runs the same thirteen phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -268,6 +298,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published HBM3 rate
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 # 32-bit integer operations a second outside the tensor cores: the data
 # sheet's 67 TFLOP/s float32 counts 128 lanes x 2 (an FMA) a clock on each
 # SM; the CUDA programming guide gives compute capability 9.0 64 results a
@@ -445,6 +476,43 @@ ZOO_OTHERS = (("xlstm-1.3b", None), ("musicgen-medium", None), ("qwen2-vl-2b", N
               ("moonshot-v1-16b-a3b", 2))
 ZOO_OTHER_STEPS = 2
 GLA_RANGE = "chunked_gla"          # the profiler range phase 12 puts around the chunked GLA
+# LM serving (phase 13).  qwen2-0.5b at its published widths, the grid's
+# prefill_32k batch (sz.serve_batch lanes, halved until the prefill fits) and
+# decode_32k's context: a prompt of sz.serve_prompt tokens a lane, then
+# sz.serve_steps greedy steps that fill max_len = sz.serve_max_len (cut:
+# decode_32k's 128 lanes to the prefill's batch: at 32,768 positions 128
+# lanes' caches alone are 51.5 GB, beside the one-shot prefill's
+# activations).  Then the other archs, SERVE_LM_LANES lanes each:
+# (arch, layers a segment or None, the card's prompt, the rehearsal's).
+# danube's prompt passes its 4096-slot window, so the ring wraps with a
+# shift of 300 and decoding goes on past it; moonshot's is 4 tokens a lane,
+# so that no expert can receive more assignments (8, one a token at most)
+# than the MoE's least capacity of 8, in the prefill or in a step, and a
+# prompt and its step agree; xlstm's sLSTM prefill is a 1-token host loop,
+# so its prompt is the shortest but moonshot's.
+SERVE_LM_ARCH = "qwen2-0.5b"
+SERVE_LM_OTHERS = (("zamba2-1.2b", None, 512, 24), ("h2o-danube-1.8b", None, 4096 + 300, 40),
+                   ("xlstm-1.3b", None, 128, 24), ("musicgen-medium", None, 512, 24),
+                   ("qwen2-vl-2b", None, 512, 24), ("moonshot-v1-16b-a3b", 2, 4, 4))
+SERVE_LM_LANES = 2
+SERVE_LM_OTHER_STEPS = 16
+SERVE_LM_ENGINE = (4, (8, 12, 10, 16, 9, 14))    # the engine's lanes, its requests' max_new
+SERVE_LM_FORM_RUNS = 5                           # timed calls of each decode attention form
+# the checks of prefill(t[:n-1]) then decode_step(t[n-1]) against
+# prefill(t): in float32 the two orders of work agree to within
+# SERVE_F32_RTOL of the logits' largest magnitude; in bfloat16 each path
+# rounds on its own, so the two are held to SERVE_BF16_TIMES the distance of
+# the bfloat16 prefill's logits from the float32 prefill's (the rounding
+# error a bfloat16 run carries, measured in the same call).  SERVE_F32_RTOL
+# is set from the float32 runs on the H100: 1.2e-6 to 2.5e-5 of the largest
+# logit over the seven archs (zamba2's the largest, its chunked GLA summing
+# in another order), so 1e-4 leaves 4x.  As a control, the same decode from
+# the state with its position one behind (the token written over the slot
+# before it and roped one place early: an off-by-one in the write index or
+# the length) must miss by more than the bound wherever the arch reads the
+# position
+SERVE_F32_RTOL = 1e-4
+SERVE_BF16_TIMES = 3
 # the card's attention (SDPA) against the port's plain blocked attention:
 # bfloat16 operands; the plain form keeps float32 scores and products and
 # rounds only its outputs, SDPA's kernels round P to bfloat16 before the PV
@@ -474,17 +542,25 @@ class Sizes:
     lm_seq: int              # phase 11's sequence length (train_4k's)
     swa_seq: int             # phase 11's danube attention check: sequence and window
     swa_window: int
+    serve_batch: int         # phase 13's qwen2 lanes (prefill_32k's global batch)
+    serve_prompt: int        # its prompt a lane
+    serve_steps: int         # its greedy decode steps
+    serve_max_len: int       # its decode state's positions (decode_32k's context)
+    serve_engine_prompt: int  # the wave engine's prompts
 
 
 FULL = Sizes(capacity=2**27, batch=2**20, small_capacity=2**20, small_batch=2**16,
              hot_keys=1024, timed_runs=5, replay_steps=10, train_batch=32768, train_steps=5,
              hot_capacity=2**24, serve_wave=2**16, serve_samples=2520, serve_waves=24,
              serve_ticks=48, many_capacity=2**22, lm_batch=8, lm_seq=4096, swa_seq=8192,
-             swa_window=4096)
+             swa_window=4096, serve_batch=32, serve_prompt=32768 - 128, serve_steps=128,
+             serve_max_len=32768, serve_engine_prompt=64)
 TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
              hot_keys=400, timed_runs=2, replay_steps=4, train_batch=16, train_steps=3,
              hot_capacity=2**9, serve_wave=2**7, serve_samples=4, serve_waves=8, serve_ticks=12,
-             many_capacity=2**10, lm_batch=2, lm_seq=32, swa_seq=256, swa_window=64)
+             many_capacity=2**10, lm_batch=2, lm_seq=32, swa_seq=256, swa_window=64,
+             serve_batch=2, serve_prompt=28, serve_steps=4, serve_max_len=32,
+             serve_engine_prompt=8)
 DIM = 32
 
 
@@ -566,6 +642,7 @@ class Smoke:
         self.launches_sharded: dict[str, int] = {}
         self.launches_lm: dict[str, int] = {}
         self.launches_zoo: dict[str, int] = {}
+        self.launches_serve_lm: dict[str, int] = {}
         self.train_cmp: dict[str, float] = {}
         # unsharded config B op times of phases 3-5 (ms), for phase 10's ratios
         self.unsharded: dict[str, float] = {}
@@ -738,7 +815,8 @@ class Smoke:
                    self.phase_tel_base),
                   ("the sharded table", self.phase_sharded),
                   ("the LM training path with the HKV embedding", self.phase_lm),
-                  ("the rest of the model zoo", self.phase_zoo)]
+                  ("the rest of the model zoo", self.phase_zoo),
+                  ("LM serving", self.phase_serve_lm)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -3470,9 +3548,11 @@ class Smoke:
                  "--seed", str(SEED), "--device", self.dev.type]
                 + (["--smoke"] if self.dev.type == "cpu" else []))
 
-    def lm_config(self, arch: str = LM_ARCH, layers=None):
-        """The arch's LM config as the launcher's HKV backend runs it (its
-        smoke config in the rehearsal); `layers` cuts each segment's count."""
+    def lm_config(self, arch: str = LM_ARCH, layers=None, *, hkv=True, dtype=None):
+        """The arch's LM config (its smoke config in the rehearsal): as the
+        launcher's HKV backend runs it, or with `hkv` False as published;
+        on the card `layers` cuts each segment's count; `dtype` overrides
+        the model's dtype."""
         import dataclasses as dc
 
         from repro_torch.configs import get_arch
@@ -3481,7 +3561,9 @@ class Smoke:
         lm = a.smoke if self.dev.type == "cpu" else a.lm
         if layers is not None and self.dev.type == "cuda":
             lm = dc.replace(lm, segments=tuple(dc.replace(s, count=layers) for s in lm.segments))
-        return dc.replace(lm, embedding_backend="hkv", tied_head=False)
+        if dtype is not None:
+            lm = dc.replace(lm, dtype=dtype)
+        return dc.replace(lm, embedding_backend="hkv", tied_head=False) if hkv else lm
 
     def lm_fresh(self, vocab: int, steps: int):
         """Each step's distinct tokens and whether it holds one no earlier
@@ -3911,7 +3993,10 @@ class Smoke:
         plane = values.clone()
         t_s = self.time_ms(lambda: self.sc.scatter_rows(plane, rows, upd, mask, add), runs)
         t_sp = self.time_ms(lambda: self.sc.scatter_rows_plain(plane, rows, upd, mask, add), 2)
-        del plane, upd
+        # the library call for the same writes: index_put_ of the masked lanes
+        rows_m, upd_m = rows[mask], upd[mask].to(plane.dtype)
+        t_sl = self.time_ms(lambda: plane.index_put_((rows_m,), upd_m, accumulate=add), runs)
+        del plane, upd, rows_m, upd_m
         u = self.lm_update(calls["update"], tag)
         ms = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
         log(f"{tag}: gather_rows ({len(calls['gather'])} launches), scatter_rows "
@@ -3919,8 +4004,8 @@ class Smoke:
             f"plain versions at the run's lanes on its V = {v} plane; gather_rows at the last "
             f"launch's {n} lanes, width {w}: {t_g:.4f} ms (plain {t_gp:.4f}, bound "
             f"{ms(g_bytes):.4f} by bytes); scatter_rows ({m} of {n} lanes, "
-            f"{'add' if add else 'set'}): {t_s:.4f} ms (plain {t_sp:.4f}, bound {ms(s_bytes):.4f} "
-            f"by bytes); update_scan ({u['lanes']} lanes, {u['found']} found, {u['opt']} at dim "
+            f"{'add' if add else 'set'}): {t_s:.4f} ms (plain {t_sp:.4f}, library index_put_ "
+            f"{t_sl:.4f}, bound {ms(s_bytes):.4f} by bytes); update_scan ({u['lanes']} lanes, {u['found']} found, {u['opt']} at dim "
             f"{u['dim']}): {u['ms']:.4f} ms (plain {u['plain_ms']:.4f}, bound {u['bound']:.4f} by "
             f"{u['by']})")
         self.free()
@@ -4347,6 +4432,417 @@ class Smoke:
         del table, calls, builder
         self.free()
 
+    # phase 13 -------------------------------------------------------------
+
+    def step_marks(self):
+        """A mark a call: a CUDA event on the card (read after the run), the
+        host clock in the rehearsal; `ms(marks)` gives the spans."""
+        torch = self.torch
+
+        def mark():
+            if self.dev.type == "cuda":
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                return e
+            return time.perf_counter()
+
+        def ms(marks):
+            self.sync()
+            if self.dev.type == "cuda":
+                return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        return mark, ms
+
+    def greedy(self, model, params, tokens, max_len: int, steps: int, extras=None):
+        """prefill then `steps` greedy decode steps, the argmax staying on
+        the device: (prefill ms on the host clock around a sync, the steps'
+        ms between CUDA events, the host's ms a step (its enqueue: a step
+        waits for nothing), the tokens [B, steps + 1], the state, whether
+        every logit was finite)."""
+        torch = self.torch
+        mark, ms = self.step_marks()
+        self.sync()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, tokens, max_len, **(extras or {}))
+        self.sync()
+        t_pre = (time.perf_counter() - t0) * 1e3
+        finite = torch.isfinite(logits).all()
+        toks = [logits.argmax(-1).to(torch.int32)]
+        marks, host = [mark()], [time.perf_counter()]
+        for _ in range(steps):
+            logits, state = model.decode_step(params, toks[-1], state)
+            finite &= torch.isfinite(logits).all()
+            toks.append(logits.argmax(-1).to(torch.int32))
+            marks.append(mark())
+            host.append(time.perf_counter())
+        host_ms = [(b - a) * 1e3 for a, b in zip(host, host[1:])]
+        return (t_pre, ms(marks), host_ms, torch.stack(toks, dim=1), state, bool(finite))
+
+    def phase_serve_lm(self):
+        """LM serving (see the module note): (a) qwen2-0.5b's prefill_32k
+        and decode_32k, the decode attention forms, a sync-free step and a
+        step fed by the HKV table's lookup_serve; (b) the wave engine; (c)
+        the prefill-then-decode check and a short greedy generation of each
+        other arch."""
+        import numpy as np
+
+        from repro_torch import tree
+        from repro_torch.models.lm import CompositeLM
+
+        torch, sz, dev = self.torch, self.sz, self.dev
+        self.free()
+        lm = self.lm_config(SERVE_LM_ARCH, hkv=False)
+        blk = lm.segments[0].block
+        model = CompositeLM(lm)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        w_bytes = sum(p.numel() * p.element_size() for p in tree.leaves(params))
+        n_params = sum(p.numel() for p in tree.leaves(params))
+        rng = np.random.default_rng(SEED)
+        batch = sz.serve_batch
+        while True:
+            prompts = torch.from_numpy(rng.integers(0, lm.vocab, size=(batch, sz.serve_prompt))
+                                       .astype(np.int32)).to(dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            counts = self._build.launch_counts
+            self._build.reset_counts()
+            try:
+                t_pre, steps_ms, host_ms, toks, state, finite = self.greedy(
+                    model, params, prompts, sz.serve_max_len, sz.serve_steps)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                why = str(e).splitlines()[0]
+            # out of the handler, so that its frames' tensors are freed
+            log(f"phase 13: the prefill of {batch} x {sz.serve_prompt} tokens does not fit "
+                f"({why}); halving the batch")
+            require(batch > 1, "phase 13: one lane does not fit")
+            batch //= 2
+            del prompts
+            gc.collect()
+            self.free()
+        dense_counts = {k: v for k, v in counts.items() if v}
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        require(finite, "phase 13: a qwen2 logit is not finite")
+        require(toks.shape == (batch, sz.serve_steps + 1), f"phase 13: tokens {toks.shape}")
+        require(int(state["pos"]) == sz.serve_max_len, "phase 13: the state's position")
+        cache_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(state))
+        tokens_pre = batch * sz.serve_prompt
+        med = statistics.median(steps_ms)
+        ms = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+        bf16_w = n_params * 2
+        # the prefill's least time: its products at the bfloat16 peak
+        d, hq, hkv, hd, ff = lm.d_model, blk.heads, blk.kv_heads, blk.hd, blk.d_ff
+        s = sz.serve_prompt
+        per_token = 2 * d * (hq + 2 * hkv) * hd + 2 * hq * hd * d + 2 * d * 2 * ff + 2 * ff * d
+        attn = 4 * batch * hq * hd * s * (s + 1) / 2
+        flops = lm.num_layers * (tokens_pre * per_token + attn) + 2 * batch * d * lm.vocab
+        pre_bound = flops / BF16_FLOPS_PER_S * 1e3
+        log(f"phase 13 (a): {SERVE_LM_ARCH} "
+            f"{'smoke config' if dev.type == 'cpu' else 'at its published widths'} "
+            f"({lm.num_layers} layers, d_model {d}, {hq}/{hkv} heads of {hd}, d_ff {ff}, vocab "
+            f"{lm.vocab}, {lm.dtype}, {n_params} parameters held in float32, {w_bytes} bytes); "
+            f"prefill_32k: {batch} x {sz.serve_prompt} tokens"
+            + (f" (cut: the grid's batch of {sz.serve_batch} to {batch}: the larger did not fit)"
+               if batch < sz.serve_batch else ""))
+        log(f"phase 13 prefill: {t_pre:.3f} ms, {tokens_pre / t_pre * 1e3:.1f} tokens/s; its "
+            f"products {flops:.4g} FLOP, bound {pre_bound:.3f} ms by operations at the bfloat16 "
+            f"peak ({t_pre / pre_bound:.2f}x)")
+        log(f"phase 13 decode_32k: {sz.serve_steps} greedy steps of {batch} lanes to "
+            f"{sz.serve_max_len} positions (cut: decode_32k's 128 lanes to the prefill's {batch}): "
+            f"median step {med:.3f} ms (min {min(steps_ms):.3f}, max {max(steps_ms):.3f}; first "
+            f"{steps_ms[0]:.3f}; the host's median {statistics.median(host_ms):.3f} ms a step), "
+            f"{batch / med * 1e3:.1f} tokens/s; decode state {cache_bytes} "
+            f"bytes ({cache_bytes / (batch * sz.serve_max_len):.1f} a position a lane); a step's "
+            f"least time: state {ms(cache_bytes):.3f} ms + weights as held {ms(w_bytes):.3f} ms "
+            f"= {ms(cache_bytes + w_bytes):.3f} ms by bytes ({med / ms(cache_bytes + w_bytes):.2f}x"
+            f"; with bfloat16 weights, {bf16_w} bytes: {ms(cache_bytes + bf16_w):.3f} ms); peak "
+            f"memory {peak / 2**30:.2f} GiB; kernel launches in the dense run "
+            f"{json.dumps(dense_counts)}")
+        self.serve_forms(model, params, state, toks[:, -1])
+        self.serve_profile(model, params, state, toks[:, -1])
+        self.serve_hkv(model, params, state, toks[:, -1])
+        del state, toks, prompts
+        gc.collect()
+        self.free()
+        self.serve_engine(model, params)
+        self.serve_check(SERVE_LM_ARCH, None, 512 if dev.type == "cuda" else 24, params)
+        del params
+        gc.collect()
+        self.free()
+        for name, layers, prompt, tiny in SERVE_LM_OTHERS:
+            self.serve_check(name, layers, prompt if dev.type == "cuda" else tiny)
+        log("phase 13: llama4-maverick-400b-a17b has no card run (one MoE layer's experts are "
+            "64.4 GB in float32; ROADMAP 15b)")
+
+    def serve_forms(self, model, params, state, toks):
+        """Decode attention on the qwen2 state's first layer (full context):
+        the port's grouped form, the library call for the same function
+        (``F.scaled_dot_product_attention`` with a KV head's query heads as
+        its queries and the length as a mask: timed for the record, used
+        nowhere in the port) and the reference's literal form (both
+        operands upcast to float32: a copy of the cache), each timed beside
+        the bound of reading the layer's K and V; then one decode step under
+        the sync debug mode "error" (a host sync raises)."""
+        import torch.nn.functional as F
+
+        from repro_torch.models import common
+
+        torch = self.torch
+        kc, vc = state["repeat"][0]["k"][0, 0], state["repeat"][0]["v"][0, 0]
+        b, sc, hkv, dh = kc.shape
+        hq = model.cfg.segments[0].block.heads
+        q = torch.randn((b, 1, hq, dh), generator=self.gen, device=self.dev).to(kc.dtype)
+        cur = torch.full((), sc, dtype=torch.int32, device=self.dev)
+
+        def library(q, kc, vc, cur):
+            mask = (torch.arange(sc, device=q.device) < cur)[None, None, None]
+            out = F.scaled_dot_product_attention(q.reshape(b, hkv, hq // hkv, dh),
+                                                 kc.transpose(1, 2), vc.transpose(1, 2),
+                                                 attn_mask=mask)
+            return out.reshape(b, 1, hq, dh)
+
+        def upcast(q, kc, vc, cur):
+            qg = q.reshape(b, 1, hkv, hq // hkv, dh)
+            s = common._ein("bqhrd,bkhd->bhrqk", qg, kc) / math.sqrt(dh)
+            s = torch.where(torch.arange(sc, device=q.device) < cur, s, common.NEG_INF)
+            p = torch.softmax(s, dim=-1).to(vc.dtype)
+            return torch.einsum("bhrqk,bkhd->bqhrd", p, vc).reshape(b, 1, hq, dh).to(q.dtype)
+
+        forms = {"grouped": common.decode_attention, "library": library, "upcast": upcast}
+        plain = forms["grouped"](q, kc, vc, cur).float()
+        errs, times = {}, {}
+        for name, fn in forms.items():
+            got = fn(q, kc, vc, cur).float()
+            errs[name] = ((got - plain).norm() / plain.norm()).item()
+            times[name] = self.time_ms(lambda: fn(q, kc, vc, cur), SERVE_LM_FORM_RUNS)
+        kv = 2 * kc.numel() * kc.element_size()
+        log(f"phase 13 decode attention at the first layer ({b} lanes, {sc} positions, {hq}/{hkv} "
+            f"heads of {dh}, {kc.dtype}): " + ", ".join(
+                f"{n} {times[n]:.4f} ms (relative L2 from grouped {errs[n]:.3g})" for n in forms)
+            + f"; bound {kv / HBM_BYTES_PER_S * 1e3:.4f} ms for its {kv} bytes of K and V")
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, _ = model.decode_step(params, toks, state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            require(bool(torch.isfinite(logits).all()), "phase 13: the sync-free step's logits")
+            log("phase 13: a decode step ran under torch.cuda.set_sync_debug_mode('error'): no "
+                "host sync")
+
+    def serve_profile(self, model, params, state, toks, steps: int = 3):
+        """`steps` decode steps (after the timed ones) under
+        ``torch.profiler``: the device time a step against the window's
+        wall time a step (the card's busy share), kernels a step and the
+        device time by operator; then the same steps without the profiler,
+        the host's enqueue against the wall time to a synchronize."""
+        torch = self.torch
+        if self.dev.type != "cuda":
+            log("phase 13 profile: on the card only")
+            return
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                model.decode_step(params, toks, state)
+            self.sync()
+            window_ms = (time.perf_counter() - t0) * 1e3 / steps
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        launches = sum(e.count for e in kernels) / steps
+        ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.decode_step(params, toks, state)
+        t_host = (time.perf_counter() - t0) * 1e3 / steps
+        self.sync()
+        t_wall = (time.perf_counter() - t0) * 1e3 / steps
+        log(f"phase 13 profile of {steps} decode steps at the full context: {device_ms:.3f} ms of "
+            f"device time a step in a {window_ms:.3f} ms window, a busy share of "
+            f"{device_ms / window_ms:.3f}; {launches:.0f} kernels a step; without the profiler the "
+            f"host enqueues a step in {t_host:.3f} ms, {t_wall:.3f} ms a step to a synchronize; by "
+            "operator (a step): " + ", ".join(
+                f"{e.key} {e.self_device_time_total / 1e3 / steps:.3f} ms ({e.count // steps})"
+                for e in ops[:12]))
+
+    def serve_hkv(self, model, params, state, toks):
+        """One decode step fed by an HKV table: the model's own embedding
+        rows inserted into an HKVEmbedding's table (two slots a token id,
+        sgd so V = d_model), the step's embeds from lookup_serve of the
+        lanes' tokens (find_scan on the card), on a copy of the state; its
+        logits bit for bit the dense step's.  The launch counts are set to 0
+        before the lookup and read after the step."""
+        from repro_torch import tree
+        from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+        from repro_torch.launch.train import hkv_capacity
+
+        torch, cfg = self.torch, model.cfg
+        emb = HKVEmbedding(capacity=hkv_capacity(cfg.vocab), dim=cfg.d_model,
+                           optimizer=SparseOptimizer("sgd"))
+        table = emb.create(device=self.dev)
+        rows = params["embed"]["table"]
+        for ids in torch.arange(cfg.vocab, device=self.dev).split(2**16):
+            table.insert_or_assign(emb.keys_of(ids), rows[ids])
+        require(int(table.size()) == cfg.vocab, f"phase 13: the table holds {int(table.size())} "
+                f"of {cfg.vocab} rows")
+        copy = tree.map(torch.clone, state)
+        self.sync()
+        self._build.reset_counts()
+        t0 = time.perf_counter()
+        embeds = emb.lookup_serve(table, toks)
+        self.sync()
+        t_look = (time.perf_counter() - t0) * 1e3
+        got, _ = model.decode_step(params, None, copy, embeds=embeds[:, None])
+        self.sync()
+        self.launches_serve_lm = dict(self._build.launch_counts)
+        want, _ = model.decode_step(params, toks, state)
+        require(torch.equal(embeds, rows[toks.long()]), "phase 13: lookup_serve's rows")
+        require(torch.equal(got, want), "phase 13: the HKV-fed step's logits differ from the "
+                "dense step's")
+        if self.dev.type == "cuda":
+            require(self.launches_serve_lm.get("find_scan", 0) >= 1,
+                    f"phase 13: the HKV-fed step launched {self.launches_serve_lm}")
+        log(f"phase 13 HKV-fed step: {cfg.vocab} rows in a {emb.capacity}-slot table at V = "
+            f"{cfg.d_model}; lookup_serve of {toks.shape[0]} tokens {t_look:.3f} ms; the step's "
+            f"logits bit for bit the dense step's; launches {json.dumps(self.launches_serve_lm)}")
+        del copy, table
+
+    def serve_engine(self, model, params):
+        """ServingEngine over two waves (the second padded with copies of its
+        lane 0); each lane's tokens against a standalone greedy loop over
+        the same padded batch."""
+        import numpy as np
+
+        from repro_torch.serving import Request, ServingEngine
+
+        torch, sz = self.torch, self.sz
+        lanes, max_new = SERVE_LM_ENGINE
+        rng = np.random.default_rng(SEED + 13)
+        prompts = rng.integers(0, model.cfg.vocab, size=(len(max_new), sz.serve_engine_prompt)
+                               ).astype(np.int32)
+        max_len = sz.serve_engine_prompt + max(max_new)
+        eng = ServingEngine(model, params, max_batch=lanes, max_len=max_len)
+        for i, m in enumerate(max_new):
+            eng.submit(Request(rid=i, prompt=prompts[i], max_new=m))
+        self.sync()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        t_eng = time.perf_counter() - t0
+        require(sorted(r.rid for r in done) == list(range(len(max_new))),
+                "phase 13: the engine did not complete every request")
+        got = {r.rid: r.out for r in done}
+        for w in range(0, len(max_new), lanes):
+            rids = list(range(w, min(w + lanes, len(max_new))))
+            batch = np.stack([prompts[i] for i in rids] + [prompts[rids[0]]] * (lanes - len(rids)))
+            toks = self.greedy(model, params, torch.from_numpy(batch).to(self.dev), max_len,
+                               max(max_new[i] for i in rids) - 1)[3]
+            toks = toks.cpu().numpy()
+            for lane, i in enumerate(rids):
+                require(got[i] == toks[lane, :max_new[i]].tolist(),
+                        f"phase 13: the engine's request {i} differs from the greedy loop")
+        log(f"phase 13 ServingEngine: {len(max_new)} requests of {sz.serve_engine_prompt} tokens "
+            f"in waves of {lanes} lanes (the second padded), max_new {list(max_new)}: "
+            f"{t_eng:.3f} s; every lane's tokens equal a greedy loop over the same padded batch")
+
+    def serve_check(self, name: str, layers, prompt: int, params=None):
+        """prefill(t[:n-1]) then decode_step(t[n-1]) against prefill(t) in
+        float32 and in bfloat16 (SERVE_F32_RTOL, SERVE_BF16_TIMES), then a
+        timed greedy generation of SERVE_LM_OTHER_STEPS steps in the model's
+        dtype; a vision arch with its patch embeddings and arange M-RoPE
+        positions on all three axes."""
+        import numpy as np
+
+        from repro_torch import tree
+        from repro_torch.configs import get_arch
+        from repro_torch.models.lm import CompositeLM
+
+        torch, dev = self.torch, self.dev
+        t_arch = time.perf_counter()
+        lm = self.lm_config(name, layers, hkv=False)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        if params is None:
+            params = CompositeLM(lm).init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        n_params = sum(p.numel() for p in tree.leaves(params))
+        b = SERVE_LM_LANES
+        rng = np.random.default_rng(SEED + len(name))
+        toks = torch.from_numpy(rng.integers(0, lm.vocab, size=(b, prompt)).astype(np.int32)).to(dev)
+        extras, cut = {}, {}
+        if lm.frontend == "vision":
+            sv = get_arch(name).vision_tokens if dev.type == "cuda" else 8
+            pos = torch.arange(prompt, dtype=torch.int32, device=dev).expand(b, prompt)
+            extras = {"frontend_embeds": torch.randn((b, sv, lm.d_model), generator=self.gen,
+                                                     device=dev),
+                      "mrope_positions": pos[None].expand(3, b, prompt)}
+            cut = {"frontend_embeds": extras["frontend_embeds"],
+                   "mrope_positions": extras["mrope_positions"][..., :-1]}
+        logits = {}
+        for dtype in (torch.float32, lm.dtype):
+            m = CompositeLM(self.lm_config(name, layers, hkv=False, dtype=dtype))
+            full, _ = m.prefill(params, toks, prompt, **extras)
+            _, st = m.prefill(params, toks[:, :-1], prompt, **cut)
+            if dtype == torch.float32:   # the control: the same decode one position behind
+                behind = tree.map(torch.clone, st)
+                behind["pos"] = behind["pos"] - 1
+                planted = m.decode_step(params, toks[:, -1], behind)[0].float()
+                del behind
+            dec, st = m.decode_step(params, toks[:, -1], st)
+            logits[dtype] = (full.float(), dec.float())
+            del st
+        (f32, d32), (fbf, dbf) = logits[torch.float32], logits[lm.dtype]
+        scale = f32.abs().max().item()
+        e32 = (d32 - f32).abs().max().item()
+        e_planted = (planted - f32).abs().max().item()
+        reads_pos = lm.pos_embedding == "sinusoidal" or any(
+            s.block.kind == "attn" for s in lm.prelude + lm.segments)
+        if reads_pos:
+            require(e_planted > SERVE_F32_RTOL * scale, f"phase 13 {name}: a decode one position "
+                    f"behind misses the prefill by only {e_planted} (bound "
+                    f"{SERVE_F32_RTOL * scale}): the check could not see an off-by-one")
+        ebf = (fbf - f32).abs().max().item()
+        dbf_err = (dbf - fbf).abs().max().item()
+        require(all(bool(torch.isfinite(x).all()) for x in (f32, d32, fbf, dbf)),
+                f"phase 13 {name}: a logit is not finite")
+        require(e32 <= SERVE_F32_RTOL * scale, f"phase 13 {name}: float32 prefill-then-decode "
+                f"differs from the prefill by {e32} (bound {SERVE_F32_RTOL * scale})")
+        tol = SERVE_BF16_TIMES * ebf if lm.dtype != torch.float32 else SERVE_F32_RTOL * scale
+        require(dbf_err <= tol, f"phase 13 {name}: {lm.dtype} prefill-then-decode differs from "
+                f"the prefill by {dbf_err} (bound {tol})")
+        del logits, f32, d32, fbf, dbf, planted
+        steps = SERVE_LM_OTHER_STEPS if dev.type == "cuda" else 3
+        t_pre, steps_ms, host_ms, out, st, finite = self.greedy(
+            CompositeLM(lm), params, toks, prompt + steps, steps, extras)
+        require(finite, f"phase 13 {name}: a generated logit is not finite")
+        state_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(st))
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        med = statistics.median(steps_ms)
+        kinds = sorted({s.block.kind for s in lm.prelude + lm.segments})
+        win = [s.block.window for s in lm.segments if s.block.window]
+        log(f"phase 13 {name} ({lm.num_layers} layers: {', '.join(kinds)}"
+            + (f"; cut to {layers} layers a segment" if layers and dev.type == "cuda" else "")
+            + (f"; window {win[0]}, ring shift {(prompt - win[0]) % win[0]}" if win and
+               prompt >= win[0] else "")
+            + f"; {n_params} parameters; {b} lanes x {prompt} tokens): prefill-then-decode against "
+            f"the prefill, float32 {e32:.4g} (bound {SERVE_F32_RTOL * scale:.4g}; one position "
+            f"behind {e_planted:.4g}{'' if reads_pos else ', no block reads the position'}), "
+            f"{lm.dtype} "
+            f"{dbf_err:.4g} (bound {tol:.4g}: {SERVE_BF16_TIMES} x its prefill's distance "
+            f"{ebf:.4g} from float32); generation: prefill {t_pre:.3f} ms "
+            f"({b * prompt / t_pre * 1e3:.1f} tokens/s), {steps} steps median {med:.3f} ms "
+            f"({b / med * 1e3:.1f} tokens/s; the host's median {statistics.median(host_ms):.3f} "
+            f"ms a step); state {state_bytes} bytes; peak "
+            f"{peak / 2**30:.2f} GiB; {time.perf_counter() - t_arch:.1f} s in all")
+        del params, st, out
+        gc.collect()
+        self.free()
+
     # ----------------------------------------------------------------- report
 
     def report(self):
@@ -4504,8 +5000,9 @@ class Smoke:
             # training path's phase 5 for update_scan, each with the serving
             # path's phase 8; no op calls bucket_stats, so no path launches it;
             # find_scan_many: phase 9's counted find_many_kernel call; and
-            # each with the sharded table's phase 10 and the LM paths' phases
-            # 11 and 12
+            # each with the sharded table's phase 10, the LM paths' phases
+            # 11 and 12 and LM serving's phase 13 (find_scan, the HKV
+            # embedding's lookup_serve)
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
@@ -4514,7 +5011,8 @@ class Smoke:
                 "launches": (path.get(name, 0) + self.launches_serve.get(name, 0)
                              + self.launches_sharded.get(name, 0)
                              + self.launches_lm.get(name, 0)
-                             + self.launches_zoo.get(name, 0)),
+                             + self.launches_zoo.get(name, 0)
+                             + self.launches_serve_lm.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

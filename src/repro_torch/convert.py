@@ -47,7 +47,10 @@ the port's tree of the same structure, and ``lm_params_to_numpy`` back;
 ``opt_state_from_jax`` carries the dense optimizers' states (whose trees
 mirror the parameters', with an int32 step count) the same way.  A torch
 generator cannot reproduce ``jax.random``, so parameters drawn by the
-reference come across this way.
+reference come across this way.  ``decode_state_from_jax`` and
+``decode_state_to_numpy`` carry an LM decode state (``prefill``'s and
+``decode_step``'s: caches and recurrent states stacked as the parameters
+are, and the 0-dim int32 position) both ways.
 """
 
 from __future__ import annotations
@@ -296,3 +299,15 @@ def opt_state_from_jax(state_np: Any, device=None) -> Any:
     """A reference dense optimizer's state (numpy leaves: moments, int8
     blocks and scales, factored moments, the int32 count) -> the port's."""
     return _tree_from_numpy(state_np, device)
+
+
+def decode_state_from_jax(state_np: Any, device=None) -> Any:
+    """A reference LM decode state (numpy leaves: caches, recurrent states,
+    the 0-dim int32 position) -> the port's, the same tree and bits, on
+    `device` (default: the card)."""
+    return _tree_from_numpy(state_np, device)
+
+
+def decode_state_to_numpy(state: Any) -> Any:
+    """The port's LM decode state -> numpy leaves, the same structure."""
+    return tree.map(values_to_numpy, state)

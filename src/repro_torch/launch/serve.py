@@ -14,8 +14,13 @@ and without that flag it raises:
 `--arrival` picks the request-size process (steady | burst | diurnal) and
 `--admission continuous` turns on continuous-batch admission; the summary
 then reports the per-request queue-wait / service / total p50-p99 split.
-`--mode lm` (the LM prefill and decode loop) waits for the LM stack
-(ROADMAP queue 1, item 15) and exits non-zero.
+
+`--mode lm` runs the LM prefill and greedy decode loop over random prompts
+(the reference's flags; `--smoke` is the arch's reduced config, without
+it the published widths, in bfloat16):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch qwen2-0.5b \
+      --smoke --batch 4 --prompt-len 32 --decode-steps 16 --device cpu
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the end-of-run MetricsRegistry snapshot in Prometheus "
                          "text exposition format")
-    # lm mode (not ported yet)
+    # lm mode
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -76,11 +81,50 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     if args.mode == "lm":
-        print("[serve] --mode lm (the LM prefill and decode loop) is not ported yet; it "
-              "waits for the LM stack (ROADMAP queue 1, item 15)", file=sys.stderr)
-        return 2
-    embedding_main(args)
+        lm_main(args)
+    else:
+        embedding_main(args)
     return 0
+
+
+def lm_main(args):
+    """Prefill `--batch` random prompts of `--prompt-len` tokens, then
+    `--decode-steps` greedy tokens a lane (the first from the prefill's
+    logits); prints the rate and the first sequence, returns the generated
+    tokens [batch, decode_steps] as numpy."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.table import resolve_device
+
+    device = resolve_device(args.device)
+    arch = get_arch(args.arch)
+    model = arch.model(smoke=args.smoke)
+    lm = arch.smoke if args.smoke else arch.lm
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed), device=device)
+
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(
+        rng.integers(0, lm.vocab, size=(args.batch, args.prompt_len)).astype(np.int32)).to(device)
+    max_len = args.prompt_len + args.decode_steps
+
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, prompts, max_len=max_len)
+    toks = logits.argmax(dim=-1).to(torch.int32)
+    out = [toks]
+    for _ in range(args.decode_steps - 1):
+        logits, state = model.decode_step(params, toks, state)
+        toks = logits.argmax(dim=-1).to(torch.int32)
+        out.append(toks)
+    gen = torch.stack(out, dim=1).cpu().numpy()   # waits for the card
+    dt = time.perf_counter() - t0
+    print(f"[serve] {args.arch}: generated {gen.shape} tokens in {dt:.2f}s "
+          f"({args.batch * args.decode_steps / dt:.1f} tok/s)")
+    print("first sequence:", gen[0].tolist())
+    return gen
 
 
 def embedding_main(args):

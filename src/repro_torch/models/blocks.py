@@ -1,12 +1,18 @@
-"""The block zoo of the LM stack (port of the training half of
-``repro/models/blocks.py``): attention (GQA/MQA, an optional SWA band, QKV
-bias, RoPE or M-RoPE, a dense FFN or a MoE), Mamba2 (SSD through the
-chunked GLA), mLSTM (the chunked GLA with a normalizer column) and sLSTM
-(a sequential scan with the exponential gate's stabilizer).
+"""The block zoo of the LM stack (port of ``repro/models/blocks.py``):
+attention (GQA/MQA, an optional SWA band, QKV bias, RoPE or M-RoPE, a
+dense FFN or a MoE), Mamba2 (SSD through the chunked GLA), mLSTM (the
+chunked GLA with a normalizer column) and sLSTM (a sequential scan with
+the exponential gate's stabilizer).
 
 A block is a function (cfg, params, x, pos) -> (x, aux) over a plain dict
-of tensors; aux holds the MoE FFN's losses and is empty otherwise.
-Decoding over a KV cache or a recurrent state waits for ROADMAP item 15d.
+of tensors; aux holds the MoE FFN's losses and is empty otherwise.  Each
+kind also has a decode state (`block_state_init`: the reference's leaves,
+names and dtypes) and a single-token step over it (`block_decode`).  The
+reference returns a new state; here the step writes the state's tensors
+in place (a layer's state is a view into the model's stacked state) and
+returns the same dict, so a step copies no cache.  A step reads no device
+value on the host: the cache's write index, valid length and mask are
+tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import ssm
 from repro_torch.models.common import (activation, apply_mrope, apply_rope, causal_attention,
-                                       dense_init, init_rms, normal, rms_norm, scalar, softplus)
+                                       decode_attention, dense_init, init_rms, normal, rms_norm,
+                                       scalar, softplus)
 from repro_torch.models.moe import MoECfg, moe_apply, moe_init
 
 
@@ -65,7 +72,7 @@ class BlockCfg:
 class PosCtx(NamedTuple):
     """Positional context threaded through attention blocks."""
 
-    positions: torch.Tensor                        # [B, S]
+    positions: torch.Tensor                        # [B, S] (train/prefill) or [B, 1]
     mrope_positions: Optional[torch.Tensor] = None  # [3, B, S]
     step: Optional[torch.Tensor] = None             # decode: current length
 
@@ -156,6 +163,32 @@ def _attn_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx,
     return x + f, aux
 
 
+def _attn_state_init(cfg: BlockCfg, batch: int, max_len: int, dtype, device) -> dict:
+    cache_len = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (batch, cache_len, cfg.kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _attn_decode(cfg: BlockCfg, p: dict, x: torch.Tensor, state: dict, pos: PosCtx):
+    """x: [B, 1, d]; an SWA cache is a ring of `window` slots (position t in
+    slot t % window).  Without a window the write index is clamped to the
+    cache, as the reference's dynamic_update_slice clamps it."""
+    q, k, v = _qkv(cfg, p, x, pos)
+    cache_len = state["k"].shape[1]
+    step = pos.step
+    widx = torch.remainder(step, cache_len) if cfg.window else torch.clamp(step, max=cache_len - 1)
+    widx = widx.reshape(1).long()
+    state["k"].index_copy_(1, widx, k.to(state["k"].dtype))
+    state["v"].index_copy_(1, widx, v.to(state["v"].dtype))
+    cur = torch.clamp(step + 1, max=cache_len)
+    o = decode_attention(q, state["k"], state["v"], cur)
+    b = x.shape[0]
+    x = x + (o.reshape(b, 1, -1) @ p["wo"].to(x.dtype))
+    f, _ = _ffn(cfg, p, x)
+    return x + f, state
+
+
 # =============================================================================
 # Mamba2 block (SSD via chunked GLA)
 # =============================================================================
@@ -222,6 +255,25 @@ def _mamba2_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx, attentio
     return _mamba2_out(cfg, p, x, y, xh, z), {}
 
 
+def _mamba2_state_init(cfg: BlockCfg, batch: int, max_len: int, dtype, device) -> dict:
+    return {"gla": torch.zeros((batch, cfg.ssm_heads, cfg.d_state, cfg.ssm_headdim),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner), dtype=dtype,
+                                device=device)}
+
+
+def _mamba2_decode(cfg: BlockCfg, p: dict, x: torch.Tensor, state: dict, pos: PosCtx):
+    """The conv history holds the last conv_width - 1 PRE-conv inputs."""
+    z, xs, Bm, Cm, dt = _mamba2_split(cfg, p, x)          # all [B, 1, *]
+    hist = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
+    xs_c = _causal_conv(hist, p["conv_w"], p["conv_b"])[:, -1:, :]
+    state["conv"].copy_(hist[:, 1:, :])
+    q, k, v, log_a, xh = _mamba2_gla_inputs(cfg, p, xs_c, Bm, Cm, dt)
+    y, gla = ssm.gla_step(state["gla"], q[:, 0], k[:, 0], v[:, 0], log_a[:, 0])
+    state["gla"].copy_(gla)
+    return _mamba2_out(cfg, p, x, y[:, None], xh, z), state
+
+
 # =============================================================================
 # mLSTM block (xLSTM matrix memory via chunked GLA with a normalizer column)
 # =============================================================================
@@ -286,6 +338,19 @@ def _mlstm_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx, attention
     return _mlstm_out(cfg, p, x, y_aug, z), {}
 
 
+def _mlstm_state_init(cfg: BlockCfg, batch: int, max_len: int, dtype, device) -> dict:
+    pd = cfg.d_inner // cfg.ssm_heads
+    return {"gla": torch.zeros((batch, cfg.ssm_heads, pd, pd + 1), dtype=torch.float32,
+                               device=device)}
+
+
+def _mlstm_decode(cfg: BlockCfg, p: dict, x: torch.Tensor, state: dict, pos: PosCtx):
+    q, k, v_aug, log_f, z = _mlstm_qkv(cfg, p, x)
+    y_aug, gla = ssm.gla_step(state["gla"], q[:, 0], k[:, 0], v_aug[:, 0], log_f[:, 0])
+    state["gla"].copy_(gla)
+    return _mlstm_out(cfg, p, x, y_aug[:, None], z), state
+
+
 # =============================================================================
 # sLSTM block (scalar memory, exponential gating with stabilizer; sequential)
 # =============================================================================
@@ -328,22 +393,46 @@ def _slstm_cell(cfg: BlockCfg, r: torch.Tensor, xg, carry, one: torch.Tensor):
 def _slstm_carry(cfg: BlockCfg, batch: int, dtype, device):
     """The scan's initial (c, n, h, m): m, the stabilizer, starts at -1e30."""
     shape = (batch, cfg.ssm_heads, cfg.d_model // cfg.ssm_heads)
-    z32 = torch.zeros(shape, dtype=torch.float32, device=device)
-    return (z32, z32, torch.zeros(shape, dtype=dtype, device=device),
-            torch.full(shape, -1e30, dtype=torch.float32, device=device))
+    f32 = dict(dtype=torch.float32, device=device)
+    # four tensors: a decode state writes each in place
+    return (torch.zeros(shape, **f32), torch.zeros(shape, **f32),
+            torch.zeros(shape, dtype=dtype, device=device), torch.full(shape, -1e30, **f32))
+
+
+def _slstm_scan(cfg: BlockCfg, p: dict, xg: torch.Tensor, carry):
+    """The cell over xg [B, S, 4d] from `carry`: (the last carry, the
+    cell's outputs [B, S, H, pd] in float32)."""
+    r, one = p["r"].to(carry[2].dtype), scalar(1.0, carry[0])
+    hs = []
+    for xg_t in xg.unbind(1):   # one unbind: its backward is one stack
+        carry, h = _slstm_cell(cfg, r, xg_t, carry, one)
+        hs.append(h)
+    return carry, torch.stack(hs, dim=1)
 
 
 def _slstm_train(cfg: BlockCfg, p: dict, x: torch.Tensor, pos: PosCtx, attention=None):
     b, s, d = x.shape
     xg = rms_norm(x, p["ln"], cfg.norm_eps) @ p["wx"].to(x.dtype)  # [B, S, 4d]
-    carry = _slstm_carry(cfg, b, x.dtype, x.device)
-    r, one = p["r"].to(x.dtype), scalar(1.0, carry[0])
-    hs = []
-    for xg_t in xg.unbind(1):   # one unbind: its backward is one stack
-        carry, h = _slstm_cell(cfg, r, xg_t, carry, one)
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    _, h = _slstm_scan(cfg, p, xg, _slstm_carry(cfg, b, x.dtype, x.device))
+    h = h.reshape(b, s, d).to(x.dtype)
     return x + h @ p["out"].to(x.dtype), {}
+
+
+SLSTM_STATE = ("c", "n", "h", "m")
+
+
+def _slstm_state_init(cfg: BlockCfg, batch: int, max_len: int, dtype, device) -> dict:
+    return dict(zip(SLSTM_STATE, _slstm_carry(cfg, batch, dtype, device)))
+
+
+def _slstm_decode(cfg: BlockCfg, p: dict, x: torch.Tensor, state: dict, pos: PosCtx):
+    xg = rms_norm(x, p["ln"], cfg.norm_eps) @ p["wx"].to(x.dtype)
+    carry, h = _slstm_scan(cfg, p, xg, tuple(state[k] for k in SLSTM_STATE))
+    for k, c in zip(SLSTM_STATE, carry):
+        state[k].copy_(c)
+    b = x.shape[0]
+    out = x + h.reshape(b, 1, -1).to(x.dtype) @ p["out"].to(x.dtype)
+    return out, state
 
 
 # =============================================================================
@@ -354,6 +443,10 @@ _INIT = {"attn": _attn_init, "mamba2": _mamba2_init, "mlstm": _mlstm_init,
          "slstm": _slstm_init}
 _TRAIN = {"attn": _attn_train, "mamba2": _mamba2_train, "mlstm": _mlstm_train,
           "slstm": _slstm_train}
+_STATE = {"attn": _attn_state_init, "mamba2": _mamba2_state_init,
+          "mlstm": _mlstm_state_init, "slstm": _slstm_state_init}
+_DECODE = {"attn": _attn_decode, "mamba2": _mamba2_decode,
+           "mlstm": _mlstm_decode, "slstm": _slstm_decode}
 
 
 def block_init(cfg: BlockCfg, generator: Optional[torch.Generator] = None, device=None) -> dict:
@@ -366,3 +459,15 @@ def block_train(cfg: BlockCfg, params: dict, x: torch.Tensor, pos: PosCtx,
     blocks' implementation (``models.common.causal_attention``; None: the
     one of `x`'s device)."""
     return _TRAIN[cfg.kind](cfg, params, x, pos, attention)
+
+
+def block_state_init(cfg: BlockCfg, batch: int, max_len: int, dtype, device=None) -> dict:
+    """One layer's decode state: a KV cache of min(max_len, window) slots,
+    or the recurrent state (float32, but mamba2's conv history in `dtype`)."""
+    return _STATE[cfg.kind](cfg, batch, max_len, dtype, device)
+
+
+def block_decode(cfg: BlockCfg, params: dict, x: torch.Tensor, state: dict, pos: PosCtx):
+    """One token x [B, 1, d] through the block: (x, state), the state
+    written in place; `pos.step` is the 0-dim position of the token."""
+    return _DECODE[cfg.kind](cfg, params, x, state, pos)

@@ -1,6 +1,6 @@
-"""Shared LM machinery for training: norms, rotary positions, activations,
-dense init, the loss, and causal attention (port of the training half of
-``repro/models/common.py``).
+"""Shared LM machinery: norms, rotary positions, activations, dense init,
+the loss, causal attention and single-token attention against a KV cache
+(port of ``repro/models/common.py``).
 
 Attention has two implementations behind one entry point,
 `causal_attention(..., impl=)`, chosen by the device of the queries
@@ -15,7 +15,11 @@ Attention has two implementations behind one entry point,
              reference computes attention in plain jnp, outside any Pallas
              kernel, so a library call stands for it here.
 
-`decode_attention` waits for the port of LM serving (ROADMAP item 15d).
+`decode_attention` (one new token against a KV cache, masked beyond the
+cache's valid length) has one form on both devices: the reference's
+grouped form in plain torch (q reshaped to [B, Hkv, rep, Dh], the cache
+never repeated to Hq; float32 scores from products that read the bfloat16
+cache as it is).
 """
 
 from __future__ import annotations
@@ -322,3 +326,52 @@ def causal_attention(q, k, v, *, window: Optional[int] = None, impl: Optional[st
     if impl != "blocked":
         raise ValueError(f"attention {impl!r}; one of {ATTENTION_IMPLS}")
     return blocked_causal_attention(q, k, v, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Single-token attention against a KV cache
+# ---------------------------------------------------------------------------
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A batched product summed in float32 and returned in float32 (the
+    reference's preferred_element_type=float32), without a float32 copy of
+    a bfloat16 operand on the card: ``bmm``'s out_dtype form there."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cur_len: torch.Tensor) -> torch.Tensor:
+    """Single-step attention against a KV cache, the reference's grouped
+    form.  q [B, 1, Hq, Dh]; caches [B, Sc, Hkv, Dh]; cur_len a 0-dim int
+    tensor (valid cache positions).  Scores in float32, masked beyond
+    cur_len, softmax in float32, P rounded to the cache's dtype for the PV
+    product.  The products run one group at a time over whichever of the
+    lanes and the KV heads are fewer, so that each reads its operands in
+    place through strides (a batched product over both would need a copy of
+    the cache)."""
+    b, sc, hkv, dh = k_cache.shape
+    hq = q.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, hkv, rep, dh)
+    scale = 1.0 / math.sqrt(dh)
+    mask = torch.arange(sc, device=q.device) < cur_len
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    if b <= hkv:   # one lane at a time, its KV heads batched: [Hkv, ...]
+        groups = [(qg[i], k_cache[i].permute(1, 2, 0), v_cache[i].transpose(0, 1))
+                  for i in range(b)]
+        dim = 0
+    else:          # one KV head at a time, the lanes batched: [B, ...]
+        groups = [(qg[:, h], k_cache[:, :, h].transpose(1, 2), v_cache[:, :, h])
+                  for h in range(hkv)]
+        dim = 1
+    outs = []
+    for qq, kt, vv in groups:
+        s = _bmm_f32(qq, kt) * scale                      # [G, rep, Sc]
+        p = torch.softmax(torch.where(mask, s, neg), dim=-1).to(vv.dtype)
+        outs.append(torch.bmm(p, vv))                      # [G, rep, Dh]
+    out = torch.stack(outs, dim=dim)                       # [B, Hkv, rep, Dh]
+    return out.reshape(b, 1, hq, dh).to(q.dtype)

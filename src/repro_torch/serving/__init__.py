@@ -1,11 +1,11 @@
-"""Serving: the online embedding engine and train->serve publication.
+"""Serving layer: the LM wave engine and the online embedding engine.
 
 `OnlineEmbeddingEngine` (with the publisher's `TablePublisher` /
 `OnlineTrainer` / delta helpers) is the paper's continuous-online-storage
-read path.  The reference's LM decode engine (``ServingEngine``) waits for
-the LM stack.
+read path; `ServingEngine` is the LM decode wave engine.
 """
 
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.embedding_engine import (  # noqa: F401
     EmbeddingRequest,
     EngineMetrics,

@@ -9,6 +9,9 @@ The HKV step runs the paper's three roles in one step:
   updater   the rows' gradients go back through `table.apply_grads` (the
             sparse optimizer's fused step, ``update_scan`` on the card).
 
+`prefill_step` and `decode_step` are the model's serving calls (the
+decode state changes in place, ``models/lm.py``).
+
 The parameters' gradients are clipped to a global norm and applied by the
 dense optimizer; the rows' gradients are not clipped, as in the reference.
 A step returns new parameter and optimizer trees; the table changes in
@@ -131,3 +134,11 @@ class StepBuilder:
                    **{k: v.detach() for k, v in aux.items()},
                    **marks.ms(("lookup_ms", "fwd_bwd_ms", "opt_ms", "apply_ms"))}
         return params, opt_state, table, metrics
+
+    # ----------------------------------------------------------------- serve
+
+    def prefill_step(self, params, tokens, max_len: int, **extras):
+        return self.model.prefill(params, tokens, max_len, **extras)
+
+    def decode_step(self, params, tokens, state):
+        return self.model.decode_step(params, tokens, state)

@@ -197,15 +197,6 @@ def test_param_tree_leaf_by_leaf(name, backend):
             assert not g.any(), path
 
 
-def test_unported_blocks_raise():
-    """Decoding waits for ROADMAP item 15d."""
-    m = CompositeLM(get_arch("qwen2-0.5b").smoke)
-    for call in (lambda: m.prefill({}, None, 4), lambda: m.decode_step({}, None, None),
-                 lambda: m.init_decode_state(1, 4)):
-        with pytest.raises(NotImplementedError, match="15d"):
-            call()
-
-
 # =============================================================================
 # Loss and gradients against JAX
 # =============================================================================

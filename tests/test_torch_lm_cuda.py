@@ -1,4 +1,5 @@
-"""The port's LM training step on the card against the same step on the CPU.
+"""The port's LM training step, and its serving half, on the card against
+the same on the CPU.
 
 Marked `cuda`: it needs an NVIDIA GPU with nvcc and skips without one.  It
 imports nothing of JAX, so it runs on a machine with a card alone:
@@ -15,6 +16,12 @@ SDPA's float32 kernels and its atomics sum in other orders than the CPU,
 and adamw turns a coordinate whose gradient is at that noise into a step
 of up to lr = 3e-4 (the largest difference from the JAX package seen on
 the CPU, under the same rounding, is 7e-6).
+
+Serving: `decode_attention` on the card against the CPU in float32, and
+its bfloat16 form (float32 scores from bfloat16 operands read in place)
+against the same inputs' float32 result; prefill and decode steps on the card against the CPU; the
+decode state written in place on the card; and a decode step that never
+synchronizes with the host (``torch.cuda.set_sync_debug_mode("error")``).
 """
 
 import dataclasses
@@ -29,6 +36,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.embedding import HKVEmbedding, SparseOptimizer  # noqa: E402
 from repro_torch.launch.train import hkv_capacity  # noqa: E402
 from repro_torch.models.blocks import BlockCfg, PosCtx, block_init, block_train  # noqa: E402
+from repro_torch.models.common import decode_attention  # noqa: E402
 from repro_torch.models.lm import CompositeLM  # noqa: E402
 from repro_torch.models.moe import MoECfg  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -167,3 +175,87 @@ def test_new_archs_hkv_steps_on_the_card_equal_the_cpu(card, arch):
     assert (rel <= worst).all() and np.median(rel[scale > 1e-30]) <= 1e-3, (
         f"rows off by {np.sort(rel)[-5:]} of their largest element, median "
         f"{np.median(rel[scale > 1e-30])}")
+
+
+# =============================================================================
+# Serving
+# =============================================================================
+
+@pytest.mark.parametrize("b, sc, hq, hkv", [(4, 4096, 14, 2), (2, 1024, 32, 32),
+                                            (3, 2048, 32, 8)])
+def test_decode_attention_on_the_card(card, b, sc, hq, hkv):
+    """Both loop orders (B <= Hkv and B > Hkv): in float32 on the card
+    against the CPU (within 1e-5 of the largest output); on bfloat16
+    operands against the float32 result on the card (relative L2 within
+    1e-2: the operands' and P's rounding to bfloat16)."""
+    gen = torch.Generator().manual_seed(b * sc)
+    q = torch.randn((b, 1, hq, 64), generator=gen)
+    k, v = (torch.randn((b, sc, hkv, 64), generator=gen) for _ in range(2))
+    cur = torch.tensor(sc - 37, dtype=torch.int32)
+    want = decode_attention(q, k, v, cur)
+    got = decode_attention(q.to(card), k.to(card), v.to(card), cur.to(card))
+    assert ((got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()).item()
+    qb, kb, vb = (x.to(card, torch.bfloat16) for x in (q, k, v))
+    low = decode_attention(qb, kb, vb, cur.to(card)).float()
+    assert torch.isfinite(low).all()
+    assert ((low - got).norm() / got.norm()).item() <= 1e-2
+
+
+SERVE_ARCHS = ("qwen2-0.5b", "h2o-danube-1.8b", "zamba2-1.2b", "xlstm-1.3b", "musicgen-medium",
+               "gemma-2b", "moonshot-v1-16b-a3b")
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_prefill_and_decode_on_the_card_equal_the_cpu(card, arch):
+    """float32 smoke configs from the same parameters: a 40-token prompt
+    (danube's window is 32, so its ring wraps) and 3 greedy steps on the
+    card and on the CPU; logits within 1e-4 of their largest magnitude
+    (zamba2's within 1e-3), the same greedy tokens."""
+    cfg = get_arch(arch).smoke
+    params = CompositeLM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, size=(2, 40)))
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        model, p = CompositeLM(cfg), tree.map(lambda a: a.to(dev), params)
+        logits, st = model.prefill(p, toks.to(dev), 48)
+        out = [logits.cpu()]
+        for _ in range(3):
+            logits, st = model.decode_step(p, out[-1].argmax(-1).to(dev, torch.int32), st)
+            out.append(logits.cpu())
+        runs.append(out)
+    rtol = 1e-3 if arch == "zamba2-1.2b" else 1e-4
+    for c, g in zip(*runs):
+        assert ((g - c).abs().max() <= rtol * c.abs().max()).item()
+        assert torch.equal(g.argmax(-1), c.argmax(-1))
+
+
+def test_decode_writes_the_state_in_place_on_the_card(card):
+    cfg = get_arch("qwen2-0.5b").smoke
+    model = CompositeLM(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    _, st = model.prefill(params, torch.arange(16, device=card).reshape(2, 8) % cfg.vocab, 12)
+    k = st["repeat"][0]["k"]
+    before = k.clone()
+    _, out = model.decode_step(params, torch.tensor([1, 2], device=card), st)
+    assert out is st and out["repeat"][0]["k"] is k and int(st["pos"]) == 9
+    changed = (k != before).any(dim=(0, 1, 2, 4, 5)).cpu()
+    assert changed.tolist() == [i == 8 for i in range(12)]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_decode_step_does_not_synchronize(card, arch):
+    """One decode step (after a warm-up step) under the sync debug mode
+    "error": no operation of the step waits for the card."""
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.bfloat16)
+    model = CompositeLM(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    _, st = model.prefill(params, torch.arange(80, device=card).reshape(2, 40) % cfg.vocab, 48)
+    toks = torch.tensor([3, 4], dtype=torch.int32, device=card)
+    model.decode_step(params, toks, st)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, st = model.decode_step(params, toks, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits).all() and int(st["pos"]) == 42

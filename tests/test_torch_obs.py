@@ -156,6 +156,10 @@ def test_serve_launcher_writes_the_reference_formats(tmp_path, capsys):
     assert "# TYPE hkv_engine_waves gauge" in text and "hkv_maintenance_deferred" in text
 
 
-def test_serve_launcher_lm_mode_is_refused(capsys):
-    assert serve.main(["--mode", "lm"]) != 0
-    assert "item 15" in capsys.readouterr().err
+def test_serve_launcher_lm_mode_is_refused(monkeypatch):
+    """`--mode lm` runs on the card: without one, and without `--device
+    cpu`, the launcher refuses it (tests/test_torch_serving_lm.py runs it
+    on the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mode", "lm"])
