@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs thirteen phases; any failure exits non-zero:
+sm_90a (first use), then runs fourteen phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -254,6 +254,37 @@ sm_90a (first use), then runs thirteen phases; any failure exits non-zero:
    bfloat16 prefill's distance from the float32 one; then a greedy
    generation, timed.  llama4-maverick has no
    card run.
+14. the rest of the train stack, at qwen2-0.5b's published widths, each
+   number beside the card's name and power limit.  (a) The int8
+   error-feedback exchange (``distributed.compression``) over 4 data
+   positions on the one card, each position's gradient tree from its own
+   forward and backward over 1 x 4096 tokens (float32, 494M elements):
+   ``ef_compress_grads`` for two steps carrying the error, and
+   ``compressed_psum``, each within 0.05 of the exact mean or sum relative
+   to its largest magnitude (the reference's bound), the carried error not
+   zero, and the embedding table's and the first layer's wq synced leaves
+   and errors bit for bit the same function run on the CPU on the same
+   inputs; timed against the exact mean (a stack and a mean), with the
+   bytes each would put on a wire.  (b) The GPipe schedule
+   (``distributed.pipeline``): the 24 decoder layers as 4 stages of 6, 8
+   microbatches of 1 x 4096 embeddings, forward, over a ("pod",) mesh of 4
+   positions on the card: bit for bit the layers applied microbatch by
+   microbatch in sequence, and within PIPE_BATCHED_TOL of the whole 8 x
+   4096 batch through the layers at once; each timed (on one card the
+   stages take turns: this measures the schedule's work, not several
+   cards).  (c) ``make_sharded_train_step`` on a (data=2, model=4) mesh
+   with the launcher's HKV table, 8 x 4096 tokens, one step, with the
+   counts set to 0 before and read after: its launches 8 times
+   TRAIN_LM_ROUTES' (one owner op a shard, claim_scan on each shard's miss
+   lanes), and its loss, gradient norm, parameters and table keys, digests
+   and scores bit for bit ``StepBuilder.train_step_hkv``'s on the same
+   inputs.  Both run the blocked attention: SDPA's backward on the card sums
+   in no fixed order (its atomics), and the check is of the step, not of
+   that rounding.  (d) The dry run (``launch.dryrun``): its argument bytes
+   for a (1, 1) mesh and a dense train step of 8 x 4096 tokens equal the
+   bytes the card holds for that step's parameters, adamw state and batch
+   built there, and ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
+   --shape train_4k --mesh single`` runs, its record and seconds printed.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -269,7 +300,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same thirteen phases at a tiny size on the
+result.  ``--rehearse`` runs the same fourteen phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -519,6 +550,16 @@ SERVE_BF16_TIMES = 3
 # product, so the two differ at bfloat16's precision: relative L2 error
 # 1e-2 for the output and each gradient
 LM_ATTN_RTOL = 1e-2
+# the rest of the train stack (phase 14): the data positions of (a), the
+# stages and microbatches of (b), and (b)'s bound on the pipelined bfloat16
+# output against the whole batch's, relative to the latter's largest
+# magnitude: the two run the same layers with matrix products of other
+# shapes, so each layer's bfloat16 output may round one unit (2^-8
+# relative) apart, and 24 layers add up to a few units
+STACK_POSITIONS = 4
+PIPE_STAGES, PIPE_MICROBATCHES = 4, 8
+PIPE_BATCHED_TOL = 2**-5
+COMPRESS_BOUND = 0.05              # tests/test_distributed.py:120,142
 
 
 @dataclasses.dataclass(frozen=True)
@@ -617,6 +658,13 @@ def main(argv: list[str]) -> int:
     return 0
 
 
+def _chain(stage_fn, stage_params: list, x):
+    """`stage_fn` of each stage's parameters, in stage order, on x."""
+    for p in stage_params:
+        x = stage_fn(p, x)
+    return x
+
+
 class Smoke:
     def __init__(self, device, sizes: Sizes, only: set = frozenset()):
         import torch
@@ -643,6 +691,7 @@ class Smoke:
         self.launches_lm: dict[str, int] = {}
         self.launches_zoo: dict[str, int] = {}
         self.launches_serve_lm: dict[str, int] = {}
+        self.launches_stack: dict[str, int] = {}
         self.train_cmp: dict[str, float] = {}
         # unsharded config B op times of phases 3-5 (ms), for phase 10's ratios
         self.unsharded: dict[str, float] = {}
@@ -816,7 +865,8 @@ class Smoke:
                   ("the sharded table", self.phase_sharded),
                   ("the LM training path with the HKV embedding", self.phase_lm),
                   ("the rest of the model zoo", self.phase_zoo),
-                  ("LM serving", self.phase_serve_lm)]
+                  ("LM serving", self.phase_serve_lm),
+                  ("the rest of the train stack", self.phase_train_stack)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -4845,6 +4895,293 @@ class Smoke:
 
     # ----------------------------------------------------------------- report
 
+    # phase 14 -------------------------------------------------------------
+
+    def card_tag(self) -> str:
+        """The card's name and power limit, for each number."""
+        return f"[{self.card_name()}]" if self.dev.type == "cuda" else "[cpu rehearsal]"
+
+    def events_ms(self, fn) -> tuple:
+        """(fn's result, its ms: CUDA events on the card, the host clock in
+        the rehearsal)."""
+        mark, ms = self.step_marks()
+        self.sync()
+        a = mark()
+        out = fn()
+        b = mark()
+        return out, ms([a, b])[0]
+
+    def phase_train_stack(self):
+        """The rest of the train stack (see the module note)."""
+        self.stack_compression()
+        self.stack_pipeline()
+        self.stack_sharded_step()
+        self.stack_dryrun()
+
+    def stack_compression(self):
+        """(a) The int8 error-feedback exchange over STACK_POSITIONS data
+        positions' full gradient trees."""
+        from repro_torch import tree
+        from repro_torch.distributed import compression
+        from repro_torch.models.lm import CompositeLM
+        from repro_torch.train.step import _grad_leaves
+
+        torch, sz, dev = self.torch, self.sz, self.dev
+        self.free()
+        lm = self.lm_config(LM_ARCH, hkv=False)
+        model = CompositeLM(lm)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = model.init(gen, device=dev)
+        grads = []
+        for _ in range(STACK_POSITIONS):
+            toks = torch.randint(0, lm.vocab, (1, sz.lm_seq), generator=gen, device=dev)
+            labels = torch.randint(0, lm.vocab, (1, sz.lm_seq), generator=gen, device=dev)
+            p, leaves = _grad_leaves(params)
+            loss, _ = model.loss(p, toks, labels)
+            grads.append(tree.unflatten(params, list(torch.autograd.grad(loss, leaves))))
+        del params, p, leaves
+        n = sum(g.numel() for g in tree.leaves(grads[0]))
+        require(all(g.dtype == torch.float32 for g in tree.leaves(grads[0])),
+                "phase 14 (a): the gradients are not float32")
+        errs = [compression.init_error_state(g) for g in grads]
+        (s1, e1), t_ef = self.events_ms(lambda: compression.ef_compress_grads(grads, errs))
+        (s2, e2), t_ef2 = self.events_ms(lambda: compression.ef_compress_grads(grads, e1))
+        exact, t_exact = self.events_ms(lambda: tree.map(
+            lambda *gs: torch.stack(gs).mean(0), *grads))
+        psum, t_psum = self.events_ms(lambda: [compression.compressed_psum(
+            [tree.leaves(g)[j] for g in grads]) for j in range(len(tree.leaves(grads[0])))])
+
+        def rel(got, want) -> float:
+            """max |got - want| over the tree / max |want| over the tree."""
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            return err / max(float(b.abs().max()) for b in want)
+
+        ex = tree.leaves(exact)
+        r1 = rel(tree.leaves(s1[0]), ex)
+        ex2 = [torch.stack([g + e for g, e in zip(gs, es)]).mean(0)
+               for gs, es in zip(zip(*map(tree.leaves, grads)), zip(*map(tree.leaves, e1)))]
+        r2 = rel(tree.leaves(s2[0]), ex2)
+        rp = rel([p[0] for p in psum], [x * STACK_POSITIONS for x in ex])
+        worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(tree.leaves(s1[0]), ex))
+        carried = sum(float(e.abs().sum()) for e in tree.leaves(e2[0]))
+        require(max(r1, r2, rp) < COMPRESS_BOUND,
+                f"phase 14 (a): compressed results {r1}, {r2}, {rp} from the exact, bound "
+                f"{COMPRESS_BOUND}")
+        require(carried > 0, "phase 14 (a): the carried error is zero")
+        # the same function on the CPU on the same inputs: the embedding table
+        # and the first layer's wq (802,816 elements, whole 256-blocks)
+        pick = lambda g: {"table": g["embed"]["table"], "wq": g["repeat"][0]["wq"][0, 0]}  # noqa: E731
+        cpu_g = [tree.map(lambda x: x.cpu(), pick(g)) for g in grads]
+        cs, ce = compression.ef_compress_grads(
+            cpu_g, [compression.init_error_state(g) for g in cpu_g])
+        for k in ("table", "wq"):
+            require(torch.equal(cs[0][k], pick(s1[0])[k].cpu()),
+                    f"phase 14 (a): synced {k} differs from the CPU's")
+            for i in range(STACK_POSITIONS):
+                require(torch.equal(ce[i][k], pick(e1[i])[k].cpu()),
+                        f"phase 14 (a): position {i}'s {k} error differs from the CPU's")
+        card = self.card_tag()
+        log(f"phase 14 (a) compressed exchange {card}: {STACK_POSITIONS} positions' gradient "
+            f"trees of {n} float32 elements ({LM_ARCH}, 1 x {sz.lm_seq} tokens each); "
+            f"ef_compress_grads step 1 {t_ef:.3f} ms, step 2 (carried error) {t_ef2:.3f} ms, "
+            f"compressed_psum {t_psum:.3f} ms, the exact mean (stack and mean) {t_exact:.3f} ms; "
+            f"from the exact: step 1 {r1:.6f}, step 2 {r2:.6f}, psum {rp:.6f} (bound "
+            f"{COMPRESS_BOUND}; the worst leaf alone {worst:.6f}); carried error |e| sum "
+            f"{carried:.6e}; on a wire: int8 all-gather {n * STACK_POSITIONS} B, float32 ring "
+            f"{2 * n * 4} B; the table's and the first wq's synced leaves and errors bit for "
+            f"bit the CPU's")
+        del grads, errs, s1, e1, s2, e2, exact, psum, ex, ex2, cpu_g, cs, ce
+        self.free()
+
+    def stack_pipeline(self):
+        """(b) The GPipe schedule over the model's decoder layers."""
+        from repro_torch import make_mesh, tree
+        from repro_torch.distributed import pipeline
+        from repro_torch.models.blocks import PosCtx, block_train
+        from repro_torch.models.lm import CompositeLM
+
+        torch, sz, dev = self.torch, self.sz, self.dev
+        self.free()
+        lm = self.lm_config(LM_ARCH, hkv=False)
+        seg = lm.segments[0]
+        n_layers = seg.count
+        k = PIPE_STAGES if n_layers % PIPE_STAGES == 0 else n_layers
+        m, s, d = PIPE_MICROBATCHES, sz.lm_seq, lm.d_model
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        layers = CompositeLM(lm).init(gen, device=dev)["repeat"][0]   # [1, L, ...] leaves
+        stages = tree.map(lambda a: a.reshape((k, n_layers // k) + a.shape[2:]), layers)
+
+        def apply(p, x, count):
+            pos = PosCtx(positions=torch.arange(x.shape[1], dtype=torch.int32,
+                                                device=dev).expand(x.shape[0], -1))
+            for j in range(count):
+                x, _ = block_train(seg.block, tree.map(lambda a, j=j: a[j], p), x, pos)
+            return x
+
+        def stage_fn(p, x):
+            return apply(p, x, n_layers // k)
+
+        xs = torch.randn((m, 1, s, d), generator=gen, device=dev).to(lm.dtype)
+        mesh = make_mesh((k,), ("pod",), device=dev)
+        flat = tree.map(lambda a: a.reshape((n_layers,) + a.shape[2:]), layers)
+        with torch.no_grad():
+            # warm-up: the first call of each shape plans its attention and
+            # matrix-product kernels (PR 24's first run timed it in the pipeline)
+            stage_fn(tree.map(lambda a: a[0], stages), xs[0])
+            apply(flat, xs.reshape(m, s, d), 1)
+            self.sync()
+            got, t_pipe = self.events_ms(lambda: pipeline.pipeline_apply(
+                mesh, "pod", stage_fn, stages, xs))
+            seq, t_seq = self.events_ms(lambda: torch.stack([
+                _chain(stage_fn, [tree.map(lambda a, i=i: a[i], stages) for i in range(k)],
+                       xs[i2]) for i2 in range(m)]))
+            whole, t_whole = self.events_ms(lambda: apply(flat, xs.reshape(m, s, d), n_layers))
+        require(torch.equal(got, seq), "phase 14 (b): the pipeline differs from the layers "
+                "applied microbatch by microbatch")
+        diff = float((got.reshape(m, s, d).float() - whole.float()).abs().max())
+        scale = float(whole.float().abs().max())
+        require(torch.isfinite(got).all() and diff <= PIPE_BATCHED_TOL * scale,
+                f"phase 14 (b): pipelined against the whole batch {diff} (bound "
+                f"{PIPE_BATCHED_TOL} x {scale})")
+        log(f"phase 14 (b) pipeline {self.card_tag()}: {n_layers} {seg.block.kind} layers as "
+            f"{k} stages of {n_layers // k}, {m} microbatches of 1 x {s} x {d} {lm.dtype}, "
+            f"forward: pipeline_apply {t_pipe:.3f} ms ({m + k - 1} ticks of {k} stages), the "
+            f"microbatches in sequence {t_seq:.3f} ms (ratio {t_pipe / t_seq:.4f}; the schedule's "
+            f"work predicts (M + K - 1) / M = {(m + k - 1) / m:.4f}), the whole batch at once "
+            f"{t_whole:.3f} ms; bit for bit the sequence; against the whole batch max |diff| "
+            f"{diff:.6g} of max |out| {scale:.6g} (bound {PIPE_BATCHED_TOL}); one card: the "
+            f"stages take turns, so this is no measurement of several cards")
+        del layers, stages, flat, xs, got, seq, whole
+        self.free()
+
+    def stack_sharded_step(self):
+        """(c) make_sharded_train_step on a (2, 4) mesh against the
+        builder's step."""
+        from repro_torch import ShardedHKVTable, make_dev_mesh, tree
+        from repro_torch.data import TokenStream
+        from repro_torch.embedding import HKVEmbedding, SparseOptimizer
+        from repro_torch.launch import train
+        from repro_torch.models.lm import CompositeLM
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import StepBuilder, make_sharded_train_step
+
+        torch, sz, dev = self.torch, self.sz, self.dev
+        self.free()
+        lm = self.lm_config(LM_ARCH)
+        model = CompositeLM(lm, attention="blocked")
+        mesh = make_dev_mesh(2, 4, device=dev)
+        shards = 8
+        cap = train.hkv_capacity(lm.vocab)
+        emb = HKVEmbedding(capacity=cap, dim=lm.d_model,
+                           optimizer=SparseOptimizer("rowwise_adagrad", lr=0.05))
+        toks, labels = TokenStream(seed=SEED, batch=sz.lm_batch, seq=sz.lm_seq,
+                                   vocab=lm.vocab).batch_at(0)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        builder = StepBuilder(model, adamw())
+
+        def run(step_fn):
+            params = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            opt_state = builder.optimizer.init(params)
+            table = ShardedHKVTable.create(mesh, emb)
+            params, opt_state, table, m = step_fn(params, opt_state, table, batch)
+            return params, m, table
+
+        step = make_sharded_train_step(builder, mesh, model.init(device="meta"), hkv=True)
+        with self.stage_lanes() as lanes:
+            self.sync()
+            self._build.reset_counts()
+            (p1, m1, t1), t_step = self.events_ms(lambda: run(step))
+            self.sync()
+            counts = dict(self._build.launch_counts)
+        for key, v in counts.items():
+            self.launches_stack[key] = self.launches_stack.get(key, 0) + v
+        p2, m2, t2 = run(builder.train_step_hkv)
+        route = {}
+        for r in TRAIN_LM_ROUTES.values():
+            for key, v in r.items():
+                route[key] = route.get(key, 0) + shards * v
+        claims = len(lanes["victim"])
+        require(claims == shards, f"phase 14 (c): {claims} victim stages, a fresh table's "
+                f"{shards} shards each have miss lanes")
+        if dev.type == "cuda":
+            require(counts == route, f"phase 14 (c): launches {counts}, {shards} x "
+                    f"TRAIN_LM_ROUTES give {route}")
+        same = [torch.equal(m1["loss"], m2["loss"]), torch.equal(m1["grad_norm"], m2["grad_norm"])]
+        same += [torch.equal(a, b) for a, b in zip(tree.leaves(p1), tree.leaves(p2))]
+        for a, b in zip(t1.state, t2.state):
+            same += [torch.equal(a.keys, b.keys), torch.equal(a.digests, b.digests),
+                     torch.equal(a.scores, b.scores)]
+        require(all(same), f"phase 14 (c): {same.count(False)} of loss, grad norm, "
+                "parameters and table planes differ from train_step_hkv's")
+        require(bool(torch.isfinite(m1["loss"])) and int(m1["emb_overflow"]) == 0,
+                f"phase 14 (c): loss {float(m1['loss'])}, overflow {int(m1['emb_overflow'])}")
+        log(f"phase 14 (c) sharded step {self.card_tag()}: make_sharded_train_step on "
+            f"{mesh}, {LM_ARCH} ({lm.num_layers} layers, d_model {lm.d_model}, blocked attention), "
+            f"table {cap} slots in {shards} shards, batch {sz.lm_batch} x {sz.lm_seq}: loss "
+            f"{float(m1['loss']):.6f}, grad norm {float(m1['grad_norm']):.6f}, step (with its "
+            f"state's set-up) {t_step:.3f} ms (lookup {m1['lookup_ms']:.3f}, forward+backward "
+            f"{m1['fwd_bwd_ms']:.3f}, clip+adamw {m1['opt_ms']:.3f}, apply_grads "
+            f"{m1['apply_ms']:.3f}); launches {json.dumps(counts)} = {shards} x TRAIN_LM_ROUTES; "
+            f"loss, grad norm, {len(tree.leaves(p1))} parameter leaves and every shard's keys, "
+            f"digests and scores bit for bit train_step_hkv's")
+        del p1, p2, t1, t2
+        self.free()
+
+    def stack_dryrun(self):
+        """(d) The dry run's bytes against the card's, and its CLI."""
+        import dataclasses as dc
+
+        from repro_torch import make_dev_mesh, tree
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.common import ShapeCfg
+        from repro_torch.launch import dryrun
+        from repro_torch.models.lm import CompositeLM
+        from repro_torch.optim import adamw
+
+        torch, sz, dev = self.torch, self.sz, self.dev
+        self.free()
+        arch = get_arch(LM_ARCH)
+        if dev.type == "cpu":
+            arch = dc.replace(arch, lm=arch.smoke)
+        shape = ShapeCfg(f"train_{sz.lm_batch}x{sz.lm_seq}", "train", sz.lm_seq, sz.lm_batch)
+        want = dryrun.build_cell(arch, shape, make_dev_mesh(1, 1, device="meta")).argument_bytes()
+        before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        params = CompositeLM(arch.lm).init(torch.Generator(device=dev).manual_seed(SEED),
+                                           device=dev)
+        opt_state = adamw().init(params)
+        batch = {k: torch.zeros((sz.lm_batch, sz.lm_seq), dtype=torch.int32, device=dev)
+                 for k in ("tokens", "labels")}
+        self.sync()
+        after = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        storages = {}
+        for t in tree.leaves([params, opt_state, batch]):
+            require(t.device.type == dev.type, f"phase 14 (d): a leaf on {t.device}")
+            storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        held = sum(storages.values())
+        require(held == want, f"phase 14 (d): the card holds {held} bytes, the dry run counts "
+                f"{want}")
+        out = ROOT / "runs" / "chip_smoke_dryrun"
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               LM_ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
+                               str(out)], cwd=str(ROOT), capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=600)
+        t_cli = time.perf_counter() - t0
+        require(proc.returncode == 0, f"phase 14 (d): the dry run failed: {proc.stderr[-2000:]}")
+        rec = json.loads((out / "single" / f"{LM_ARCH}__train_4k__dense.json").read_text())
+        require(rec["memory"]["argument_bytes_per_device"] > 0 and rec["devices"] == 256,
+                f"phase 14 (d): record {rec}")
+        log(f"phase 14 (d) dry run {self.card_tag()}: {shape.name} on a (1, 1) mesh counts "
+            f"{want} argument bytes; the card holds {held} bytes in {len(storages)} tensors "
+            f"(parameters, adamw state, batch; the allocator's count rose by {after - before}); "
+            f"python -m repro_torch.launch.dryrun --arch {LM_ARCH} --shape train_4k --mesh "
+            f"single: {t_cli:.1f} s, record {json.dumps(rec)}")
+        del params, opt_state, batch
+        self.free()
+
     def report(self):
         for name, st in sorted(self.stats.items()):
             log(f"parity {name}: bit-identical to the plain version in {len(st['checks'])} "
@@ -4945,13 +5282,17 @@ class Smoke:
                 f"at the int32 rate {cs[f'loop_ops@{lam}'] / INT32_OPS_PER_S * 1e3:.4f} ms")
         self.card_line()
 
-    def card_line(self):
+    def card_name(self) -> str:
         """The card's name and power limit, as nvidia-smi gives them."""
+        if not hasattr(self, "_card"):
+            self._card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        return self._card
+
+    def card_line(self):
         if self.dev.type == "cuda":
-            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                  "--format=csv,noheader"], capture_output=True, text=True,
-                                 check=True).stdout.strip().splitlines()[0]
-            log(smi)
+            log(self.card_name())
 
     @staticmethod
     def bytes_ms(st, lam) -> float:
@@ -5001,8 +5342,8 @@ class Smoke:
             # path's phase 8; no op calls bucket_stats, so no path launches it;
             # find_scan_many: phase 9's counted find_many_kernel call; and
             # each with the sharded table's phase 10, the LM paths' phases
-            # 11 and 12 and LM serving's phase 13 (find_scan, the HKV
-            # embedding's lookup_serve)
+            # 11 and 12, LM serving's phase 13 (find_scan, the HKV
+            # embedding's lookup_serve) and the sharded step of phase 14
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
@@ -5012,7 +5353,8 @@ class Smoke:
                              + self.launches_sharded.get(name, 0)
                              + self.launches_lm.get(name, 0)
                              + self.launches_zoo.get(name, 0)
-                             + self.launches_serve_lm.get(name, 0)),
+                             + self.launches_serve_lm.get(name, 0)
+                             + self.launches_stack.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

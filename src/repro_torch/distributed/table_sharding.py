@@ -63,7 +63,9 @@ from repro_torch.core import u64
 from repro_torch.core.api import normalize_keys
 from repro_torch.core.merge import EvictionStream
 from repro_torch.core.ops import ExportResult
+from repro_torch.core.table import HKVState
 from repro_torch.core.tiered import TieredState
+from repro_torch.distributed.sharding import P
 from repro_torch.embedding.dynamic import HKVEmbedding
 from repro_torch.launch.mesh import Mesh, data_axes
 
@@ -338,6 +340,24 @@ class ShardedHKVEmbedding:
         return routes, deds, res
 
     # -- entry points: one global batch, on the mesh's home device -------------
+
+    def state_specs(self):
+        """One shard's state tree with a spec for each plane: its leading
+        (bucket or row) axis split over `axis_names`; the scalar clock and
+        epoch replicated (every shard advances them in lockstep).  A tiered
+        shard gives a ``TieredState`` of two such trees."""
+        ax = self.axis_names
+
+        def specs(state: HKVState) -> HKVState:
+            keys, digests, scores, values = (P(ax, *([None] * (t.ndim - 1)))
+                                             for t in state.planes)
+            return HKVState(keys=keys, digests=digests, scores=scores, values=values,
+                            clock=P(), epoch=P())
+
+        shape = self.local_embedding(1).create(device="meta").state
+        if isinstance(shape, TieredState):
+            return TieredState(specs(shape.hot), specs(shape.cold))
+        return specs(shape)
 
     def create_sharded(self, mesh: Mesh) -> tuple:
         lay = self.layout(mesh)

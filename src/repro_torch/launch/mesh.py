@@ -11,8 +11,10 @@ copies between them.
     mesh = make_dev_mesh(2, 4)                 # ("data", "model"), all on the card
     mesh = make_dev_mesh(2, 4, device="cpu")   # the same on the CPU
 
-`make_production_mesh` (the reference's TPU pod layouts) comes with the LM
-train stack.
+`make_production_mesh` gives the reference's pod layouts, (data=16,
+model=16) and (pod=2, data=16, model=16), for the sharding specs
+(``distributed.sharding``) and the dry run (``launch.dryrun``), which counts
+each position's bytes on ``device="meta"``.
 """
 
 from __future__ import annotations
@@ -85,6 +87,16 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], device=None) -> M
     grid = np.empty(n, dtype=object)
     grid[:] = devs
     return Mesh(axis_names=tuple(axis_names), devices=grid.reshape(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production layout: (data=16, model=16), or (pod=2, data=16,
+    model=16) with `multi_pod` (the "pod" axis carries data parallelism;
+    ``distributed.pipeline`` can run stages over it instead).  `device` as
+    in `make_mesh`; ``"meta"`` gives a mesh of shapes only."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
 
 
 def make_dev_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:

@@ -8,9 +8,11 @@ The experts run as one batched product over the expert dimension, and the
 combine adds each kept assignment's gated output back to its token.
 
 Aux outputs: the load-balance loss (Switch-style), the router z-loss and
-the dropped fraction.  The reference pins the dispatch buffer to the
-mesh's model axis (``maybe_constrain``), the identity outside a mesh; the
-port has no sharding specs yet (ROADMAP item 15c), so it has no such pin.
+the dropped fraction.  The dispatch buffer, the experts' hidden activations
+and their outputs are pinned to the mesh's "model" axis (expert
+parallelism) by ``distributed.sharding.maybe_constrain`` in the
+reference's three places; a torch program has no ambient mesh, so each pin
+is the identity.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.common import activation, dense_init, normal, scalar
 
 
@@ -90,15 +93,20 @@ def moe_apply(cfg: MoECfg, params: dict, x: torch.Tensor) -> tuple[torch.Tensor,
     # every dropped assignment and is cut off
     buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=dev).index_put((slot,), x[stok])
     buf = buf[:e * c].reshape(e, c, d)
+    # EP: the dispatch buffer on the expert axis, so the expert products run
+    # split (dispatch becomes the all-to-all) instead of gathering the weights
+    buf = sharding.maybe_constrain(buf, "model", None, None)
 
     # the experts, batched over the expert dimension
     h = torch.einsum("ecd,edf->ecf", buf, params["wi"].to(x.dtype))
+    h = sharding.maybe_constrain(h, "model", None, None)
     if cfg.gated:
         hg, hu = torch.chunk(h, 2, dim=-1)
         h = act(hg) * hu
     else:
         h = act(h)
-    out_buf = torch.einsum("ecf,efd->ecd", h, params["wo"].to(x.dtype)).reshape(e * c, d)
+    out_buf = torch.einsum("ecf,efd->ecd", h, params["wo"].to(x.dtype))
+    out_buf = sharding.maybe_constrain(out_buf, "model", None, None).reshape(e * c, d)
 
     # combine: the kept assignments' gated outputs added to their tokens
     gathered = out_buf[slot.clamp(0, e * c - 1)]

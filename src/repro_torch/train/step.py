@@ -28,6 +28,7 @@ import time
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import sharding as shard_rules
 from repro_torch.models.lm import CompositeLM
 from repro_torch.optim import Optimizer, apply_updates
 
@@ -142,3 +143,16 @@ class StepBuilder:
 
     def decode_step(self, params, tokens, state):
         return self.model.decode_step(params, tokens, state)
+
+
+def make_sharded_train_step(builder: StepBuilder, mesh, params_shape, hkv: bool):
+    """The step for `mesh`.  The reference computes the parameters' and the
+    batch's specs and jits the step over them; the port computes the same
+    specs (so a tree the rules cannot cover raises here as it does there)
+    and returns the builder's step: one controller runs it, and on one card
+    every position holds its leaves whole (``distributed.sharding``).  With
+    `hkv` the step is `train_step_hkv`, whose table is sharded over the
+    mesh's axes (``ShardedHKVTable``)."""
+    shard_rules.param_shardings(mesh, params_shape)
+    shard_rules.NamedSharding(mesh, shard_rules.batch_spec(mesh))
+    return builder.train_step_hkv if hkv else builder.train_step

@@ -35,6 +35,27 @@ def leaves(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> list:
     return [x for c in _children(tree) for x in leaves(c, is_leaf)]
 
 
+def leaves_with_path(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None,
+                     _path: tuple = ()) -> list:
+    """(path, leaf) pairs in pytree order.  A path is the tuple of keys from
+    the root: a dict's key, a sequence's index (the reference's ``DictKey``
+    and ``SequenceKey`` entries)."""
+    if tree is None:
+        return []
+    if (is_leaf is not None and is_leaf(tree)) or not _is_node(tree):
+        return [(_path, tree)]
+    keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+    return [x for k, c in zip(keys, _children(tree))
+            for x in leaves_with_path(c, is_leaf, _path + (k,))]
+
+
+def map_with_path(fn: Callable, tree: Any,
+                  is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
+    """`fn(path, leaf)` over the leaves of `tree`, in its structure."""
+    out = [fn(p, x) for p, x in leaves_with_path(tree, is_leaf)]
+    return unflatten(tree, out, is_leaf)
+
+
 def map(fn: Callable, tree: Any, *rest: Any,
         is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """`fn` over the leaves of `tree` and the matching subtrees of `rest`

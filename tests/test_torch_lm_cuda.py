@@ -259,3 +259,114 @@ def test_decode_step_does_not_synchronize(card, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(logits).all() and int(st["pos"]) == 42
+
+
+# =============================================================================
+# the rest of the train stack on the card (smoke size)
+# =============================================================================
+
+
+def _smoke_grads(device, positions=4):
+    """`positions` gradient trees of the qwen2-0.5b smoke model on `device`,
+    each from its own batch (float32)."""
+    from repro_torch.train.step import _grad_leaves
+
+    cfg = get_arch("qwen2-0.5b").smoke
+    model = CompositeLM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params = tree.map(lambda p: p.to(device), params)
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(positions):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 32))).to(device)
+        p, leaves = _grad_leaves(params)
+        loss, _ = model.loss(p, toks, torch.roll(toks, -1, 1))
+        out.append(tree.unflatten(params, list(torch.autograd.grad(loss, leaves))))
+    return out
+
+
+def test_compressed_exchange_on_the_card_equals_the_cpu(card):
+    """ef_compress_grads over two steps and compressed_psum: every leaf
+    bit for bit the same functions on the CPU on the same inputs (IEEE
+    float32 arithmetic with constants on the data's device)."""
+    from repro_torch.distributed import compression
+
+    grads = _smoke_grads(card)
+    cpu = [tree.map(lambda g: g.cpu(), g) for g in grads]
+    out = {}
+    for dev, gs in (("cuda", grads), ("cpu", cpu)):
+        errs = [compression.init_error_state(g) for g in gs]
+        s1, e1 = compression.ef_compress_grads(gs, errs)
+        s2, e2 = compression.ef_compress_grads(gs, e1)
+        ps = [compression.compressed_psum([tree.leaves(g)[j] for g in gs])[0]
+              for j in range(len(tree.leaves(gs[0])))]
+        out[dev] = [x.cpu() for t in (s1[0], s2[0], *e1, *e2) for x in tree.leaves(t)] + \
+            [p.cpu() for p in ps]
+    assert len(out["cuda"]) == len(out["cpu"])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_pipeline_on_the_card_equals_sequential_application(card):
+    from repro_torch import make_mesh
+    from repro_torch.distributed import pipeline
+
+    cfg = get_arch("qwen2-0.5b").smoke
+    seg = cfg.segments[0]
+    layers = CompositeLM(cfg).init(torch.Generator().manual_seed(0), device="cpu")["repeat"][0]
+    stages = tree.map(lambda a: a.reshape((2, 1) + a.shape[2:]).to(card), layers)
+
+    def stage_fn(p, x):
+        pos = PosCtx(positions=torch.arange(x.shape[1], device=card).expand(x.shape[0], -1))
+        return block_train(seg.block, tree.map(lambda a: a[0], p), x, pos)[0]
+
+    xs = torch.randn((5, 1, 32, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.no_grad():
+        got = pipeline.pipeline_apply(make_mesh((2,), ("pod",), device=card), "pod", stage_fn,
+                                      stages, xs)
+        want = torch.stack([stage_fn(tree.map(lambda a: a[1], stages),
+                                     stage_fn(tree.map(lambda a: a[0], stages), x)) for x in xs])
+    assert got.device == xs.device and torch.equal(got, want)
+
+
+def test_sharded_step_on_the_card_is_the_builders_step(card):
+    """make_sharded_train_step on a (2, 4) mesh of the card: its launches 8
+    times an HKV step's on one shard, and (blocked attention: a backward
+    without atomics) bit for bit train_step_hkv's on the same inputs."""
+    from repro_torch.kernels import _build
+    from repro_torch.train.step import make_sharded_train_step
+
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b").smoke, embedding_backend="hkv",
+                              tied_head=False)
+    model = CompositeLM(cfg, attention="blocked")
+    builder = StepBuilder(model, adamw())
+    mesh = make_dev_mesh(2, 4, device=card)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 32)).astype(np.int32)).to(card)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    emb = HKVEmbedding(capacity=hkv_capacity(cfg.vocab) * 8, dim=cfg.d_model,
+                       optimizer=SparseOptimizer("rowwise_adagrad", lr=0.05))
+
+    def run(step):
+        params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+        table = ShardedHKVTable.create(mesh, emb)
+        params, _, table, m = step(params, builder.optimizer.init(params), table, batch)
+        return params, m, table
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    p1, m1, t1 = run(make_sharded_train_step(builder, mesh, model.init(device="meta"), True))
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    # a shard's lookup is one dual find_or_insert (2 upsert_probe, claim_scan
+    # on its miss lanes, scatter_rows, the readback's gather_rows), its
+    # apply_grads one update_scan
+    assert counts == {"upsert_probe": 16, "claim_scan": 8, "scatter_rows": 8,
+                      "gather_rows": 8, "update_scan": 8}
+    p2, m2, t2 = run(builder.train_step_hkv)
+    assert torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"], m2["grad_norm"])
+    for a, b in zip(tree.leaves(p1), tree.leaves(p2)):
+        assert torch.equal(a, b)
+    for a, b in zip(t1.state, t2.state):
+        assert torch.equal(a.keys, b.keys) and torch.equal(a.digests, b.digests)
+        assert torch.equal(a.scores, b.scores)
