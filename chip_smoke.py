@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs fourteen phases; any failure exits non-zero:
+sm_90a (first use), then runs fifteen phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -285,6 +285,29 @@ sm_90a (first use), then runs fourteen phases; any failure exits non-zero:
    bytes the card holds for that step's parameters, adamw state and batch
    built there, and ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
    --shape train_4k --mesh single`` runs, its record and seconds printed.
+15. the last five kernel-backed wrappers of ``repro_torch/kernels/ops.py``,
+   at config B (2^27 slots, dim 32, dual bucket, LRU, batches of 2^20).
+   (a) On a table filled to λ 0.5 and then 1.0, ``find_kernel`` (one
+   find_scan) and ``find_composed_kernel`` (the pre-fusion find: one
+   digest_scan over both rows and one gather_rows) on resident keys and
+   on a half-miss mix: bit for bit each other and the public find, found
+   exactly the resident keys, their launches counted (the counts set to 0
+   before each call and read after), and each timed with the public find
+   (median of 5, CUDA events; one call, and a call in a stream of 10): the
+   fused find against the composed one, exp2's ``fused`` arm on the card;
+   then their kernels alone on the same hashed queries, and the hashing.  (b) Past λ 1.0 (a burst at the
+   coldest bucket, an eighth resident: the batches must report EVICTED
+   and REJECTED), ``upsert_kernel``, ``insert_and_evict_kernel`` and
+   ``find_or_insert_kernel`` against insert_or_assign, insert_and_evict
+   and find_or_insert on a ``snapshot()`` twin: statuses, eviction
+   streams, values, found flags and every plane bit for bit, launches
+   ROUTES' (claim_scan once where a batch has a miss lane), each wrapper
+   timed beside its op over 10 more batches, in turns (each first in half
+   of them), the twins still equal after.
+   (c) On 2^20-slot tables past λ 1.0, in both bucket modes, with LRU and
+   with custom scores: the five wrappers against ``merge.upsert`` on
+   ``plain_stages()`` and the plain locate and gather on a clone of the
+   state, bit for bit, over 2 steps.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -300,7 +323,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same fourteen phases at a tiny size on the
+result.  ``--rehearse`` runs the same fifteen phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -692,6 +715,11 @@ class Smoke:
         self.launches_zoo: dict[str, int] = {}
         self.launches_serve_lm: dict[str, int] = {}
         self.launches_stack: dict[str, int] = {}
+        self.launches_wrappers: dict[str, int] = {}
+        # phase 15 (a): (λ, kind) -> ms fused, composed, find; fused, composed in a
+        # stream; their kernels alone and the hashing, in a stream
+        self.wrapper_find: dict = {}
+        self.wrapper_upsert: dict = {}    # phase 15 (b): wrapper -> ms wrapper, its op
         self.train_cmp: dict[str, float] = {}
         # unsharded config B op times of phases 3-5 (ms), for phase 10's ratios
         self.unsharded: dict[str, float] = {}
@@ -866,7 +894,8 @@ class Smoke:
                   ("the LM training path with the HKV embedding", self.phase_lm),
                   ("the rest of the model zoo", self.phase_zoo),
                   ("LM serving", self.phase_serve_lm),
-                  ("the rest of the train stack", self.phase_train_stack)]
+                  ("the rest of the train stack", self.phase_train_stack),
+                  ("the last five kernel-backed wrappers", self.phase_wrappers)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -4004,7 +4033,8 @@ class Smoke:
         distinct target row (lanes aimed at one row carry the same row, as
         the path's init rows do); the row kernels are timed on the last
         launch's lanes and update_scan on its launch's, each beside its
-        bound (bytes over the HBM rate)."""
+        bound (bytes over the HBM rate), gather_rows beside index_select
+        and the mask, scatter_rows beside index_put_."""
         torch, runs = self.torch, self.sz.timed_runs
         r_tot, v = values.shape
         if self.dev.type != "cuda":
@@ -4036,6 +4066,10 @@ class Smoke:
         t_g = self.time_ms(lambda: self.ga.gather_rows(values, rows, mask, width), runs)
         rows_c = rows.clamp(0, r_tot - 1)
         t_gp = self.time_ms(lambda: self.ga.gather_rows_plain(values, rows_c, mask, width), 2)
+        # the library call for the same gather: index_select of the columns and the mask
+        cols = values[:, :w]
+        t_gl = self.time_ms(lambda: torch.where(mask[:, None], cols.index_select(0, rows_c), 0),
+                            runs)
         rows, mask, add = calls["scatter"][-1]
         n, m = rows.shape[0], int(mask.sum())
         s_bytes = n * (rows.element_size() + 1) + m * v * es * 2
@@ -4052,8 +4086,8 @@ class Smoke:
         log(f"{tag}: gather_rows ({len(calls['gather'])} launches), scatter_rows "
             f"({len(calls['scatter'])}) and update_scan (the first apply_grads) bit for bit their "
             f"plain versions at the run's lanes on its V = {v} plane; gather_rows at the last "
-            f"launch's {n} lanes, width {w}: {t_g:.4f} ms (plain {t_gp:.4f}, bound "
-            f"{ms(g_bytes):.4f} by bytes); scatter_rows ({m} of {n} lanes, "
+            f"launch's {n} lanes, width {w}: {t_g:.4f} ms (plain {t_gp:.4f}, library "
+            f"index_select + mask {t_gl:.4f}, bound {ms(g_bytes):.4f} by bytes); scatter_rows ({m} of {n} lanes, "
             f"{'add' if add else 'set'}): {t_s:.4f} ms (plain {t_sp:.4f}, library index_put_ "
             f"{t_sl:.4f}, bound {ms(s_bytes):.4f} by bytes); update_scan ({u['lanes']} lanes, {u['found']} found, {u['opt']} at dim "
             f"{u['dim']}): {u['ms']:.4f} ms (plain {u['plain_ms']:.4f}, bound {u['bound']:.4f} by "
@@ -5182,6 +5216,267 @@ class Smoke:
         del params, opt_state, batch
         self.free()
 
+    # phase 15 -------------------------------------------------------------
+
+    def phase_wrappers(self):
+        """The last five kernel-backed wrappers (see the module note)."""
+        gc.collect()
+        self.free()
+        table = self.config_b()
+        log(f"phase 15: config B table, capacity {table.capacity}, dim {table.dim}, dual bucket, "
+            f"lru, on {table.device}")
+        self.wrappers_find(table)
+        self.wrappers_upsert(table)
+        del table
+        self.free()
+        self.wrappers_plain()
+
+    def count_wrapper(self, fn):
+        """fn() with the counts set to 0 just before and read just after:
+        (its result, the launches), which join phase 15's counts."""
+        out, got = self.count_launches(fn)
+        for k, v in got.items():
+            self.launches_wrappers[k] = self.launches_wrappers.get(k, 0) + v
+        return out, got
+
+    def same(self, pairs, ctx: str) -> None:
+        """Each (got, want) pair of tensors equal bit for bit."""
+        for i, (g, w) in enumerate(pairs):
+            require(g.dtype == w.dtype and g.shape == w.shape and self.torch.equal(g, w),
+                    f"phase 15 {ctx}: output {i} differs ({g.dtype}{tuple(g.shape)} against "
+                    f"{w.dtype}{tuple(w.shape)})")
+
+    def same_state(self, a, b, ctx: str) -> None:
+        self.same(zip(a.planes, b.planes), f"{ctx}: the planes (keys, digests, scores, values)")
+        require((int(a.clock), int(a.epoch)) == (int(b.clock), int(b.epoch)),
+                f"phase 15 {ctx}: clocks differ")
+
+    def wrappers_find(self, table):
+        """(a) find_kernel against find_composed_kernel and the public find
+        at λ 0.5 and 1.0, on resident keys and a half-miss mix: bit for bit,
+        their launches, each timed in this call."""
+        from repro_torch.kernels import ops as kops
+
+        torch, sz, card = self.torch, self.sz, self.card_tag()
+        n, runs, cfg = sz.batch, sz.timed_runs, table.cfg
+        for lam in (0.5, 1.0):
+            self.fill(table, lam)
+            st = table.state
+            resident = self.resident(st.keys, n)
+            mix = torch.cat([resident[: n // 2], self.fresh_keys(n - n // 2)])
+            for kind, q in (("resident", resident), ("half-miss", mix)):
+                ctx = f"(a) λ={lam} {kind}"
+                (fv, ff), got_f = self.count_wrapper(lambda: kops.find_kernel(st, cfg, q))
+                (cv, cf), got_c = self.count_wrapper(lambda: kops.find_composed_kernel(st, cfg, q))
+                r = table.find(q)
+                if self.dev.type == "cuda":
+                    require(got_f == {"find_scan": 1} and got_c == {"digest_scan": 1,
+                                                                   "gather_rows": 1},
+                            f"phase 15 {ctx}: launches {got_f} (fused), {got_c} (composed)")
+                require(fv.shape == (n, DIM) and bool(torch.isfinite(fv).all()),
+                        f"phase 15 {ctx}: values of the wrong shape or not finite")
+                self.same(((cv, fv), (cf, ff)), f"{ctx}: composed against fused")
+                self.same(((fv, r.values), (ff, r.found)), f"{ctx}: fused against find")
+                want = torch.ones(n, dtype=torch.bool, device=self.dev)
+                if kind == "half-miss":
+                    want[n // 2:] = False
+                require(torch.equal(ff, want), f"phase 15 {ctx}: found is not the resident keys")
+                fused = lambda: kops.find_kernel(st, cfg, q)  # noqa: E731
+                composed = lambda: kops.find_composed_kernel(st, cfg, q)  # noqa: E731
+                t_f, t_c = self.time_ms(fused, runs), self.time_ms(composed, runs)
+                t_op = self.time_ms(lambda: table.find(q), runs)
+                # a stream of calls hides each call's host work behind the kernels
+                s_c = self.time_ms(composed, runs, calls=STREAM_CALLS)
+                s_f = self.time_ms(fused, runs, calls=STREAM_CALLS)
+                # the kernels alone on the same queries, hashed once: one find_scan
+                # against the dual digest_scan, the row arithmetic and gather_rows
+                p = self.find_mod.probe_keys(cfg, q)
+
+                def kernels_composed():
+                    slot, found, sel = self.ds.digest_scan(st.digests, st.keys, p.bucket1,
+                                                           p.digest, q, p.bucket2)
+                    row = torch.where(sel == 1, p.bucket2, p.bucket1) * cfg.slots_per_bucket + slot
+                    return self.ga.gather_rows(st.values, row, found.bool(), DIM)
+
+                k_f = self.time_ms(lambda: self.fs.find_scan(
+                    st.digests, st.keys, st.scores, st.values, p.bucket1, p.bucket2, p.digest, q,
+                    use_digest=cfg.use_digest), runs, calls=STREAM_CALLS)
+                k_c = self.time_ms(kernels_composed, runs, calls=STREAM_CALLS)
+                k_h = self.time_ms(lambda: self.find_mod.probe_keys(cfg, q), runs,
+                                   calls=STREAM_CALLS)
+                self.wrapper_find[(lam, kind)] = (t_f, t_c, t_op, s_f, s_c, k_f, k_c, k_h)
+                log(f"phase 15 {ctx} {card}: λ {table.load_factor():.6f}, {n} keys: find_kernel "
+                    f"{t_f:.4f} ms ({n / t_f / 1e6:.4f} B-KV/s; {got_f}), find_composed_kernel "
+                    f"{t_c:.4f} ms ({n / t_c / 1e6:.4f} B-KV/s; {got_c}), composed - fused "
+                    f"{t_c - t_f:+.4f} ms; the public find {t_op:.4f} ms; median of {runs}; a "
+                    f"call in a stream of {STREAM_CALLS}: fused {s_f:.4f} ms ({n / s_f / 1e6:.4f} "
+                    f"B-KV/s), composed {s_c:.4f} ms ({n / s_c / 1e6:.4f} B-KV/s), composed - "
+                    f"fused {s_c - s_f:+.4f} ms; the kernels alone in a stream: find_scan "
+                    f"{k_f:.4f} ms, digest_scan (dual) and gather_rows {k_c:.4f} ms, the hashing "
+                    f"(probe_keys) {k_h:.4f} ms; bit for bit each other and find, "
+                    f"{int(ff.sum())} found")
+
+    def wrappers_upsert(self, table):
+        """(b) The three upsert wrappers on the table past λ 1.0 against the
+        public ops on a snapshot() twin: outputs and the state bit for bit,
+        launches ROUTES', each timed beside its op."""
+        from repro_torch.kernels import ops as kops
+
+        torch, sz, card = self.torch, self.sz, self.card_tag()
+        n, runs, cfg = sz.batch, sz.timed_runs, table.cfg
+        twin = table.snapshot()
+        st = table.state
+
+        def batch():
+            # a burst at the bucket with the coldest entry (most of it lands
+            # there, past its slots) and an eighth resident
+            keys = self.fresh_keys(n)
+            coldest = int(self.u64.flip(st.scores).min(dim=1).values.argmin())
+            keys[: sz.hot_keys] = self.hot_bucket_keys(cfg.num_buckets, sz.hot_keys, coldest)
+            keys[n - n // 8:] = self.resident(st.keys, n // 8, unique=True)
+            return keys, self.values(n)
+
+        def outputs(name, r):
+            if name == "find_or_insert_kernel":
+                return r[3], (r[1], r[2])
+            if name == "insert_and_evict_kernel":
+                return r.status, tuple(r.evicted)
+            return r.status, ()
+
+        def op_outputs(op, r):
+            if op == "find_or_insert":
+                return r.status, (r.values, r.found)
+            if op == "insert_and_evict":
+                return r.status, tuple(r.evicted)
+            return r.status, ()
+
+        pairs = (("upsert_kernel", "insert_or_assign"),
+                 ("insert_and_evict_kernel", "insert_and_evict"),
+                 ("find_or_insert_kernel", "find_or_insert"))
+        hist = torch.zeros(5, dtype=torch.int64)
+        for name, op in pairs:
+            keys, vals = batch()
+            res, got_w = self.count_wrapper(lambda: getattr(kops, name)(st, cfg, keys, vals))
+            ref, got_o = self.count_launches(lambda: getattr(twin, op)(keys, vals))
+            status, outs = outputs(name, res)
+            want_status, want_outs = op_outputs(op, ref)
+            ctx = f"(b) {name}"
+            self.same(((status, want_status), *zip(outs, want_outs)), f"{ctx} against {op}")
+            want = self.route(ROUTES[op][2], self.has_miss(status))
+            if self.dev.type == "cuda":
+                require(got_w == want and got_o == want,
+                        f"phase 15 {ctx}: launches {got_w}, {op} {got_o}, the route is {want}")
+            counts = torch.bincount(status.long().cpu(), minlength=5)
+            hist += counts
+            log(f"phase 15 {ctx} past λ 1.0 {card}: " + ", ".join(
+                f"{STATUS_NAMES[i]} {int(c)}" for i, c in enumerate(counts))
+                + f"; launches {got_w}, equal to {op}'s on the twin")
+        require(hist[3] > 0 and hist[4] > 0, f"phase 15 (b): no EVICTED or no REJECTED: {hist}")
+        self.same_state(st, twin.state, "(b) after the three wrappers")
+        for name, op in pairs:
+            tw, to = [], []
+            for i in range(2 * runs):
+                # in turns: the second call's host work overlaps the first's kernels
+                keys, vals = batch()
+                wrapper = lambda: getattr(kops, name)(st, cfg, keys, vals)  # noqa: E731
+                public = lambda: getattr(twin, op)(keys, vals)  # noqa: E731
+                self.sync()
+                a = self.mark()
+                first = wrapper() if i % 2 == 0 else public()
+                b = self.mark()
+                second = public() if i % 2 == 0 else wrapper()
+                c = self.mark()
+                self.sync()
+                res, ref = (first, second) if i % 2 == 0 else (second, first)
+                ab, bc = self.elapsed_ms(a, b), self.elapsed_ms(b, c)
+                tw.append(ab if i % 2 == 0 else bc)
+                to.append(bc if i % 2 == 0 else ab)
+                self.same(((outputs(name, res)[0], op_outputs(op, ref)[0]),),
+                          f"(b) {name}: a timed batch's statuses")
+                hist += torch.bincount(outputs(name, res)[0].long().cpu(), minlength=5)
+            t_w, t_o = statistics.median(tw), statistics.median(to)
+            self.wrapper_upsert[name] = (t_w, t_o)
+            log(f"phase 15 (b) {name} {card}: {t_w:.4f} ms ({n / t_w / 1e6:.4f} B-KV/s) against "
+                f"{op} {t_o:.4f} ms ({n / t_o / 1e6:.4f} B-KV/s), ratio {t_w / t_o:.4f}; median "
+                f"of {2 * runs} batches of {n} from λ {table.load_factor():.6f}, each first in "
+                f"half of them")
+        self.same_state(st, twin.state, "(b) after the timed batches")
+        log(f"phase 15 (b): the wrappers and the ops' twin equal in every plane; statuses over "
+            f"all batches: " + ", ".join(f"{STATUS_NAMES[i]} {int(c)}" for i, c in enumerate(hist)))
+        del twin
+        self.free()
+
+    def wrappers_plain(self):
+        """(c) All five wrappers on a 2^20-slot table past λ 1.0 against
+        merge.upsert on plain_stages() and the plain locate and gather, in
+        both bucket modes, with LRU and custom scores."""
+        from repro_torch import HKVTable
+        from repro_torch.core import merge
+        from repro_torch.kernels import ops as kops
+
+        torch, sz = self.torch, self.sz
+        n, plain = sz.small_batch, merge.plain_stages()
+        fm = self.find_mod
+        for dual in (False, True):
+            for policy in ("lru", "custom"):
+                ctx = f"(c) {'dual' if dual else 'single'} {policy}"
+                t = HKVTable.create(capacity=sz.small_capacity, dim=DIM,
+                                    buckets_per_key=2 if dual else 1, score_policy=policy,
+                                    device=self.dev)
+                cfg = t.cfg
+
+                def scores():
+                    if policy != "custom":
+                        return None
+                    return torch.randint(1, 2**20, (n,), generator=self.gen, device=self.dev)
+
+                while t.load_factor() < 1.0:
+                    t.insert_or_assign(self.fresh_keys(n), self.values(n), scores())
+                st, p = t.state, t.state.clone()
+                hist = torch.zeros(5, dtype=torch.int64)
+                for step in range(2):
+                    keys = self.fresh_keys(n)
+                    keys[n - n // 4:] = self.resident(st.keys, n // 4, unique=True)
+                    vals, c = self.values(n), scores()
+                    a = kops.upsert_kernel(st, cfg, keys, vals, custom_scores=c)
+                    b = merge.upsert(p, cfg, keys, vals, custom_scores=c, stages=plain)
+                    self.same(((a.status, b.status), (a.found, b.found), *zip(a.loc, b.loc)),
+                              f"{ctx} step {step} upsert_kernel")
+                    hist += torch.bincount(a.status.long().cpu(), minlength=5)
+                    keys = torch.cat([self.fresh_keys(n - n // 4),
+                                      self.resident(st.keys, n // 4, unique=True)])
+                    a = kops.insert_and_evict_kernel(st, cfg, keys, vals, custom_scores=c)
+                    b = merge.upsert(p, cfg, keys, vals, custom_scores=c, return_evicted=True,
+                                     stages=plain)
+                    self.same(((a.status, b.status), *zip(a.evicted, b.evicted)),
+                              f"{ctx} step {step} insert_and_evict_kernel")
+                    hist += torch.bincount(a.status.long().cpu(), minlength=5)
+                    mix = torch.cat([self.resident(st.keys, n // 2), self.fresh_keys(n - n // 2)])
+                    _, av, af, ast = kops.find_or_insert_kernel(st, cfg, mix, vals, custom_scores=c)
+                    b = merge.upsert(p, cfg, mix, vals, custom_scores=c, write_hit_values=False,
+                                     stages=plain)
+                    bv = torch.where(b.loc.found[:, None], fm.gather_values(p, b.loc, cfg.dim),
+                                     vals)
+                    self.same(((ast, b.status), (af, b.found), (av, bv)),
+                              f"{ctx} step {step} find_or_insert_kernel")
+                    hist += torch.bincount(ast.long().cpu(), minlength=5)
+                    q = torch.cat([self.resident(st.keys, n // 2), self.fresh_keys(n - n // 2)])
+                    q[::97] = self.u64.EMPTY
+                    loc = fm.locate(p, cfg, q)
+                    pv = fm.gather_values(p, loc, cfg.dim)
+                    for fn in (kops.find_kernel, kops.find_composed_kernel):
+                        v, f = fn(st, cfg, q)
+                        self.same(((v, pv), (f, loc.found)), f"{ctx} step {step} {fn.__name__}")
+                    self.same_state(st, p, f"{ctx} step {step}")
+                require(hist[3] > 0 and (policy == "lru" or hist[4] > 0),
+                        f"phase 15 {ctx}: statuses {hist.tolist()}: the batches did not evict"
+                        + ("" if policy == "lru" else " or reject"))
+                log(f"phase 15 {ctx}: the five wrappers bit for bit the plain closure, locate and "
+                    f"gather over 2 steps of {n} keys from λ {t.load_factor():.6f}; statuses "
+                    + ", ".join(f"{STATUS_NAMES[i]} {int(x)}" for i, x in enumerate(hist)))
+                del t, st, p
+        self.free()
+
     def report(self):
         for name, st in sorted(self.stats.items()):
             log(f"parity {name}: bit-identical to the plain version in {len(st['checks'])} "
@@ -5276,6 +5571,14 @@ class Smoke:
             f"{by}; at V=32 (phase 1, λ=1.0) {sr['ms@1.0']:.4f} ms, the stores alone "
             f"{sr['fill_ms@1.0']:.4f} ms; on the bfloat16 V=32 plane {sr['ms_bf16@1.0']:.4f} ms, "
             f"library {sr['library_ms_bf16@1.0']:.4f} ms")
+        for (lam, kind), (t_f, t_c, t_op, s_f, s_c, k_f, k_c, k_h) in self.wrapper_find.items():
+            log(f"phase 15 fused against composed find, λ={lam} {kind}: find_kernel {t_f:.4f} ms, "
+                f"find_composed_kernel {t_c:.4f} ms ({t_c / t_f:.4f}x), find {t_op:.4f} ms; in a "
+                f"stream of {STREAM_CALLS} {s_f:.4f} against {s_c:.4f} ms ({s_c / s_f:.4f}x); the "
+                f"kernels alone {k_f:.4f} against {k_c:.4f} ms ({k_c / k_f:.4f}x), hashing "
+                f"{k_h:.4f} ms")
+        for name, (t_w, t_o) in self.wrapper_upsert.items():
+            log(f"phase 15 {name}: {t_w:.4f} ms against its op's {t_o:.4f} ms")
         for lam in (0.5, 1.0):
             log(f"claim_scan λ={lam}: every query on one cached row {cs[f'ms_one_row@{lam}']:.4f} ms "
                 f"against {cs[f'ms@{lam}']:.4f} ms spread over the table; its own s*s compare loop "
@@ -5343,7 +5646,8 @@ class Smoke:
             # find_scan_many: phase 9's counted find_many_kernel call; and
             # each with the sharded table's phase 10, the LM paths' phases
             # 11 and 12, LM serving's phase 13 (find_scan, the HKV
-            # embedding's lookup_serve) and the sharded step of phase 14
+            # embedding's lookup_serve), the sharded step of phase 14 and
+            # the wrappers' counted calls of phase 15
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
@@ -5354,7 +5658,8 @@ class Smoke:
                              + self.launches_lm.get(name, 0)
                              + self.launches_zoo.get(name, 0)
                              + self.launches_serve_lm.get(name, 0)
-                             + self.launches_stack.get(name, 0)),
+                             + self.launches_stack.get(name, 0)
+                             + self.launches_wrappers.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

@@ -5,6 +5,12 @@
                       host-memory value plane ('hmem') locate_kernel and
                       one gather_rows launch over the host link instead, as
                       the reference routes that tier;
+  find_kernel         the kernel-backed `find`: find_fused_kernel's rows cut
+                      to the embedding columns, and found;
+  find_composed_kernel  the pre-fusion find: locate_kernel and one
+                      gather_rows launch (two launches; the reference's
+                      three, a digest_scan a candidate bucket), the fused
+                      find's launch-count and parity baseline;
   find_many_kernel    T tables of one geometry in ONE find_scan launch
                       (the multi-table entry, ``find_scan_many``): one
                       FusedFind a table, equal to T find_fused_kernel calls;
@@ -44,7 +50,19 @@
                       lane) or one digest_scan (single), one claim_scan (on
                       the miss lanes; none without a miss) and two
                       scatter_rows launches; return_evicted adds one
-                      gather_rows.
+                      gather_rows;
+  upsert_kernel       ``core.merge.upsert`` on kernel_stages, in place
+                      (insert_or_assign; insert_and_evict_kernel with the
+                      eviction stream);
+  find_or_insert_kernel  upsert_kernel without hit writes, then the rows
+                      read back at the closure's post-op locations through
+                      gather_rows_kernel (either tier's plane);
+  ref                 the kernels' oracles under the reference's names
+                      (``kernels/ref.py``: the plain versions).
+
+Keys are the normalized int64 tensor (normalizing keys is the handle's
+job).  The port has one kernel a computation and no interpret mode, so
+the wrappers take no ``variant=`` or ``interpret=``.
 
 The wrappers run their plain versions on CPU tensors, so the CPU tests
 reach this module too.
@@ -52,7 +70,7 @@ reach this module too.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -60,6 +78,7 @@ from repro_torch.core import find as find_mod
 from repro_torch.core import merge as merge_mod
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.kernels import ref  # noqa: F401  (re-exported: the oracles)
 from repro_torch.kernels.digest_scan import digest_scan
 from repro_torch.kernels.find_scan import find_scan, find_scan_many
 from repro_torch.kernels.gather import gather_rows
@@ -286,3 +305,62 @@ def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStage
                                   victim_at_rank=victim_at_rank,
                                   gather_values=gather_values,
                                   scatter_values=scatter_values)
+
+
+def find_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor):
+    """Kernel-backed `find`: (values [N, dim], found [N]) from one fused
+    find_scan launch (on 'hmem', find_fused_kernel's locate and gather)."""
+    r = find_fused_kernel(state, cfg, keys)
+    return r.values[:, :cfg.dim], r.found
+
+
+def find_composed_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor):
+    """The pre-fusion find, kept as the fused pass's launch-count and
+    parity baseline (exp2's `fused` arm): locate_kernel, then one
+    gather_rows launch of the embedding columns at the located rows.  Two
+    launches; the reference locates with one digest_scan a candidate
+    bucket, three in dual mode.  Equal to `find_kernel`."""
+    loc = locate_kernel(state, cfg, keys)
+    rows = loc.row.clamp(0, state.values.shape[0] - 1)
+    return gather_rows(state.values, rows, loc.found, cfg.dim), loc.found
+
+
+def upsert_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Tensor,
+                  *, custom_scores: Optional[torch.Tensor] = None,
+                  write_hit_values: bool = True, update_hit_scores: bool = True,
+                  insert_values: Optional[torch.Tensor] = None,
+                  return_evicted: bool = False) -> merge_mod.MergeResult:
+    """``core.merge.upsert`` on the kernel stages, in place: the same
+    closure, so statuses, eviction streams and the state equal the plain
+    path's.  `values` (and `insert_values`) are full-width rows, as the
+    closure takes them."""
+    return merge_mod.upsert(state, cfg, keys, values, custom_scores=custom_scores,
+                            write_hit_values=write_hit_values,
+                            update_hit_scores=update_hit_scores, insert_values=insert_values,
+                            return_evicted=return_evicted,
+                            stages=kernel_stages(cfg, state.keys.device))
+
+
+def insert_and_evict_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
+                            values: torch.Tensor, *,
+                            custom_scores: Optional[torch.Tensor] = None
+                            ) -> merge_mod.MergeResult:
+    """insert_or_assign on the kernel stages, handing back the displaced
+    entries batch-aligned (one gather_rows launch more)."""
+    return upsert_kernel(state, cfg, keys, values, custom_scores=custom_scores,
+                         return_evicted=True)
+
+
+def find_or_insert_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
+                          init_values: torch.Tensor, *,
+                          custom_scores: Optional[torch.Tensor] = None):
+    """Kernel-backed find_or_insert: (state, values [N, dim], found,
+    status) with ``core.ops.find_or_insert``'s meaning.  The closure's own
+    probe gives `found` and publishes each key's post-op location, so the
+    readback is one gather_rows launch there: a key found or admitted by
+    this batch reads its stored row, a rejected one the caller's init row."""
+    res = upsert_kernel(state, cfg, keys, init_values, custom_scores=custom_scores,
+                        write_hit_values=False)
+    vals = gather_rows_kernel(res.state, res.loc, cfg.dim)
+    vals = torch.where(res.loc.found[:, None], vals, init_values[:, :cfg.dim].to(vals.dtype))
+    return res.state, vals, res.found, res.status

@@ -1145,3 +1145,91 @@ def test_sharded_table_on_the_card_matches_plain(dev, tiered):
         tp.apply_grads(toks, grads)
         same_states(f"train step {step}", 1e-5)
     same(tk.lookup(toks, train=False)[1], tp.lookup(toks, train=False)[1], "serve", 1e-5)
+
+
+def _wrapper_table(dev, dual, policy="lru", capacity=32 * 128):
+    """A card table of either mode driven past λ = 1.0 on the plain path,
+    and its CPU copy."""
+    from repro_torch import convert
+
+    g = np.random.default_rng(11 + dual)
+    t = repro_torch.HKVTable.create(capacity=capacity, dim=32, buckets_per_key=2 if dual else 1,
+                                    score_policy=policy, device=dev, backend="plain")
+    for _ in range(4):
+        keys = g.integers(0, 2**63, size=capacity // 2, dtype=np.uint64)
+        scores = (g.integers(1, 1000, size=keys.size, dtype=np.uint64)
+                  if policy == "custom" else None)
+        t.insert_or_assign(keys, torch.randn(capacity // 2, 32, device=dev), scores)
+    return t, convert.state_from_arrays(convert.state_to_arrays(t.state), "cpu")
+
+
+def _same_state(a, b, ctx):
+    for name, x, y in zip(("keys", "digests", "scores", "values"), a.planes, b.planes):
+        assert torch.equal(x.cpu(), y.cpu()), f"{ctx}: {name}"
+    assert (int(a.clock), int(a.epoch)) == (int(b.clock), int(b.epoch)), ctx
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_find_wrappers_on_the_card_match_the_cpu(dev, dual):
+    """find_kernel (one find_scan) and find_composed_kernel (one digest_scan
+    and one gather_rows) on the card against their CPU plain path and each
+    other."""
+    from repro_torch.kernels import ops as kops
+
+    t, cpu = _wrapper_table(dev, dual)
+    q, _ = _queries(t)
+    want = kops.find_kernel(cpu, t.cfg, q.cpu())
+    for fn, route in ((kops.find_kernel, {"find_scan": 1}),
+                      (kops.find_composed_kernel, {"digest_scan": 1, "gather_rows": 1})):
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        got = fn(t.state, t.cfg, q)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == route, fn.__name__
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y), fn.__name__
+        assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("policy", ["lru", "custom"])
+@pytest.mark.parametrize("wrapper", ["upsert_kernel", "insert_and_evict_kernel",
+                                     "find_or_insert_kernel"])
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_upsert_wrappers_on_the_card_match_the_cpu(dev, dual, wrapper, policy):
+    """The three upsert wrappers past λ 1.0 on the card against the same
+    wrapper on the CPU copy: every output and the state bit for bit, the
+    launches the ops' routes (claim_scan once: the batch has misses)."""
+    from repro_torch.kernels import ops as kops
+
+    t, cpu = _wrapper_table(dev, dual, policy)
+    q, _ = _queries(t)
+    vals = torch.randn(q.numel(), 32, device=dev)
+    kw = {}
+    if policy == "custom":
+        kw["custom_scores"] = torch.randint(1, 2000, (q.numel(),), device=dev)
+    fn = getattr(kops, wrapper)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    got = fn(t.state, t.cfg, q, vals, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    want = fn(cpu, t.cfg, q.cpu(), vals.cpu(), **{k: v.cpu() for k, v in kw.items()})
+    route = {"upsert_probe": 2} if dual else {"digest_scan": 1}
+    route.update(claim_scan=1, scatter_rows=2)
+    if wrapper == "insert_and_evict_kernel":
+        route["gather_rows"] = 1
+    if wrapper == "find_or_insert_kernel":
+        route.update(scatter_rows=1, gather_rows=1)
+        _same_state(got[0], want[0], wrapper)
+        for x, y in zip(got[1:], want[1:]):
+            assert torch.equal(x.cpu(), y), wrapper
+        status = got[3]
+    else:
+        _same_state(got.state, want.state, wrapper)
+        for f in ("status", "found"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        for x, y in zip((*got.evicted, *got.loc), (*want.evicted, *want.loc)):
+            assert torch.equal(x.cpu(), y), wrapper
+        status = got.status
+    assert launches == route
+    assert bool((status == 3).any()) and bool((status == 4).any() or policy == "lru")
