@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # from the repository root, one card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-sm_90a (first use), then runs fifteen phases; any failure exits non-zero:
+sm_90a (first use), then runs sixteen phases; any failure exits non-zero:
 
 1. kernel vs plain, at the main path's shapes: on a table of the paper's
    config B (2^27 slots, dim 32, float32 values, dual bucket, LRU) filled
@@ -308,6 +308,29 @@ sm_90a (first use), then runs fifteen phases; any failure exits non-zero:
    with custom scores: the five wrappers against ``merge.upsert`` on
    ``plain_stages()`` and the plain locate and gather on a clone of the
    state, bit for bit, over 2 steps.
+16. float16 value planes and find_or_insert's promoted readback, with the
+   counts of each 'auto' op set to 0 just before and read just after
+   (checked against ROUTES and TRAIN_ROUTES).  (a) On config B at float16
+   (2^27 slots, dim 32, dual bucket, LRU: 8.6 GB of values) filled to λ
+   0.5 and then 1.0, find_scan on find's 2^20 queries; past λ 1.0
+   gather_rows and scatter_rows (set and add) on the table's own plane;
+   and update_scan's four optimizers on float16 planes of a 2^20-slot
+   table (V = 32, 33 and 64 at dim 32): each bit for bit its plain
+   version, timed beside its bound and beside phase 1's float32 and
+   bfloat16 times.  (b) At λ 0.5 and 1.0, find and insert_or_assign of
+   2^20 keys on the table and on a plain ``snapshot()`` twin; past λ 1.0
+   (a burst at the coldest bucket, an eighth resident) insert_or_assign
+   and insert_and_evict: statuses (EVICTED and REJECTED among them),
+   eviction streams and every plane bit for bit.  (c) Phase 5's 5 DLRM
+   steps through ``HKVEmbedding(value_dtype=torch.float16)`` of config B
+   (rowwise_adagrad, V = 33) prefilled to λ 1.0, the loss finite, each
+   step's parts beside phase 5's; its optimizer's eps is F16_EPS, since
+   config B's 1e-10 is 0 in float16.  (d) find_or_insert with float32 init
+   rows past λ 1.0 on the float16 table and on a bfloat16 config B table:
+   float32 rows, bit for bit the plain twin's, the rejected lanes' init
+   rows unrounded and the other rows stored ones widened exactly.  (e) A
+   float64 plane on backend 'auto' is refused (ValueError) before an
+   upsert writes a key.
 
 Phase 1 also holds update_scan (all four optimizers, both bucket modes; V
 = 32, 33 and 64 at dim 32, the planes other than config B's own value
@@ -323,7 +346,7 @@ backends.
 The last lines are the card's name and power limit, a JSON object with
 one entry per kernel, and the JSON result line.  Without a card (or
 without the repository around it) the script exits non-zero and prints no
-result.  ``--rehearse`` runs the same fifteen phases at a tiny size on the
+result.  ``--rehearse`` runs the same sixteen phases at a tiny size on the
 CPU through the plain versions (phases 6 to 8 with their planes as plain
 CPU tensors, and without the launch and host-link checks, which need the
 card), to check the script itself; it never prints a result and exits
@@ -626,6 +649,10 @@ TINY = Sizes(capacity=2**12, batch=2**9, small_capacity=2**11, small_batch=2**9,
              serve_batch=2, serve_prompt=28, serve_steps=4, serve_max_len=32,
              serve_engine_prompt=8)
 DIM = 32
+# phase 16 (c)'s optimizer eps: float16's smallest normal.  Config B's eps
+# (1e-10) rounds to 0 in float16, in the reference as in the port, so a row
+# whose squared gradients underflow (a DLRM step's are ~1e-9) divides by 0
+F16_EPS = 2.0 ** -14
 
 
 def log(msg: str) -> None:
@@ -716,6 +743,9 @@ class Smoke:
         self.launches_serve_lm: dict[str, int] = {}
         self.launches_stack: dict[str, int] = {}
         self.launches_wrappers: dict[str, int] = {}
+        self.launches_f16: dict[str, int] = {}
+        # each DLRM step's parts (ms) by phase tag: phase 16 against phase 5
+        self.step_parts: dict[str, list] = {}
         # phase 15 (a): (λ, kind) -> ms fused, composed, find; fused, composed in a
         # stream; their kernels alone and the hashing, in a stream
         self.wrapper_find: dict = {}
@@ -895,7 +925,8 @@ class Smoke:
                   ("the rest of the model zoo", self.phase_zoo),
                   ("LM serving", self.phase_serve_lm),
                   ("the rest of the train stack", self.phase_train_stack),
-                  ("the last five kernel-backed wrappers", self.phase_wrappers)]
+                  ("the last five kernel-backed wrappers", self.phase_wrappers),
+                  ("float16 planes and the promoted readback", self.phase_f16)]
         for i, (what, phase) in enumerate(phases, 1):
             if self.only and i not in self.only:
                 continue
@@ -907,12 +938,13 @@ class Smoke:
             return
         self.report()
 
-    def config_b(self, backend="auto", buckets_per_key=2):
+    def config_b(self, backend="auto", buckets_per_key=2, value_dtype=None):
         from repro_torch import HKVTable
 
         return HKVTable.create(capacity=self.sz.capacity, dim=DIM,
-                               buckets_per_key=buckets_per_key,
-                               score_policy="lru", device=self.dev, backend=backend)
+                               buckets_per_key=buckets_per_key, score_policy="lru",
+                               value_dtype=value_dtype or self.torch.float32,
+                               device=self.dev, backend=backend)
 
     def fill(self, table, target: float):
         """insert_or_assign fresh batches until the load factor reaches
@@ -2126,6 +2158,7 @@ class Smoke:
                     self.unsharded.setdefault(f"{k} steps", []).append(ms[k])
             require(bool(torch.isfinite(loss)), f"{tag} step {step}: loss is not finite")
             losses.append(float(loss))
+            self.step_parts.setdefault(tag, []).append(ms)
             uniq, g_sum = emb.sum_grads(toks, grads)
             t_sum = self.time_ms(lambda: emb.sum_grads(toks, grads), 1)
             trained = int((table.hot if tiered else table).contains(uniq).sum())
@@ -5239,17 +5272,18 @@ class Smoke:
             self.launches_wrappers[k] = self.launches_wrappers.get(k, 0) + v
         return out, got
 
-    def same(self, pairs, ctx: str) -> None:
+    def same(self, pairs, ctx: str, phase: int = 15) -> None:
         """Each (got, want) pair of tensors equal bit for bit."""
         for i, (g, w) in enumerate(pairs):
             require(g.dtype == w.dtype and g.shape == w.shape and self.torch.equal(g, w),
-                    f"phase 15 {ctx}: output {i} differs ({g.dtype}{tuple(g.shape)} against "
-                    f"{w.dtype}{tuple(w.shape)})")
+                    f"phase {phase} {ctx}: output {i} differs ({g.dtype}{tuple(g.shape)} "
+                    f"against {w.dtype}{tuple(w.shape)})")
 
-    def same_state(self, a, b, ctx: str) -> None:
-        self.same(zip(a.planes, b.planes), f"{ctx}: the planes (keys, digests, scores, values)")
+    def same_state(self, a, b, ctx: str, phase: int = 15) -> None:
+        self.same(zip(a.planes, b.planes), f"{ctx}: the planes (keys, digests, scores, values)",
+                  phase)
         require((int(a.clock), int(a.epoch)) == (int(b.clock), int(b.epoch)),
-                f"phase 15 {ctx}: clocks differ")
+                f"phase {phase} {ctx}: clocks differ")
 
     def wrappers_find(self, table):
         """(a) find_kernel against find_composed_kernel and the public find
@@ -5477,6 +5511,267 @@ class Smoke:
                 del t, st, p
         self.free()
 
+    # phase 16 -------------------------------------------------------------
+
+    def phase_f16(self):
+        """float16 planes and the promoted readback (see the module note)."""
+        torch = self.torch
+        gc.collect()
+        self.free()
+        self.launches_f16 = {}
+        table = self.config_b(value_dtype=torch.float16)
+        log(f"phase 16: config B table, capacity {table.capacity}, dim {table.dim}, "
+            f"{table.state.values.dtype} values, dual bucket, lru, on {table.device}")
+        for lam in (0.5, 1.0):
+            t0 = time.perf_counter()
+            self.fill(table, lam)
+            log(f"phase 16: λ = {table.load_factor():.6f} (fill {time.perf_counter() - t0:.2f} s)")
+            resident = self.resident(table.state.keys, self.sz.batch, unique=True)
+            self.f16_find_scan(table, resident, lam)
+            self.f16_ops(table, resident, lam)
+        twin = table.snapshot().with_backend("plain")
+        self.f16_past(table, twin)
+        self.f16_readback(table, twin)
+        del twin
+        self.free()
+        # (a) gather_rows and scatter_rows on the table's own plane, last:
+        # the scatter writes rows of it
+        self.compare_gather(table.state.values, "1.0 f16")
+        self.compare_scatter(table.state.values, "1.0 f16", "_f16@1.0")
+        del table
+        self.free()
+        # (d) on a bfloat16 config B table
+        table = self.config_b(value_dtype=torch.bfloat16)
+        self.fill(table, 1.0)
+        twin = table.snapshot().with_backend("plain")
+        self.f16_past(table, twin, ops=("insert_or_assign",))
+        self.f16_readback(table, twin)
+        del table, twin
+        self.free()
+        self.f16_update()
+        self.f16_train()
+        self.f16_refuse()
+        self.f16_report()
+
+    def f16_op(self, table, twin, op, *args, ctx: str):
+        """`op` on the table (backend 'auto'; its launches counted from 0,
+        held against ROUTES' and added to phase 16's) and on its plain
+        twin: (result, twin's result)."""
+        res, got = self.count_launches(lambda: getattr(table, op)(*args))
+        ref = getattr(twin, op)(*args)
+        for k, v in got.items():
+            self.launches_f16[k] = self.launches_f16.get(k, 0) + v
+        if self.dev.type == "cuda":
+            want = ROUTES[op][2]
+            if "claim_scan" in want:
+                want = self.route(want, self.has_miss(res.status))
+            require(got == want, f"phase 16 {ctx}: launches {got}, the route is {want}")
+        return res, ref
+
+    def f16_find_scan(self, table, resident, lam):
+        """(a) find_scan on the float16 plane against its plain version on
+        find's queries (half resident, half fresh, some EMPTY), timed beside
+        its bound."""
+        st, cfg = table.state, table.cfg
+        tag = f"{lam} f16"
+        q = self.queries(resident, self.sz.batch)
+        p = self.find_mod.probe_keys(cfg, q)
+        args = (st.digests, st.keys, st.scores, st.values, p.bucket1, p.bucket2, p.digest, q)
+        want = self.fs.find_scan_plain(*args)
+        self.check_equal("find_scan", self.fs.find_scan(*args), want, tag)
+        self.record("find_scan", **{
+            f"ms@{tag}": self.time_ms(lambda: self.fs.find_scan(*args), self.sz.timed_runs),
+            f"ms_stream@{tag}": self.time_ms(lambda: self.fs.find_scan(*args), self.sz.timed_runs,
+                                             calls=STREAM_CALLS),
+            f"plain_ms@{tag}": self.time_ms(lambda: self.fs.find_scan_plain(*args), 2),
+            **self.find_work(st, p, q, want, tag, st.values)})
+
+    def f16_ops(self, table, resident, lam):
+        """(b) find and insert_or_assign of a batch on the table and on a
+        plain snapshot() twin: values, found flags, statuses and every
+        plane bit for bit, launches ROUTES'."""
+        torch, n = self.torch, self.sz.batch
+        twin = table.snapshot().with_backend("plain")
+        mix = torch.cat([resident[: n // 2], self.fresh_keys(n - n // 2)])
+        ctx = f"(b) λ={lam} find"
+        r, w = self.f16_op(table, twin, "find", mix, ctx=ctx)
+        self.same(((r.values, w.values), (r.found, w.found)), ctx, 16)
+        require(r.values.dtype == torch.float16 and int(r.found.sum()) == n // 2
+                and bool(r.found[: n // 2].all()), f"phase 16 {ctx}: not the resident keys")
+        keys = torch.cat([resident[: n // 4], self.fresh_keys(n - n // 4)])
+        ctx = f"(b) λ={lam} insert_or_assign"
+        r, w = self.f16_op(table, twin, "insert_or_assign", keys,
+                           self.values(n).to(torch.float16), ctx=ctx)
+        self.same(((r.status, w.status),), ctx, 16)
+        self.same_state(table.state, twin.state, ctx, 16)
+        log(f"phase 16 {ctx}: " + self.f16_hist(r.status)
+            + "; find and insert_or_assign bit for bit the plain twin, launches ROUTES'")
+        del twin
+        self.free()
+
+    @staticmethod
+    def f16_hist(status) -> str:
+        counts = status.long().cpu().bincount(minlength=5)
+        return ", ".join(f"{STATUS_NAMES[i]} {int(c)}" for i, c in enumerate(counts))
+
+    def f16_burst(self, table):
+        """A batch past λ 1.0: a burst at the bucket with the coldest entry
+        (past its slots) and an eighth resident."""
+        sz, st = self.sz, table.state
+        n = sz.batch
+        keys = self.fresh_keys(n)
+        coldest = int(self.u64.flip(st.scores).min(dim=1).values.argmin())
+        keys[: sz.hot_keys] = self.hot_bucket_keys(table.cfg.num_buckets, sz.hot_keys, coldest)
+        keys[n - n // 8:] = self.resident(st.keys, n // 8, unique=True)
+        return keys
+
+    def f16_past(self, table, twin, ops=("insert_or_assign", "insert_and_evict")):
+        """(b) past λ 1.0: `ops` on a burst each, on the table and its
+        plain twin: statuses, eviction streams and every plane bit for bit;
+        the statuses must hold EVICTED and REJECTED."""
+        n, dt = self.sz.batch, table.state.values.dtype
+        hist = self.torch.zeros(5, dtype=self.torch.int64)
+        for op in ops:
+            ctx = f"(b) {str(dt).removeprefix('torch.')} past λ 1.0 {op}"
+            vals = self.values(n).to(dt)
+            r, w = self.f16_op(table, twin, op, self.f16_burst(table), vals, ctx=ctx)
+            streams = tuple(zip(r.evicted, w.evicted)) if op == "insert_and_evict" else ()
+            self.same(((r.status, w.status), *streams), ctx, 16)
+            self.same_state(table.state, twin.state, ctx, 16)
+            hist += r.status.long().cpu().bincount(minlength=5)
+            log(f"phase 16 {ctx}: {self.f16_hist(r.status)}; bit for bit the plain twin"
+                + (", eviction streams included" if streams else ""))
+        require(hist[3] > 0 and hist[4] > 0, f"phase 16 past λ 1.0 {dt}: no EVICTED or no "
+                f"REJECTED: {hist.tolist()}")
+
+    def f16_readback(self, table, twin):
+        """(d) find_or_insert with float32 init rows on the table past λ
+        1.0 and on its plain twin: float32 rows, bit for bit; a rejected
+        lane's init row unchanged, every other row a stored one widened
+        exactly; the planes bit for bit."""
+        torch, n = self.torch, self.sz.batch
+        dt = table.state.values.dtype
+        ctx = f"(d) {str(dt).removeprefix('torch.')} find_or_insert with float32 init rows"
+        init = self.values(n)
+        r, w = self.f16_op(table, twin, "find_or_insert", self.f16_burst(table), init, ctx=ctx)
+        require(r.values.dtype == w.values.dtype == torch.float32,
+                f"phase 16 {ctx}: rows of {r.values.dtype} and {w.values.dtype}")
+        self.same(((r.values, w.values), (r.found, w.found), (r.status, w.status)), ctx, 16)
+        self.same_state(table.state, twin.state, ctx, 16)
+        rej = r.status == STATUS_NAMES.index("rejected")
+        kept = r.values[~rej]
+        require(bool(rej.any()) and torch.equal(r.values[rej], init[rej]),
+                f"phase 16 {ctx}: the rejected lanes' rows are not the init rows")
+        require(torch.equal(kept.to(dt).float(), kept) and bool(torch.isfinite(kept).all()),
+                f"phase 16 {ctx}: a stored row did not come back widened exactly")
+        log(f"phase 16 {ctx} past λ {table.load_factor():.6f}: {self.f16_hist(r.status)}; "
+            f"float32 rows bit for bit the plain twin's, {int(rej.sum())} rejected lanes' init "
+            f"rows unrounded")
+
+    def f16_update(self):
+        """(a) update_scan's four optimizers on float16 planes of a 2^20-slot
+        dual table past λ 1.0 (V = 32, 33 and 64 at dim 32)."""
+        from repro_torch import HKVTable
+
+        table = HKVTable.create(capacity=self.sz.small_capacity, dim=DIM, buckets_per_key=2,
+                                score_policy="lru", device=self.dev)
+        resident = self.fill(table, 1.0)[0]
+        self.compare_update_scan(table, resident, "f16", dtype=self.torch.float16)
+        del table
+        self.free()
+
+    def f16_train(self):
+        """(c) phase 5's DLRM steps through HKVEmbedding(value_dtype=float16)
+        of config B (rowwise_adagrad, V = 33) prefilled to λ 1.0."""
+        from repro_torch.configs.hkv_dlrm import PAPER_CONFIGS
+
+        torch, sz = self.torch, self.sz
+        emb = PAPER_CONFIGS["B"].embedding()
+        emb = dataclasses.replace(emb, capacity=sz.capacity, value_dtype=torch.float16,
+                                  optimizer=dataclasses.replace(emb.optimizer, eps=F16_EPS))
+        table = emb.create(device=self.dev)
+        require(table.state.values.shape == (sz.capacity, DIM + 1)
+                and table.state.values.dtype == torch.float16,
+                "phase 16: config B's float16 table is not [capacity, 33] of float16")
+        self.fill(table, 1.0)
+        log(f"phase 16 (c): HKVEmbedding of config B at float16, {emb.optimizer} (V = "
+            f"{table.state.values.shape[1]}; eps float16's smallest normal), prefilled to λ = "
+            f"{table.load_factor():.6f}")
+        launches = {}
+        self.train_loop(emb, table, DIM, "phase 16", launches=launches)
+        for k, v in launches.items():
+            self.launches_f16[k] = self.launches_f16.get(k, 0) + v
+        if self.dev.type == "cuda":
+            require(launches.get("update_scan") == sz.train_steps,
+                    "phase 16 (c): apply_grads did not run one update_scan a step")
+        del table
+        self.free()
+
+    def f16_refuse(self):
+        """(e) A float64 plane on backend 'auto': the card's kernels refuse it
+        (ValueError) before an upsert writes a key."""
+        from repro_torch import HKVTable
+
+        torch, n = self.torch, self.sz.small_batch
+        t = HKVTable.create(capacity=self.sz.small_capacity, dim=DIM, buckets_per_key=2,
+                            value_dtype=torch.float64, device=self.dev)
+        keys, vals = self.fresh_keys(n), self.values(n).double()
+        if self.dev.type != "cuda":
+            t.insert_or_assign(keys, vals)      # the CPU's plain versions take float64
+            return
+        for op, args in (("insert_or_assign", (keys, vals)), ("find", (keys,))):
+            try:
+                getattr(t, op)(*args)
+            except ValueError as e:
+                log(f"phase 16 (e) float64 {op} on 'auto' refused: {e}")
+            else:
+                raise AssertionError(f"phase 16 (e): {op} on a float64 plane ran on the card")
+        require(bool((t.state.keys == self.u64.EMPTY).all()),
+                "phase 16 (e): the refused insert_or_assign wrote a key")
+
+    def f16_report(self):
+        """Phase 16's kernel times beside their bounds and, where this run
+        measured them, phase 1's float32 and bfloat16 times."""
+        card = self.card_tag()
+
+        def ms(name, key):
+            st = self.stats.get(name, {})
+            return f"{st[key]:.4f} ms" if key in st else "not run"
+
+        for name, tags in (("find_scan", ("0.5 f16", "1.0 f16")), ("gather_rows", ("1.0 f16",))):
+            st = self.stats[name]
+            for tag in tags:
+                bound, by = self.bound(st, tag)
+                lam = tag.split()[0]
+                log(f"phase 16 (a) {name} float16 λ={lam} {card}: {st[f'ms@{tag}']:.4f} ms"
+                    + (f" ({st[f'ms_stream@{tag}']:.4f} ms a call in a stream of {STREAM_CALLS})"
+                       if f"ms_stream@{tag}" in st else "")
+                    + f", plain {st[f'plain_ms@{tag}']:.4f} ms, bound {bound:.4f} ms by {by}; "
+                    f"float32 {ms(name, f'ms@{lam}')}, bfloat16 "
+                    f"{ms(name, 'ms@1.0 bf16') if lam == '1.0' else 'not run'}")
+        sr = self.stats["scatter_rows"]
+        bound, by = self.bound({"bytes@": sr["bytes_f16@1.0"], "ops@": 0}, "")
+        log(f"phase 16 (a) scatter_rows float16 V=32 {card}: set {sr['ms_f16@1.0']:.4f} ms, plain "
+            f"{sr['plain_ms_f16@1.0']:.4f} ms, library {sr['library_ms_f16@1.0']:.4f} ms, bound "
+            f"{bound:.4f} ms by {by}; float32 {ms('scatter_rows', 'ms@1.0')}, bfloat16 "
+            f"{ms('scatter_rows', 'ms_bf16@1.0')}")
+        up = self.stats["update_scan"]
+        bound, by = self.bound(up, "f16")
+        log(f"phase 16 (a) update_scan float16 (2^20-slot table, λ 1.0, dim {DIM}) {card}: "
+            + ", ".join(f"{o} {m} {up[f'ms_{o}_{m}@f16']:.4f} ms (bfloat16 "
+                        f"{ms('update_scan', f'ms_{o}_{m}@bf16')})"
+                        for o in OPTIMIZERS for m in ("dual", "single"))
+            + f"; rowwise_adagrad dual plain {up['plain_ms@f16']:.4f} ms, bound {bound:.4f} ms by "
+            f"{by}")
+        parts = {tag: {k: statistics.median(step[k] for step in steps[1:] or steps)
+                       for k in steps[0]} for tag, steps in self.step_parts.items()
+                 if tag in ("phase 5", "phase 16")}
+        log(f"phase 16 (c) DLRM step {card}, median of steps 1-{self.sz.train_steps - 1}: "
+            + "; ".join(f"{'float16' if tag == 'phase 16' else 'float32 (phase 5)'} "
+                        + ", ".join(f"{k} {v:.3f} ms" for k, v in p.items())
+                        for tag, p in sorted(parts.items(), key=lambda x: x[0] != "phase 16")))
+        log(f"phase 16: kernel launches {json.dumps(self.launches_f16)}")
+
     def report(self):
         for name, st in sorted(self.stats.items()):
             log(f"parity {name}: bit-identical to the plain version in {len(st['checks'])} "
@@ -5485,7 +5780,8 @@ class Smoke:
             log(f"throughput λ={lam}: find {f:.4f} B-KV/s, insert_or_assign {i:.4f} B-KV/s")
         for name, st in sorted(self.stats.items()):
             for lam in (0.5, 1.0, "1.0 single", "1.0 V=33", "1.0 V=33 width 32", "1.0 bf16",
-                        "1.0 bf16 width 16", *(f"dim {d}" for d in WIDE_DIMS), "bf16"):
+                        "1.0 bf16 width 16", *(f"dim {d}" for d in WIDE_DIMS), "bf16",
+                        "0.5 f16", "1.0 f16", "f16"):
                 if f"ms@{lam}" not in st:
                     continue
                 bound, by = self.bound(st, lam)
@@ -5548,9 +5844,12 @@ class Smoke:
             log(f"op {name} ({mode}) from λ {lam:.6f}: {t:.3f} ms ({rate}; median of "
                 f"{self.sz.timed_runs})")
         up = self.stats["update_scan"]
-        for lam in (0.5, 1.0, *(f"dim {d}" for d in WIDE_DIMS), "bf16"):
+        for lam in (0.5, 1.0, *(f"dim {d}" for d in WIDE_DIMS), "bf16", "f16"):
+            if f"ms_sgd_dual@{lam}" not in up:
+                continue
             where = (f"λ={lam} (config B, dim {DIM})" if isinstance(lam, float) else
-                     f"{lam} (2^20-slot table, λ 1.0" + (f", dim {DIM})" if lam == "bf16" else ")"))
+                     f"{lam} (2^20-slot table, λ 1.0"
+                     + (f", dim {DIM})" if lam in ("bf16", "f16") else ")"))
             log(f"update_scan {where} by optimizer and mode: " + ", ".join(
                 f"{o} {m} {up[f'ms_{o}_{m}@{lam}']:.4f} ms" for o in OPTIMIZERS
                 for m in ("dual", "single")))
@@ -5646,8 +5945,9 @@ class Smoke:
             # find_scan_many: phase 9's counted find_many_kernel call; and
             # each with the sharded table's phase 10, the LM paths' phases
             # 11 and 12, LM serving's phase 13 (find_scan, the HKV
-            # embedding's lookup_serve), the sharded step of phase 14 and
-            # the wrappers' counted calls of phase 15
+            # embedding's lookup_serve), the sharded step of phase 14, the
+            # wrappers' counted calls of phase 15 and the float16 ops and
+            # steps of phase 16
             path = (self.launches_many if name == "find_scan_many" else
                     self.launches if name in self.launches else
                     self.launches_train if name == "update_scan" else self.launches_rest)
@@ -5659,7 +5959,8 @@ class Smoke:
                              + self.launches_zoo.get(name, 0)
                              + self.launches_serve_lm.get(name, 0)
                              + self.launches_stack.get(name, 0)
-                             + self.launches_wrappers.get(name, 0)),
+                             + self.launches_wrappers.get(name, 0)
+                             + self.launches_f16.get(name, 0)),
                 "max_abs_err": st["max_abs_err"],
                 "ms": st["ms@1.0"], "plain_ms": st["plain_ms@1.0"],
                 "bound_ms": bound, "bound_by": by,

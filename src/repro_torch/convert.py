@@ -25,9 +25,10 @@ reference), ``export_to_arrays`` (an ``ExportResult``); and a JAX
 ``SweepPredicate`` (kind and four uint32 operands) comes across with
 ``predicate_from_arrays``.  The value plane is carried whole, aux
 optimizer columns included (V = dim + aux), bit for bit in its own dtype:
-a float32 plane as it is, and a bfloat16 one through a ``uint16`` view on
-both sides (numpy has no bfloat16 of its own; the JAX package's is
-``ml_dtypes.bfloat16``, and torch reads no numpy array of that dtype).
+a float32 or float16 plane as it is (numpy has both), and a bfloat16 one
+through a ``uint16`` view on both sides (numpy has no bfloat16 of its own;
+the JAX package's is ``ml_dtypes.bfloat16``, and torch reads no numpy array
+of that dtype).
 ``ml_dtypes`` is imported only where a bfloat16 tensor goes out to numpy,
 so the port needs it only on a machine that holds the JAX package too.
 
@@ -84,7 +85,8 @@ def _split(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
 
 def values_from_numpy(a) -> torch.Tensor:
     """A numpy value plane or batch -> a CPU tensor of the same dtype and
-    bits (an ``ml_dtypes.bfloat16`` array becomes ``torch.bfloat16``)."""
+    bits (an ``ml_dtypes.bfloat16`` array becomes ``torch.bfloat16``; float32
+    and float16 cross as they are)."""
     a = np.array(a)   # a writable copy: a JAX array's numpy view is read-only
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)

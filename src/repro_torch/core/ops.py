@@ -465,14 +465,27 @@ def find_or_insert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
 def _gather_post(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
                  backend: str) -> torch.Tensor:
     """The rows at the closure's post-op locations; a rejected key gets
-    the caller's init row back."""
+    the caller's init row back (see `readback_rows`)."""
     state = res.state
     if uses_kernels(backend, state.device):
         vals = _kernel_ops().gather_rows_kernel(state, res.loc, cfg.dim)
     else:
         vals = find_mod.gather_values(state, res.loc, cfg.dim, cfg.value_tier)
-    return torch.where(res.loc.found[:, None], vals,
-                       init_values[:, :cfg.dim].to(vals.dtype))
+    return readback_rows(res.loc.found, vals, init_values[:, :cfg.dim])
+
+
+def readback_rows(found: torch.Tensor, stored: torch.Tensor,
+                  init: torch.Tensor) -> torch.Tensor:
+    """find_or_insert's rows: the stored row where `found`, else the
+    caller's init row, in the dtype the reference's ``jnp.where`` of the
+    two promotes to (a bfloat16 or float16 plane with float32 init rows
+    gives float32; bfloat16 with float16 gives float32).  A stored row is
+    widened exactly and an init row comes back unchanged; no plane
+    changes.  A float64 init counts as float32, as under JAX's default of
+    x64 off."""
+    init_dtype = torch.float32 if init.dtype == torch.float64 else init.dtype
+    dtype = torch.promote_types(stored.dtype, init_dtype)
+    return torch.where(found[:, None], stored.to(dtype), init.to(dtype))
 
 
 @roles.inserter

@@ -25,9 +25,10 @@
 //     the value row in units of 16 bytes (float32 at V = 32: one 128-byte
 //     row in one vector load and store a lane) where the wrapper found the
 //     row's bytes a multiple of 16 and both planes 16-byte aligned, else in
-//     4-byte or, for a bfloat16 row of odd width, 2-byte units (V = 33, the
-//     training plane, takes 4-byte units).  The copy never looks at the
-//     element type, so float32 and bfloat16 planes are copied bit for bit.
+//     4-byte or, for a bfloat16 or float16 row of odd width, 2-byte units
+//     (V = 33, the training plane, takes 4-byte units).  The copy never
+//     looks at the element type, so float32, bfloat16 and float16 planes
+//     are copied bit for bit.
 #include "hkv_common.cuh"
 
 namespace {

@@ -26,7 +26,7 @@
 //   - elements are copy units of 16 bytes where the plane's row stride,
 //     the output row and both pointers allow it, else 4 or 2 bytes (the
 //     wrapper decides).  The copy never looks at the element type, so
-//     float32 and bfloat16 planes are copied bit for bit.
+//     float32, bfloat16 and float16 planes are copied bit for bit.
 // Offsets are 64-bit: at the paper's config B, row * V passes 2^31.
 #include "hkv_common.cuh"
 

@@ -2,13 +2,14 @@
 //
 // Table layout (see repro_torch/core/table.py): digests uint8 [B, 128],
 // keys and scores int64 [B, 128] holding unsigned 64-bit words, values
-// float32 or bfloat16 [B*128, V].  EMPTY is the all-ones key (-1 as
+// float32, bfloat16 or float16 [B*128, V].  EMPTY is the all-ones key (-1 as
 // int64).  Every row or element offset is computed in 64 bits: at the
 // paper's config B (2^27 rows of 32 floats) a value offset passes 2^31.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace hkv {
@@ -86,12 +87,14 @@ __device__ __forceinline__ int group_match_row(const uint8_t* __restrict__ diges
 // 16, 4 or 2 bytes, whatever the element (the wrapper picks the widest
 // unit that divides every row and both planes' alignment), so a copy is
 // bit-exact by construction.  A kernel that computes on values reads each
-// element into float32, computes there, and rounds a bfloat16 result to
-// nearest even once, where it is stored.
+// element into float32, computes there, and rounds a bfloat16 or float16
+// result to nearest even once, where it is stored.
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(f16 x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -99,6 +102,27 @@ template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
+template <>
+__device__ __forceinline__ f16 from_float<f16>(float x) { return __float2half_rn(x); }
+
+// The element type of a value plane that a kernel computes on, as the
+// wrapper names it (repro_torch/kernels/_build.py, DTYPE_CODES).  The type
+// is never inferred from the element's size: bfloat16 and float16 are both
+// 2 bytes and round differently.
+constexpr int kFloat32 = 0;
+constexpr int kBfloat16 = 1;
+constexpr int kFloat16 = 2;
+
+// Returns f(E{}) with E the element type of `dtype`; false for any other code.
+template <typename F>
+inline bool with_elem(int dtype, F&& f) {
+  switch (dtype) {
+    case kFloat32: return f(float{});
+    case kBfloat16: return f(bf16{});
+    case kFloat16: return f(f16{});
+    default: return false;
+  }
+}
 
 // Calls f(U{}) with U the copy unit of `unit` bytes (16, 4 or 2); false for
 // any other size.

@@ -22,8 +22,8 @@
 //     with every lane busy whatever the width;
 //   - elements are copy units of 16 bytes where the row's bytes are a
 //     multiple of 16 and both the plane and the updates are 16-byte
-//     aligned, else 4 bytes, or 2 for a bfloat16 row of odd width (the
-//     wrapper decides).  V = 33, the training path's rowwise_adagrad plane,
+//     aligned, else 4 bytes, or 2 for a bfloat16 or float16 row of odd
+//     width (the wrapper decides).  V = 33, the training path's rowwise_adagrad plane,
 //     takes 4-byte units with no idle lane.  Its 132-byte rows end inside
 //     32-byte sectors, and the partial sectors' stores cost more than the
 //     rest of the kernel (on an H100, index_fill_ of the same rows, which
@@ -39,7 +39,10 @@
 // (__float2bfloat16_rn), which is the correctly rounded bfloat16 sum (a
 // float32 sum of two bfloat16 values rounded again to bfloat16 suffers no
 // double-rounding error, as 24 >= 2 * 8 + 2), so it equals index_add_ on
-// unique rows.  Offsets are 64-bit: config B's plane passes 2^31 floats.
+// unique rows; float16 likewise rounds once with __float2half_rn, the
+// correctly rounded float16 sum as 24 >= 2 * 11 + 2.  The element type
+// comes from the wrapper's dtype code, never from the element's size.
+// Offsets are 64-bit: config B's plane passes 2^31 floats.
 #include "hkv_common.cuh"
 
 namespace {
@@ -61,7 +64,7 @@ __device__ __forceinline__ U add_rn(U a, U b) {
 }
 
 // T is the copy unit (uint4, uint32_t or uint16_t) and E the element
-// (float or bf16); w is the row width in T.
+// (float, bf16 or f16); w is the row width in T.
 template <typename T, typename E>
 __global__ void __launch_bounds__(hkv::kWarp * hkv::kWarpsPerBlock)
 scatter_rows_kernel(T* __restrict__ values, const int64_t* __restrict__ rows,
@@ -119,28 +122,24 @@ scatter_rows_kernel(T* __restrict__ values, const int64_t* __restrict__ rows,
 
 extern "C" int hkv_scatter_rows(void* values, const void* rows, const void* updates,
                                 const void* mask, int64_t n, int64_t num_rows, int64_t row_bytes,
-                                int add, int elem_bytes, int unit, void* stream) {
-  if (unit <= 0 || row_bytes % unit != 0 || unit < elem_bytes ||
-      (elem_bytes != 4 && elem_bytes != 2) || row_bytes / unit > (int64_t{1} << 25))
+                                int add, int dtype, int unit, void* stream) {
+  if (unit <= 0 || row_bytes % unit != 0 || row_bytes / unit > (int64_t{1} << 25))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = hkv::blocks_for_warps((n + hkv::kWarp - 1) / hkv::kWarp);
   const int threads = hkv::kWarp * hkv::kWarpsPerBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = hkv::with_unit(unit, [&](auto u) {
-    using T = decltype(u);
-    auto launch = [&](auto kernel) {
-      kernel<<<blocks, threads, 0, s>>>(
-          static_cast<T*>(values), static_cast<const int64_t*>(rows),
-          static_cast<const T*>(updates), static_cast<const bool*>(mask), n, num_rows,
-          static_cast<int>(row_bytes / unit), add);
-    };
-    if constexpr (sizeof(T) >= sizeof(float)) {
-      if (elem_bytes == 4) {
-        launch(scatter_rows_kernel<T, float>);
-        return;
+  // the add's element type is the dtype code's; a unit holds whole elements
+  const bool ok = hkv::with_elem(dtype, [&](auto e) {
+    using E = decltype(e);
+    return unit >= static_cast<int>(sizeof(E)) && hkv::with_unit(unit, [&](auto u) {
+      using T = decltype(u);
+      if constexpr (sizeof(T) >= sizeof(E)) {
+        scatter_rows_kernel<T, E><<<blocks, threads, 0, s>>>(
+            static_cast<T*>(values), static_cast<const int64_t*>(rows),
+            static_cast<const T*>(updates), static_cast<const bool*>(mask), n, num_rows,
+            static_cast<int>(row_bytes / unit), add);
       }
-    }
-    launch(scatter_rows_kernel<T, hkv::bf16>);
+    });
   });
   return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }

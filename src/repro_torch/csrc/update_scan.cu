@@ -7,8 +7,10 @@
 // qvalid flag gates the match; on a hit the group reads the value row
 // [dim | aux] at bucket*128+slot, applies the sparse optimizer (sgd, sgdm,
 // rowwise_adagrad or adagrad, a template parameter) and writes the row back.
-// A miss, or a lane with qvalid == 0, writes nothing.  Any dim, and float32
-// or bfloat16 values (the element type is a template parameter).
+// A miss, or a lane with qvalid == 0, writes nothing.  Any dim, and float32,
+// bfloat16 or float16 values (the element type is a template parameter,
+// chosen by the wrapper's dtype code, never by the element's size: the two
+// 2-byte types round differently).
 //
 // Query keys are unique within a launch (the caller dedupes and sums the
 // gradients first), so distinct queries touch distinct rows and the groups
@@ -19,12 +21,13 @@
 // Rounding: every operation is one IEEE-rounded float32 intrinsic
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn), in the order of
 // the plain PyTorch version (repro_torch/embedding/sparse_opt.py), so nvcc
-// cannot contract a product and a sum into an FMA; on a bfloat16 plane each
-// result is rounded to bfloat16 (nearest even) exactly where the plain
-// version's bfloat16 tensor op rounds it, and each Python scalar is what
-// torch makes of it there (lr and dim rounded to bfloat16 where _div fills a
-// tensor with them; lr, eps and momentum float32 in a product or sum).  So
-// kernel and plain version agree bit for bit at both dtypes.
+// cannot contract a product and a sum into an FMA; on a bfloat16 or float16
+// plane each result is rounded to the plane's type (nearest even) exactly
+// where the plain version's tensor op of that type rounds it, and each
+// Python scalar is what torch makes of it there (lr and dim rounded to the
+// plane's type where _div fills a tensor with them; lr, eps and momentum
+// float32 in a product or sum).  So kernel and plain version agree bit for
+// bit at all three dtypes.
 // rowwise_adagrad's row mean sums the squared gradients in one fixed order,
 // the plain version's halving tree over the dim columns zero-padded to a
 // power of two P.  Lane g of a group owns columns g, g+8, g+16, ..., so the
@@ -247,9 +250,8 @@ extern "C" int hkv_update_scan(const void* digests, const void* keys, void* valu
                                const void* qkeys, const void* qvalid, const void* grads,
                                void* found, int64_t n, int64_t v, int dim, int opt,
                                int use_digest, float lr, float eps, float momentum,
-                               int elem_bytes, void* stream) {
-  if (dim < 1 || (elem_bytes != 4 && elem_bytes != 2))
-    return static_cast<int>(cudaErrorInvalidValue);
+                               int dtype, void* stream) {
+  if (dim < 1) return static_cast<int>(cudaErrorInvalidValue);
   // a lane's columns: the dim columns padded to a power of two, over 8 lanes
   int levels = 0;
   while ((int64_t{hkv::kGroup} << levels) < dim) ++levels;
@@ -276,6 +278,6 @@ extern "C" int hkv_update_scan(const void* digests, const void* keys, void* valu
       default: return false;
     }
   };
-  const bool ok = elem_bytes == 4 ? by_opt(float{}) : by_opt(hkv::bf16{});
+  const bool ok = hkv::with_elem(dtype, by_opt);
   return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,13 +23,14 @@ results are an ulp off on an AVX-512 build), so the root is taken in
 float64 and rounded once to float32, which gives the correctly rounded
 root that the kernel's ``__fsqrt_rn`` and XLA compute.
 
-On a bfloat16 plane every tensor op computes in float32 and rounds its
-result to bfloat16 once, a Python scalar stays float32 in a product or a
-sum, and ``_div`` rounds a scalar to bfloat16 where it fills a tensor with
-it (lr, dim); the kernel rounds at the same points, so the two still agree
-bit for bit.  Against the JAX package, whose XLA ops keep float32 inside a
-fused bfloat16 op and round Python scalars to bfloat16, bfloat16 results
-agree within a tolerance only.
+On a bfloat16 or float16 plane every tensor op computes in float32 and
+rounds its result to the plane's type once, a Python scalar stays float32
+in a product or a sum, and ``_div`` rounds a scalar to the plane's type
+where it fills a tensor with it (lr, dim); the kernel rounds at the same
+points, so the two still agree bit for bit.  Against the JAX package,
+whose XLA ops keep float32 inside a fused op and round Python scalars to
+the plane's type, bfloat16 and float16 results agree within a tolerance
+only.
 
 The row mean of ``rowwise_adagrad`` is the one reduction.  It is taken in
 one fixed order, a halving tree over the ``dim`` columns zero-padded to a

@@ -186,13 +186,23 @@ def device_attribute(attr: int, device: int = 0) -> int:
     return value.value
 
 
-# The value planes the kernels take: float32 and bfloat16.
-VALUE_DTYPES = (torch.float32, torch.bfloat16)
+# The value planes the kernels take, and the dtype code that the C entry
+# points which compute on values (scatter_rows' add, update_scan) are given
+# (csrc/hkv_common.cuh: kFloat32, kBfloat16, kFloat16): bfloat16 and
+# float16 are both 2 bytes, so a kernel is never left to tell them apart by
+# size.  float64 stays refused: the JAX package, under JAX's default of x64
+# off, stores a float64 value_dtype as float32, so its kernels never see one.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+VALUE_DTYPES = tuple(DTYPE_CODES)
 
 
 def check_values(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    """A value plane or batch: float32 or bfloat16, contiguous, `shape`."""
-    check(t.dtype in VALUE_DTYPES, f"{name}: dtype {t.dtype}, expected float32 or bfloat16")
+    """A value plane or batch: float32, bfloat16 or float16, contiguous, `shape`."""
+    check(t.dtype in VALUE_DTYPES,
+          f"{name}: dtype {t.dtype}, expected float32, bfloat16 or float16"
+          + (" (the kernels take no float64 plane: the JAX package stores a float64 "
+             "value_dtype as float32 under JAX's default of x64 off)"
+             if t.dtype == torch.float64 else ""))
     check_tensor(name, t, t.dtype, shape, device, t.element_size())
 
 

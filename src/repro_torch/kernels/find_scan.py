@@ -5,8 +5,8 @@ Replaces the TPU kernels ``find_scan_tlp`` and ``find_scan_pipeline``
 (``src/repro/kernels/find_scan.py``), one function on two TPU schedules.
 Per query, over both candidate rows: digest pre-filter, full-key confirm,
 hit in bucket1 wins (a miss reports bucket1, slot 0), the hit slot's score,
-and its value row (zeros on a miss), float32 or bfloat16, copied bit for
-bit.  An EMPTY query key is a miss.  (The
+and its value row (zeros on a miss), float32, bfloat16 or float16, copied
+bit for bit.  An EMPTY query key is a miss.  (The
 reference kernel lets it match empty slots and its wrapper masks found,
 values and scores afterwards; deciding it here spares that pass.)
 """

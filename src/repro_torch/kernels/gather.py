@@ -2,8 +2,8 @@
 ``csrc/gather.cu``).
 
 Replaces ``gather_rows`` (``src/repro/kernels/gather.py``):
-``out[i] = mask[i] ? values[rows[i], :width] : 0``, float32 or bfloat16,
-copied bit for bit.  As in the reference's wrappers, rows are clipped into
+``out[i] = mask[i] ? values[rows[i], :width] : 0``, float32, bfloat16 or
+float16, copied bit for bit.  As in the reference's wrappers, rows are clipped into
 the plane before the gather (on the card, inside the kernel).  ``width``
 (default: the plane's V) is the number of leading columns the caller uses:
 the readback of ``find_or_insert`` takes the embedding's ``dim`` columns

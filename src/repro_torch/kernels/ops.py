@@ -76,8 +76,10 @@ import torch
 
 from repro_torch.core import find as find_mod
 from repro_torch.core import merge as merge_mod
+from repro_torch.core import ops as ops_mod
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref  # noqa: F401  (re-exported: the oracles)
 from repro_torch.kernels.digest_scan import digest_scan
 from repro_torch.kernels.find_scan import find_scan, find_scan_many
@@ -267,7 +269,12 @@ def bucket_stats_kernel(state: HKVState):
 
 
 def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStages:
-    """Kernel-backed implementations of the upsert stages."""
+    """Kernel-backed implementations of the upsert stages.  On the card a
+    value plane that no kernel takes (float64) is refused here, before the
+    closure writes a key."""
+    _build.check(device.type != "cuda" or cfg.value_dtype in _build.VALUE_DTYPES,
+                 f"the kernels take no {cfg.value_dtype} value plane, only float32, "
+                 "bfloat16 or float16")
     s = cfg.slots_per_bucket
 
     def locate(state: HKVState, _cfg, keys, probe: find_mod.Probe) -> find_mod.Locate:
@@ -358,9 +365,10 @@ def find_or_insert_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     status) with ``core.ops.find_or_insert``'s meaning.  The closure's own
     probe gives `found` and publishes each key's post-op location, so the
     readback is one gather_rows launch there: a key found or admitted by
-    this batch reads its stored row, a rejected one the caller's init row."""
+    this batch reads its stored row, a rejected one the caller's init row,
+    in the promoted dtype of ``core.ops.readback_rows``."""
     res = upsert_kernel(state, cfg, keys, init_values, custom_scores=custom_scores,
                         write_hit_values=False)
     vals = gather_rows_kernel(res.state, res.loc, cfg.dim)
-    vals = torch.where(res.loc.found[:, None], vals, init_values[:, :cfg.dim].to(vals.dtype))
+    vals = ops_mod.readback_rows(res.loc.found, vals, init_values[:, :cfg.dim])
     return res.state, vals, res.found, res.status

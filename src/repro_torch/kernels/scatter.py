@@ -3,15 +3,16 @@
 
 Replaces ``scatter_rows`` (``src/repro/kernels/scatter.py``), both
 ``add=False`` and ``add=True``: ``values[rows[i]] (+)= updates[i]`` where
-``mask[i]``, float32 or bfloat16.  Rows outside the plane are dropped,
-like the reference's ``mode="drop"``.  Masked rows must be unique within
-the batch.  Without ``add`` a row is copied bit for bit; with it, each
-element is the correctly rounded sum in the plane's dtype (a bfloat16 sum
-is taken in float32 and rounded once), which is what ``index_add_`` gives
-on unique rows.  The plane may be an 'hmem' plane in pinned host memory
-beside rows on the card: the kernel then reads and writes its rows over
-the host link (the add reads each row once and writes it once, with no
-atomics, as on a plane on the card).
+``mask[i]``, float32, bfloat16 or float16.  Rows outside the plane are
+dropped, like the reference's ``mode="drop"``.  Masked rows must be unique
+within the batch.  Without ``add`` a row is copied bit for bit; with it,
+each element is the correctly rounded sum in the plane's dtype (a bfloat16
+or float16 sum is taken in float32 and rounded once), which is what
+``index_add_`` gives on unique rows.  The kernel is told the dtype, not
+its size, so a float16 plane never adds as bfloat16.  The plane may be an
+'hmem' plane in pinned host memory beside rows on the card: the kernel
+then reads and writes its rows over the host link (the add reads each row
+once and writes it once, with no atomics, as on a plane on the card).
 """
 
 from __future__ import annotations
@@ -49,4 +50,5 @@ def scatter_rows(values, rows, updates, mask, add: bool) -> None:
     es = values.element_size()
     unit = _build.copy_unit((d * es,), (values, updates))
     if n:
-        _build.launch(NAME, values, rows, updates, mask, n, r, d * es, int(add), es, unit)
+        _build.launch(NAME, values, rows, updates, mask, n, r, d * es, int(add),
+                      _build.DTYPE_CODES[values.dtype], unit)

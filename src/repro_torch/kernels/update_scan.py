@@ -7,8 +7,9 @@ Per query: digest pre-filter and full-key confirm over both candidate rows
 becomes ``opt.apply(row, grad, dim)`` in place, `opt` being an
 ``embedding.sparse_opt.SparseOptimizer``.  A miss or a gated lane
 writes nothing.  Single-bucket mode passes ``bucket2 = bucket1``.  Any
-dim; float32 or bfloat16 values, with the gradients in the plane's dtype
-(the kernel rounds where the plain version's bfloat16 ops round).
+dim; float32, bfloat16 or float16 values, with the gradients in the
+plane's dtype (the kernel rounds where the plain version's bfloat16 or
+float16 ops round; it is told the dtype, not its size).
 
 PRECONDITION: the valid query keys are unique within the batch (the
 embedding layer dedupes and sums the gradients first).  With a repeated
@@ -69,5 +70,5 @@ def update_scan(digests, keys, values, bucket1, bucket2, qdigest, qkeys, qvalid,
     if n:
         _build.launch(NAME, digests, keys, values, bucket1, bucket2, qdigest, qkeys, qvalid,
                       grads, found, n, v, dim, OPT_INDEX[opt.name], int(use_digest),
-                      opt.lr, opt.eps, opt.momentum, es)
+                      opt.lr, opt.eps, opt.momentum, _build.DTYPE_CODES[values.dtype])
     return found

@@ -296,22 +296,24 @@ def test_tiered_table_on_the_card_matches_plain(dev):
     assert tk.size() == tp.size() and tk.cold.size() > 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("v,width", [(32, None), (6, None), (33, 32), (33, None), (32, 5),
                                      (7, 3)])
 def test_gather_rows_kernel_matches_plain(dev, v, width, dtype):
     """Copy units of 16, 4 and 2 bytes: V = 32 whole and cut to 5
     columns, V = 6, V = 33 whole and its 32 leading columns (the training
-    readback), V = 7 cut to 3 (2-byte units at bfloat16); rows past both
-    ends of the plane clipped, a lane count that is not a multiple of 32."""
+    readback), V = 7 cut to 3 (2-byte units at bfloat16 and float16); rows
+    past both ends of the plane clipped, a lane count that is not a
+    multiple of 32."""
     values = torch.randn(8192, v, device=dev).to(dtype)
     rows = torch.randint(-5, 8200, (3001,), device=dev)
     mask = torch.rand(3001, device=dev) < 0.5
     got = gather.gather_rows(values, rows, mask, width)
     want = gather.gather_rows_plain(values, rows.clamp(0, 8191), mask, width)
     assert got.dtype == dtype and got.shape == (3001, width or v)
-    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
-                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    bits = torch.int16 if dtype.itemsize == 2 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
     assert not got[~mask].any() and got[mask].any()
 
 
@@ -459,12 +461,14 @@ def test_update_scan_kernel_matches_plain(dev, opt_name, dim, dual):
 
 
 @pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
-@pytest.mark.parametrize("dim", [32, 257])
+@pytest.mark.parametrize("dim", [32, 33, 257])
 @pytest.mark.parametrize("opt_name", ["sgd", "sgdm", "rowwise_adagrad", "adagrad"])
-def test_update_scan_kernel_matches_plain_bf16(dev, opt_name, dim, dual):
-    """A bfloat16 plane: the kernel rounds where the plain version's
-    bfloat16 ops round, so the plane is bit-identical."""
-    _update_case(dev, opt_name, dim, dual, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_update_scan_kernel_matches_plain_bf16(dev, dtype, opt_name, dim, dual):
+    """A bfloat16 or float16 plane (dim 33: rows of odd width): the kernel
+    rounds where the plain version's ops of that dtype round, so the plane
+    is bit-identical."""
+    _update_case(dev, opt_name, dim, dual, dtype)
 
 
 def _update_case(dev, opt_name, dim, dual, dtype):
@@ -652,16 +656,18 @@ def test_scatter_rows_kernel_matches_plain(dev, v, add):
 
 @pytest.mark.parametrize("add", [False, True], ids=["set", "add"])
 @pytest.mark.parametrize("v", [1, 3, 8, 32, 33])
-def test_scatter_rows_kernel_matches_plain_bf16(dev, v, add):
-    """bfloat16 rows in 16-, 4- and 2-byte units: the copy bit for bit, the
-    add rounded once from float32, as index_add_ rounds on unique rows."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_scatter_rows_kernel_matches_plain_bf16(dev, dtype, v, add):
+    """bfloat16 or float16 rows in 16-, 4- and 2-byte units: the copy bit
+    for bit, the add rounded once from float32, as index_add_ rounds on
+    unique rows."""
     n, r_tot = 3001, 8192
     gen = torch.Generator(device=dev).manual_seed(100 + v)
-    values = torch.randn(r_tot, v, generator=gen, device=dev).to(torch.bfloat16)
+    values = torch.randn(r_tot, v, generator=gen, device=dev).to(dtype)
     rows = torch.randperm(r_tot, generator=gen, device=dev)[:n]
     mask = torch.rand(n, generator=gen, device=dev) < 0.6
     rows[~mask] = rows[mask][0]   # masked-out lanes aimed at a written row
-    upd = torch.randn(n, v, generator=gen, device=dev).to(torch.bfloat16)
+    upd = torch.randn(n, v, generator=gen, device=dev).to(dtype)
     vk, vp = values.clone(), values.clone()
     scatter.scatter_rows(vk, rows, upd, mask, add)
     scatter.scatter_rows_plain(vp, rows, upd, mask, add)
@@ -670,30 +676,36 @@ def test_scatter_rows_kernel_matches_plain_bf16(dev, v, add):
 
 
 @pytest.mark.parametrize("v", [32, 33, 7])
-def test_find_scan_kernel_matches_plain_bf16(dev, v):
-    """A bfloat16 value plane (16-, 4- and 2-byte units): found, slots,
-    scores and the value rows bit-identical."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_find_scan_kernel_matches_plain_bf16(dev, dtype, v):
+    """A bfloat16 or float16 value plane (16-, 4- and 2-byte units): found,
+    slots, scores and the value rows bit-identical."""
     t = _table(dev)
     q, p = _queries(t)
     s = t.state
-    values = torch.randn(s.values.shape[0], v, device=dev).to(torch.bfloat16)
+    values = torch.randn(s.values.shape[0], v, device=dev).to(dtype)
     args = (s.digests, s.keys, s.scores, values, p.bucket1, p.bucket2, p.digest, q)
     got, want = find_scan.find_scan(*args), find_scan.find_scan_plain(*args)
     _same(got[:4], want[:4])
-    assert got[4].dtype == torch.bfloat16 and torch.equal(got[4].view(torch.int16),
-                                                          want[4].view(torch.int16))
+    assert got[4].dtype == dtype and torch.equal(got[4].view(torch.int16),
+                                                 want[4].view(torch.int16))
     assert got[0].any()
 
 
-def test_bf16_table_runs_on_the_card(dev):
-    """A bfloat16 HKVTable on 'auto': insert_or_assign, find, find_or_insert,
-    update_rows (through a session: one update_scan launch) and
-    apply_grads run on the kernels and equal 'plain' bit for bit."""
+@pytest.mark.parametrize("value_tier", ["hbm", "hmem"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_bf16_table_runs_on_the_card(dev, dtype, value_tier):
+    """A bfloat16 or float16 HKVTable on 'auto' (its plane on the card or in
+    pinned host memory): insert_or_assign, find, find_or_insert (with the
+    plane's init rows and with float32 ones, whose rows come back float32),
+    update_rows (one update_scan launch, or on 'hmem' the composed step)
+    and apply_grads run on the kernels and equal 'plain' bit for bit."""
     from repro_torch.core import ops
     from repro_torch.embedding import HKVEmbedding, SparseOptimizer
 
     opt = SparseOptimizer("rowwise_adagrad", lr=0.05)
-    kw = dict(capacity=16 * 128, dim=32, optimizer=opt, value_dtype=torch.bfloat16)
+    kw = dict(capacity=16 * 128, dim=32, optimizer=opt, value_dtype=dtype,
+              value_tier=value_tier)
     ek, ep = HKVEmbedding(backend="auto", **kw), HKVEmbedding(backend="plain", **kw)
     tk, tp = ek.create(device=dev), ep.create(device=dev)
     g = np.random.default_rng(17)
@@ -705,26 +717,75 @@ def test_bf16_table_runs_on_the_card(dev):
 
     for _ in range(4):
         keys = g.integers(0, 4 * 16 * 128, size=1500).astype(np.int64)
-        vals = torch.randn(1500, 32, device=dev).to(torch.bfloat16)
+        vals = torch.randn(1500, 32, device=dev).to(dtype)
         assert torch.equal(tk.insert_or_assign(keys, vals).status,
                            tp.insert_or_assign(keys, vals).status)
         same_state()
         _build.reset_counts()
         fk, fp = tk.find(keys), tp.find(keys)
-        assert _build.launch_counts["find_scan"] == 1
-        assert fk.values.dtype == torch.bfloat16 and torch.equal(fk.values, fp.values)
+        assert _build.launch_counts["find_scan" if value_tier == "hbm" else "gather_rows"] == 1
+        assert fk.values.dtype == dtype and torch.equal(fk.values, fp.values)
+        fresh = torch.from_numpy(g.integers(2**40, 2**41, size=3000)).to(dev)
+        init = torch.randn(3000, 32, device=dev)
+        rk, rp = tk.find_or_insert(fresh, init), tp.find_or_insert(fresh, init)
+        assert rk.values.dtype == rp.values.dtype == torch.float32
+        assert torch.equal(rk.values, rp.values) and torch.equal(rk.status, rp.status)
+        rej = rk.status == ops.STATUS_REJECTED
+        assert rej.any() and torch.equal(rk.values[rej], init[rej])
+        same_state()
         toks = torch.from_numpy(g.integers(0, 4 * 16 * 128, size=(64, 26))).to(dev)
         tk, rk = ek.lookup_train(tk, toks)
         tp, rp = ep.lookup_train(tp, toks)
         assert torch.equal(rk, rp)
         same_state()
         uniq = torch.unique(tk.state.keys[tk.state.keys != -1])[:300]
-        grads = torch.randn(300, 32, device=dev).to(torch.bfloat16)
+        grads = torch.randn(300, 32, device=dev).to(dtype)
         _build.reset_counts()
         ops.update_rows(tk.state, tk.cfg, uniq, grads, opt)
-        assert dict(_build.launch_counts) == {"update_scan": 1}
+        assert dict(_build.launch_counts) == (
+            {"update_scan": 1} if value_tier == "hbm"
+            else {"digest_scan": 1, "gather_rows": 1, "scatter_rows": 1})
         ops.update_rows(tp.state, tp.cfg, uniq, grads, opt, backend="plain")
         same_state()
+
+
+def test_float16_kernels_do_not_compute_as_bfloat16(dev):
+    """scatter_rows' add and update_scan's sgd on float16 planes whose
+    results round otherwise at bfloat16: the kernels equal the float16
+    plain versions, so the launchers compute in float16, told by the dtype
+    code and not by the 2-byte size; an unknown code is refused."""
+    from repro_torch.embedding.sparse_opt import SparseOptimizer
+    from repro_torch.kernels import update_scan
+
+    n, v = 4096, 8
+    gen = torch.Generator(device=dev).manual_seed(23)
+    values = (1 + torch.rand(n, v, generator=gen, device=dev)).to(torch.float16)
+    upd = (torch.rand(n, v, generator=gen, device=dev) / 64).to(torch.float16)
+    rows = torch.randperm(n, generator=gen, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    vk, vp = values.clone(), values.clone()
+    scatter.scatter_rows(vk, rows, upd, mask, True)
+    scatter.scatter_rows_plain(vp, rows, upd, mask, True)
+    assert torch.equal(vk.view(torch.int16), vp.view(torch.int16))
+    as_bf16 = (values[rows].float() + upd.float()).to(torch.bfloat16).float()
+    assert (as_bf16 != vp[rows].float()).float().mean() > 0.5   # the roundings differ
+
+    opt = SparseOptimizer("sgd", lr=0.05)
+    t = _update_table(dev, opt, 32, dtype=torch.float16)
+    q, p, valid = _update_queries(t)
+    grads = torch.randn(q.numel(), 32, generator=gen, device=dev).to(torch.float16)
+    s = t.state
+    vk, vp = s.values.clone(), s.values.clone()
+    args = (s.digests, s.keys)
+    rest = (p.bucket1, p.bucket2, p.digest, q, valid, grads, opt, 32)
+    fk = update_scan.update_scan(*args, vk, *rest)
+    fp = update_scan.update_scan_plain(*args, vp, *rest)
+    _same((fk, vk.view(torch.int16)), (fp, vp.view(torch.int16)))
+    hit = fk.bool()
+    assert hit.any()
+
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _build.launch("scatter_rows", values, rows, upd, mask, n, n, v * 2, 1, 3, 16)
 
 
 @pytest.mark.parametrize("which", ["updates", "values"])

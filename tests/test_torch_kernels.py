@@ -372,19 +372,21 @@ def test_gather_rows_plain_matches_jax(lam):
     assert got[torch.from_numpy(~mask)].eq(0).all() and got[torch.from_numpy(mask)].ne(0).any()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("width", [1, 5, 8])
 def test_gather_rows_width_plain_matches_jax(width, dtype):
     """gather_rows of the first `width` columns (the readback's dim columns
     of a plane with aux ones) equals the reference's gather_rows, and its
-    jnp reference, sliced to `width`; float32 and bfloat16 planes copied
-    bit for bit."""
+    jnp reference, sliced to `width`; float32, bfloat16 and float16 planes
+    copied bit for bit."""
     import ml_dtypes
 
     rng, cfg, state, _ = _filled(1.0, True)
     values = np.array(state.values)
     if dtype == "bfloat16":
         values = values.astype(ml_dtypes.bfloat16)
+    elif dtype == "float16":
+        values = values.astype(np.float16)
     r = values.shape[0]
     rows = rng.integers(0, r, size=N).astype(np.int64)
     rows[::9] = r + 4
