@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import table as table_mod
 from repro_torch.core import u64
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.obs.trace import span
 
 
 class Probe(NamedTuple):
@@ -35,11 +36,12 @@ class Locate(NamedTuple):
 
 
 def probe_keys(cfg: HKVConfig, keys: torch.Tensor) -> Probe:
-    h1, h2 = u64.hash_pair(keys)
-    b1 = u64.bucket_from_hash(h1, cfg.num_buckets)
-    b2 = u64.bucket_from_hash(h2, cfg.num_buckets) if cfg.buckets_per_key == 2 else b1
-    return Probe(bucket1=b1, bucket2=b2, digest=u64.digest_from_hash(h1),
-                 valid=~u64.empty_lanes(keys))
+    with span("hash"):
+        h1, h2 = u64.hash_pair(keys)
+        b1 = u64.bucket_from_hash(h1, cfg.num_buckets)
+        b2 = u64.bucket_from_hash(h2, cfg.num_buckets) if cfg.buckets_per_key == 2 else b1
+        return Probe(bucket1=b1, bucket2=b2, digest=u64.digest_from_hash(h1),
+                     valid=~u64.empty_lanes(keys))
 
 
 def match_lanes(keys: torch.Tensor, q: torch.Tensor,

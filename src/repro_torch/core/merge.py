@@ -29,6 +29,11 @@ The heavy stages are pluggable (``UpsertStages``); ``plain_stages`` is the
 PyTorch reference and ``repro_torch.kernels.ops.kernel_stages`` swaps in
 the CUDA kernels.  The orchestration is shared, so the two are
 bit-identical wherever the stage contracts hold.
+
+Each stage of ``upsert`` runs in a program span (``closure.dedupe`` to
+``closure.post``, ``repro_torch.obs.trace``), so a trace shows which one
+leaves the device idle; ``closure.miss_count`` is the host read of the
+miss count alone.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from repro_torch.core import find as find_mod
 from repro_torch.core import table as table_mod
 from repro_torch.core import u64
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.obs.trace import span
 
 STATUS_INVALID = 0    # input slot held the EMPTY sentinel (or a duplicate's lane)
 STATUS_UPDATED = 1    # key existed: value/score updated in place
@@ -284,82 +290,92 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     clock, epoch = state.clock, state.epoch
 
     # ---- dedupe -------------------------------------------------------------
-    keys_s, idx_s, gid, count_s, last_idx_s, rep_mask = _dedupe_sort(keys)
+    with span("closure.dedupe"):
+        keys_s, idx_s, gid, count_s, last_idx_s, rep_mask = _dedupe_sort(keys)
     custom_s = None if custom_scores is None else custom_scores[last_idx_s]
     status_g = torch.zeros(n, dtype=torch.int32, device=dev)
 
     # ---- phase 1: hits -------------------------------------------------------
-    probe_s = find_mod.probe_keys(cfg, keys_s)
-    if loc is None:
-        loc = stages.locate(state, cfg, keys_s, probe_s)
-    else:   # batch order -> sorted space; EMPTY lanes forced to miss
-        loc = find_mod.Locate(found=loc.found[idx_s] & probe_s.valid,
-                              bucket=loc.bucket[idx_s], slot=loc.slot[idx_s],
-                              row=loc.row[idx_s])
-    hit = loc.found & rep_mask
-    if update_hit_scores:
-        old_sc = state.scores[loc.bucket, loc.slot]
-        new_sc = policy.update_score(old_sc, clock, epoch, count_s, custom_s)
-        state.scores[loc.bucket[hit], loc.slot[hit]] = new_sc[hit]
-    if write_hit_values:
-        stages.scatter_values(cfg, state.values, loc.row, values[last_idx_s], hit)
-    status_g.scatter_reduce_(0, gid, hit.to(torch.int32) * STATUS_UPDATED, "amax")
+    with span("closure.locate"):
+        probe_s = find_mod.probe_keys(cfg, keys_s)
+        if loc is None:
+            loc = stages.locate(state, cfg, keys_s, probe_s)
+        else:   # batch order -> sorted space; EMPTY lanes forced to miss
+            loc = find_mod.Locate(found=loc.found[idx_s] & probe_s.valid,
+                                  bucket=loc.bucket[idx_s], slot=loc.slot[idx_s],
+                                  row=loc.row[idx_s])
+    with span("closure.hits"):
+        hit = loc.found & rep_mask
+        if update_hit_scores:
+            old_sc = state.scores[loc.bucket, loc.slot]
+            new_sc = policy.update_score(old_sc, clock, epoch, count_s, custom_s)
+            state.scores[loc.bucket[hit], loc.slot[hit]] = new_sc[hit]
+        if write_hit_values:
+            stages.scatter_values(cfg, state.values, loc.row, values[last_idx_s], hit)
+        status_g.scatter_reduce_(0, gid, hit.to(torch.int32) * STATUS_UPDATED, "amax")
 
     # ---- phase 2: misses -----------------------------------------------------
-    miss = rep_mask & ~loc.found
-    target = stages.select_target(state, cfg, probe_s, miss)   # read on the misses only
-    init_sc = policy.init_score(clock, epoch, count_s, custom_s)
+    with span("closure.target"):
+        miss = rep_mask & ~loc.found
+        target = stages.select_target(state, cfg, probe_s, miss)   # read on the misses only
+        init_sc = policy.init_score(clock, epoch, count_s, custom_s)
 
     # canonical order: (bucket asc, score desc, key asc); non-misses last
-    bkt_key = torch.where(miss, target, b)
-    perm = stable_argsort(bkt_key, u64.flip(~init_sc), u64.flip(keys_s))
-    bkt_m, key_m, gid_m, idx_m = bkt_key[perm], keys_s[perm], gid[perm], idx_s[perm]
-    sc_m, dig_m, vrow_m = init_sc[perm], probe_s.digest[perm], last_idx_s[perm]
-    mask_m = bkt_m < b
-    iota = torch.arange(n, device=dev)
-    is_newb = torch.ones(n, dtype=torch.bool, device=dev)
-    is_newb[1:] = bkt_m[1:] != bkt_m[:-1]
-    run_start = torch.cummax(torch.where(is_newb, iota, -1), 0).values
-    rank = iota - run_start
+    with span("closure.order"):
+        bkt_key = torch.where(miss, target, b)
+        perm = stable_argsort(bkt_key, u64.flip(~init_sc), u64.flip(keys_s))
+        bkt_m, key_m, gid_m, idx_m = bkt_key[perm], keys_s[perm], gid[perm], idx_s[perm]
+        sc_m, dig_m, vrow_m = init_sc[perm], probe_s.digest[perm], last_idx_s[perm]
+    with span("closure.rank"):
+        mask_m = bkt_m < b
+        iota = torch.arange(n, device=dev)
+        is_newb = torch.ones(n, dtype=torch.bool, device=dev)
+        is_newb[1:] = bkt_m[1:] != bkt_m[:-1]
+        run_start = torch.cummax(torch.where(is_newb, iota, -1), 0).values
+        rank = iota - run_start
 
     bkt_g = bkt_m.clamp(0, b - 1)
     # The misses sort first, so they are the prefix [:m]: victim_at_rank
     # runs on those lanes only (one host read of m; the boolean indexing
     # below syncs anyway).  The other lanes keep (slot 0, free, score 0,
     # key 0), which no later step reads: admitted and evicts are False there.
-    m = int(mask_m.sum())
-    victim_slot = torch.zeros(n, dtype=torch.int64, device=dev)
-    victim_occ = torch.zeros(n, dtype=torch.bool, device=dev)
-    victim_sc = torch.zeros(n, dtype=torch.int64, device=dev)
-    victim_key = torch.zeros(n, dtype=torch.int64, device=dev)
-    if m:
-        (victim_slot[:m], victim_occ[:m], victim_sc[:m],
-         victim_key[:m]) = stages.victim_at_rank(state, cfg, bkt_g[:m], rank[:m])
-    admitted = mask_m & (rank < s) & (~victim_occ | u64.gt(sc_m, victim_sc))
-    evicts = admitted & victim_occ
+    with span("closure.miss_count"):
+        m = int(mask_m.sum())
+    with span("closure.victims"):
+        victim_slot = torch.zeros(n, dtype=torch.int64, device=dev)
+        victim_occ = torch.zeros(n, dtype=torch.bool, device=dev)
+        victim_sc = torch.zeros(n, dtype=torch.int64, device=dev)
+        victim_key = torch.zeros(n, dtype=torch.int64, device=dev)
+        if m:
+            (victim_slot[:m], victim_occ[:m], victim_sc[:m],
+             victim_key[:m]) = stages.victim_at_rank(state, cfg, bkt_g[:m], rank[:m])
+        admitted = mask_m & (rank < s) & (~victim_occ | u64.gt(sc_m, victim_sc))
+        evicts = admitted & victim_occ
 
-    # the evicted rows are read before the structural scatter overwrites them
-    victim_row = bkt_g * s + victim_slot
-    if return_evicted:
-        ev_values = stages.gather_values(cfg, state.values, victim_row, evicts)
+    with span("closure.write"):
+        # the evicted rows are read before the structural scatter overwrites them
+        victim_row = bkt_g * s + victim_slot
+        if return_evicted:
+            ev_values = stages.gather_values(cfg, state.values, victim_row, evicts)
 
-    # structural scatter: distinct (bucket, victim_slot) pairs
-    tb, ts = bkt_m[admitted], victim_slot[admitted]
-    state.keys[tb, ts] = key_m[admitted]
-    state.digests[tb, ts] = dig_m[admitted]
-    state.scores[tb, ts] = sc_m[admitted]
-    stages.scatter_values(cfg, state.values, victim_row,
-                          insert_values[vrow_m].to(state.values.dtype), admitted)
+        # structural scatter: distinct (bucket, victim_slot) pairs
+        tb, ts = bkt_m[admitted], victim_slot[admitted]
+        state.keys[tb, ts] = key_m[admitted]
+        state.digests[tb, ts] = dig_m[admitted]
+        state.scores[tb, ts] = sc_m[admitted]
+        stages.scatter_values(cfg, state.values, victim_row,
+                              insert_values[vrow_m].to(state.values.dtype), admitted)
 
-    status_m = torch.where(
-        admitted,
-        torch.where(evicts, STATUS_EVICTED, STATUS_INSERTED),
-        torch.where(mask_m, STATUS_REJECTED, STATUS_INVALID)).to(torch.int32)
-    status_g.scatter_reduce_(0, gid_m, status_m, "amax")
+    with span("closure.status"):
+        status_m = torch.where(
+            admitted,
+            torch.where(evicts, STATUS_EVICTED, STATUS_INSERTED),
+            torch.where(mask_m, STATUS_REJECTED, STATUS_INVALID)).to(torch.int32)
+        status_g.scatter_reduce_(0, gid_m, status_m, "amax")
 
-    # group status -> batch order (duplicates share their group's status)
-    status = torch.empty(n, dtype=torch.int8, device=dev)
-    status[idx_s] = status_g[gid].to(torch.int8)
+        # group status -> batch order (duplicates share their group's status)
+        status = torch.empty(n, dtype=torch.int8, device=dev)
+        status[idx_s] = status_g[gid].to(torch.int8)
 
     # ---- post-op locations (batch order) -------------------------------------
     # Hits stay where they were located, admitted misses sit in their
@@ -367,36 +383,37 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     # admitted miss whose init score beats its updated score (lfu-family
     # and custom policies, never monotone lru clocks): the final key plane
     # at the hit's position decides whether it is still there.
-    hit_live = hit & find_mod.match_lanes(state.keys[loc.bucket, loc.slot], keys_s)
-    pos_b = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    pos_s = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    pos_in = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    hg = torch.where(hit_live, gid, n)                 # lane n absorbs the rest
-    pos_b[hg], pos_s[hg], pos_in[hg] = loc.bucket, loc.slot, hit_live
-    ag = torch.where(admitted, gid_m, n)
-    pos_b[ag], pos_s[ag], pos_in[ag] = bkt_m, victim_slot, admitted
-    pos_b[n], pos_s[n], pos_in[n] = 0, 0, False
+    with span("closure.post"):
+        hit_live = hit & find_mod.match_lanes(state.keys[loc.bucket, loc.slot], keys_s)
+        pos_b = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        pos_s = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        pos_in = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        hg = torch.where(hit_live, gid, n)                 # lane n absorbs the rest
+        pos_b[hg], pos_s[hg], pos_in[hg] = loc.bucket, loc.slot, hit_live
+        ag = torch.where(admitted, gid_m, n)
+        pos_b[ag], pos_s[ag], pos_in[ag] = bkt_m, victim_slot, admitted
+        pos_b[n], pos_s[n], pos_in[n] = 0, 0, False
 
-    def to_batch(a):
-        out = torch.empty(n, dtype=a.dtype, device=dev)
-        out[idx_s] = a[gid]
-        return out
+        def to_batch(a):
+            out = torch.empty(n, dtype=a.dtype, device=dev)
+            out[idx_s] = a[gid]
+            return out
 
-    post_b, post_s = to_batch(pos_b), to_batch(pos_s)
-    post_loc = find_mod.Locate(found=to_batch(pos_in), bucket=post_b, slot=post_s,
-                               row=post_b * s + post_s)
-    pre_found = torch.empty(n, dtype=torch.bool, device=dev)
-    pre_found[idx_s] = loc.found
+        post_b, post_s = to_batch(pos_b), to_batch(pos_s)
+        post_loc = find_mod.Locate(found=to_batch(pos_in), bucket=post_b, slot=post_s,
+                                   row=post_b * s + post_s)
+        pre_found = torch.empty(n, dtype=torch.bool, device=dev)
+        pre_found[idx_s] = loc.found
 
-    if return_evicted:
-        oe = torch.where(evicts, idx_m, n)            # evictor's batch position
-        stream = EvictionStream.zero(n + 1, vdim, state.values.dtype, dev)
-        stream.keys[oe] = torch.where(evicts, victim_key, 0)
-        stream.scores[oe] = torch.where(evicts, victim_sc, 0)
-        stream.values[oe] = ev_values.to(state.values.dtype)
-        stream.mask[oe] = evicts
-        stream = EvictionStream(*(x[:n] for x in stream))
-    else:
-        stream = EvictionStream.zero(0, vdim, state.values.dtype, dev)
+        if return_evicted:
+            oe = torch.where(evicts, idx_m, n)            # evictor's batch position
+            stream = EvictionStream.zero(n + 1, vdim, state.values.dtype, dev)
+            stream.keys[oe] = torch.where(evicts, victim_key, 0)
+            stream.scores[oe] = torch.where(evicts, victim_sc, 0)
+            stream.values[oe] = ev_values.to(state.values.dtype)
+            stream.mask[oe] = evicts
+            stream = EvictionStream(*(x[:n] for x in stream))
+        else:
+            stream = EvictionStream.zero(0, vdim, state.values.dtype, dev)
     return MergeResult(state=state, status=status, evicted=stream,
                        found=pre_found, loc=post_loc)

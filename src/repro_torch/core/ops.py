@@ -52,6 +52,13 @@ status histogram after it.  ``telemetry=None`` is the path without it:
 the observers are imported only where a sink is given.  The whole-table
 scans and ``clear`` are exempt (``TELEMETRY_EXEMPT``).
 
+Tracing (``repro_torch.obs.trace``): find, update_rows, insert_or_assign,
+find_or_insert and ingest each open an ``op.<name>`` span, the root of
+their stages' spans, and, while tracing is live, count their lanes, hits
+and (inserters) status histogram from their own outputs: at most three
+small launches, no host read, no second probe.  Off, a span is the shared
+no-op.
+
 ``HKVTable`` in ``core.api`` is the public surface; these free functions
 are the implementation it delegates to.
 """
@@ -78,6 +85,7 @@ from repro_torch.core.merge import (  # noqa: F401  (re-exported)
 )
 from repro_torch.core.predicates import SweepPredicate
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.obs.trace import op_span, span
 
 
 # Role-annotated ops without a `telemetry=` seam, each with the reason
@@ -99,6 +107,32 @@ def _obs():
     from repro_torch.obs import telemetry as obs_telemetry
 
     return obs_telemetry
+
+
+# The inserters' status codes the op spans count, in their counters' order.
+_COUNTED = (STATUS_UPDATED, STATUS_INSERTED, STATUS_EVICTED, STATUS_REJECTED)
+_counted_codes: dict = {}
+
+
+def _count_found(sp, keys: torch.Tensor, found: torch.Tensor, updated: bool = False) -> None:
+    """A reader's or updater's op-span counters: valid lanes and found
+    lanes (3 launches, no host read; `updated`: the found rows were
+    written)."""
+    c = torch.stack((keys != u64.EMPTY, found)).sum(1)
+    sp.count(lanes=(c, 0), hits=(c, 1), **({"updated": (c, 1)} if updated else {}))
+
+
+def _count_status(sp, status: torch.Tensor, found: Optional[torch.Tensor] = None) -> None:
+    """An inserter's op-span counters from its status (2 launches): the
+    histogram of the four statuses a valid lane takes, so `lanes` is their
+    sum; `hits` is `found` (1 launch more), else the in-place updates."""
+    codes = _counted_codes.get(status.device)
+    if codes is None:
+        codes = _counted_codes[status.device] = torch.tensor(
+            _COUNTED, dtype=status.dtype, device=status.device)[:, None]
+    h = (status[None, :] == codes).sum(1)
+    sp.count(lanes=h, updated=(h, 0), inserted=(h, 1), evicted=(h, 2), rejected=(h, 3),
+             hits=(h, 0) if found is None else found.sum())
 
 
 def uses_kernels(backend: str, device: torch.device) -> bool:
@@ -170,10 +204,13 @@ def find(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     """Reader.  Digest-filtered lookup with value copy (paper `find`); on
     the card one fused find_scan launch does match, score readout and
     value copy, or, at a caller's `loc`, one gather_rows launch."""
-    vals, found, _row, scores = _read(state, cfg, keys, loc, cfg.dim, backend)
-    if telemetry is not None:
-        telemetry.record("find", _obs().observe_find(state, cfg, keys, found))
-    return FindResult(values=vals, found=found, scores=scores)
+    with op_span("op.find") as sp:
+        vals, found, _row, scores = _read(state, cfg, keys, loc, cfg.dim, backend)
+        if sp:
+            _count_found(sp, keys, found)
+        if telemetry is not None:
+            telemetry.record("find", _obs().observe_find(state, cfg, keys, found))
+        return FindResult(values=vals, found=found, scores=scores)
 
 
 @roles.reader
@@ -348,25 +385,30 @@ def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torc
     does probe, optimizer and write-back.  Otherwise the step is composed
     as the reference composes it: locate (or the caller's `loc`), the row
     gather, the optimizer, and ``assign`` at that locate."""
-    kern = uses_kernels(backend, state.device)
-    if loc is None and not update_scores and kern:
-        r = _kernel_ops().update_rows_kernel(state, cfg, keys, grads, opt)
+    with op_span("op.update_rows") as sp:
+        kern = uses_kernels(backend, state.device)
+        if loc is None and not update_scores and kern:
+            r = _kernel_ops().update_rows_kernel(state, cfg, keys, grads, opt)
+            if sp:
+                _count_found(sp, keys, r.found, updated=True)
+            if telemetry is not None:
+                telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, r.found))
+            return UpdateRowsResult(state=state, found=r.found)
+        if loc is None:
+            loc = find_mod.locate(state, cfg, keys)
+            rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
+        elif kern:
+            rows = _kernel_ops().gather_rows_kernel(state, loc, state.values.shape[1])
+        else:
+            rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
         if telemetry is not None:
-            telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, r.found))
-        return UpdateRowsResult(state=state, found=r.found)
-    if loc is None:
-        loc = find_mod.locate(state, cfg, keys)
-        rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
-    elif kern:
-        rows = _kernel_ops().gather_rows_kernel(state, loc, state.values.shape[1])
-    else:
-        rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
-    if telemetry is not None:
-        telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, loc.found))
-    new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
-    new_rows = torch.where(loc.found[:, None], new_rows, rows)
-    assign(state, cfg, keys, new_rows, update_scores=update_scores, loc=loc)
-    return UpdateRowsResult(state=state, found=loc.found)
+            telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, loc.found))
+        new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
+        new_rows = torch.where(loc.found[:, None], new_rows, rows)
+        assign(state, cfg, keys, new_rows, update_scores=update_scores, loc=loc)
+        if sp:
+            _count_found(sp, keys, loc.found, updated=True)
+        return UpdateRowsResult(state=state, found=loc.found)
 
 
 # =============================================================================
@@ -411,12 +453,15 @@ def insert_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                      backend: str = "auto", telemetry=None) -> UpsertResult:
     """Inserter.  Update-or-insert with in-line eviction and admission
     (paper Alg. 2/3), in place."""
-    probe = _probe_before(telemetry, state, cfg, keys)
-    res = merge_mod.upsert(state, cfg, keys, _pad_aux(values, state),
-                           custom_scores=custom_scores,
-                           stages=_upsert_stages(backend, cfg, state.device))
-    _record_upsert(telemetry, "insert_or_assign", probe, keys, res.status)
-    return UpsertResult(state=state, status=res.status)
+    with op_span("op.insert_or_assign") as sp:
+        probe = _probe_before(telemetry, state, cfg, keys)
+        res = merge_mod.upsert(state, cfg, keys, _pad_aux(values, state),
+                               custom_scores=custom_scores,
+                               stages=_upsert_stages(backend, cfg, state.device))
+        if sp:
+            _count_status(sp, res.status)
+        _record_upsert(telemetry, "insert_or_assign", probe, keys, res.status)
+        return UpsertResult(state=state, status=res.status)
 
 
 @roles.inserter
@@ -451,15 +496,18 @@ def find_or_insert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     stored value of every key present after the op, the caller's init row
     where admission rejected the key.  One probe: the closure publishes
     each key's post-op location and the readback gathers there."""
-    probe = _probe_before(telemetry, state, cfg, keys)
-    res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
-                           custom_scores=custom_scores, write_hit_values=False,
-                           return_evicted=return_evicted,
-                           stages=_upsert_stages(backend, cfg, state.device), loc=loc)
-    vals = _gather_post(res, cfg, init_values, backend)
-    _record_upsert(telemetry, "find_or_insert", probe, keys, res.status, res.found)
-    return FindOrInsertResult(state=state, values=vals, found=res.found,
-                              status=res.status, evicted=res.evicted)
+    with op_span("op.find_or_insert") as sp:
+        probe = _probe_before(telemetry, state, cfg, keys)
+        res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
+                               custom_scores=custom_scores, write_hit_values=False,
+                               return_evicted=return_evicted,
+                               stages=_upsert_stages(backend, cfg, state.device), loc=loc)
+        vals = _gather_post(res, cfg, init_values, backend)
+        if sp:
+            _count_status(sp, res.status, res.found)
+        _record_upsert(telemetry, "find_or_insert", probe, keys, res.status, res.found)
+        return FindOrInsertResult(state=state, values=vals, found=res.found,
+                                  status=res.status, evicted=res.evicted)
 
 
 def _gather_post(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
@@ -467,11 +515,12 @@ def _gather_post(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
     """The rows at the closure's post-op locations; a rejected key gets
     the caller's init row back (see `readback_rows`)."""
     state = res.state
-    if uses_kernels(backend, state.device):
-        vals = _kernel_ops().gather_rows_kernel(state, res.loc, cfg.dim)
-    else:
-        vals = find_mod.gather_values(state, res.loc, cfg.dim, cfg.value_tier)
-    return readback_rows(res.loc.found, vals, init_values[:, :cfg.dim])
+    with span("op.readback"):
+        if uses_kernels(backend, state.device):
+            vals = _kernel_ops().gather_rows_kernel(state, res.loc, cfg.dim)
+        else:
+            vals = find_mod.gather_values(state, res.loc, cfg.dim, cfg.value_tier)
+        return readback_rows(res.loc.found, vals, init_values[:, :cfg.dim])
 
 
 def readback_rows(found: torch.Tensor, stored: torch.Tensor,
@@ -495,12 +544,15 @@ def ingest(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
            backend: str = "auto", telemetry=None) -> UpsertResult:
     """Inserter.  Admission-only upsert: find_or_insert without the value
     readback."""
-    probe = _probe_before(telemetry, state, cfg, keys)
-    res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
-                           custom_scores=custom_scores, write_hit_values=False,
-                           stages=_upsert_stages(backend, cfg, state.device))
-    _record_upsert(telemetry, "ingest", probe, keys, res.status, res.found)
-    return UpsertResult(state=state, status=res.status)
+    with op_span("op.ingest") as sp:
+        probe = _probe_before(telemetry, state, cfg, keys)
+        res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
+                               custom_scores=custom_scores, write_hit_values=False,
+                               stages=_upsert_stages(backend, cfg, state.device))
+        if sp:
+            _count_status(sp, res.status, res.found)
+        _record_upsert(telemetry, "ingest", probe, keys, res.status, res.found)
+        return UpsertResult(state=state, status=res.status)
 
 
 @roles.inserter

@@ -37,6 +37,7 @@ from repro_torch.core.api import HKVTable
 from repro_torch.core.table import HKVConfig
 from repro_torch.core.tiered import TieredHKVTable, TieredState
 from repro_torch.embedding.sparse_opt import SparseOptimizer
+from repro_torch.obs.trace import span
 
 
 def _shape(tokens) -> tuple:
@@ -110,21 +111,23 @@ class HKVEmbedding:
     def default_rows(self, keys: torch.Tensor) -> torch.Tensor:
         """Deterministic init per key: counter-mode fmix32 bits -> uniform
         rows in ±1/sqrt(dim), bit for bit the reference's."""
-        h1, _ = u64.hash_pair(keys)
-        cols = torch.arange(self.dim, dtype=torch.int64, device=keys.device)
-        col_salt = ((cols * 0x9E3779B9) & u64.MASK32) ^ 0x85EBCA6B
-        bits = u64.fmix32(h1[:, None] ^ col_salt[None, :])
-        uni = bits.to(torch.float32) * (1.0 / 4294967296.0)
-        return ((uni - 0.5) * float(2.0 / np.sqrt(self.dim))).to(self.value_dtype)
+        with span("embedding.default_rows"):
+            h1, _ = u64.hash_pair(keys)
+            cols = torch.arange(self.dim, dtype=torch.int64, device=keys.device)
+            col_salt = ((cols * 0x9E3779B9) & u64.MASK32) ^ 0x85EBCA6B
+            bits = u64.fmix32(h1[:, None] ^ col_salt[None, :])
+            uni = bits.to(torch.float32) * (1.0 / 4294967296.0)
+            return ((uni - 0.5) * float(2.0 / np.sqrt(self.dim))).to(self.value_dtype)
 
     # -- roles -----------------------------------------------------------------
 
     def lookup_train(self, table: HKVTable, tokens):
         """Inserter: find_or_insert the token batch.  Returns (table, rows
         of shape tokens.shape + (dim,))."""
-        keys = self.keys_of(tokens).to(table.device)
-        res = table.find_or_insert(keys, self.default_rows(keys))
-        return res.table, res.values.reshape(_shape(tokens) + (self.dim,))
+        with span("embedding.lookup_train"):
+            keys = self.keys_of(tokens).to(table.device)
+            res = table.find_or_insert(keys, self.default_rows(keys))
+            return res.table, res.values.reshape(_shape(tokens) + (self.dim,))
 
     def lookup_serve(self, table: HKVTable, tokens) -> torch.Tensor:
         """Reader: find; a miss falls back to the deterministic init row.
@@ -142,13 +145,14 @@ class HKVEmbedding:
         """The gradient rows summed per unique token, compacted: group g's
         key at lane g (EMPTY beyond the groups), its summed row at row g.
         Returns (unique keys int64 [N], sums [N, dim])."""
-        keys = self.keys_of(tokens).to(grads.device)
-        g = grads.reshape(-1, self.dim)
-        d = merge_mod.dedupe_keys(keys)
-        uniq = torch.full_like(keys, u64.EMPTY)
-        uniq[d.gid] = keys[d.idx_sorted]
-        g_sum = torch.zeros_like(g).index_add_(0, d.gid, g[d.idx_sorted])
-        return uniq, g_sum
+        with span("embedding.sum_grads"):
+            keys = self.keys_of(tokens).to(grads.device)
+            g = grads.reshape(-1, self.dim)
+            d = merge_mod.dedupe_keys(keys)
+            uniq = torch.full_like(keys, u64.EMPTY)
+            uniq[d.gid] = keys[d.idx_sorted]
+            g_sum = torch.zeros_like(g).index_add_(0, d.gid, g[d.idx_sorted])
+            return uniq, g_sum
 
     def apply_grads(self, table: HKVTable, tokens, grads: torch.Tensor) -> HKVTable:
         """Updater: the sparse optimizer step on the rows of the batch's
@@ -156,10 +160,11 @@ class HKVEmbedding:
         update_scan launch).  Tokens the table did not admit have no row
         and do not train.  The sums run in batch order on the CPU and as
         float32 atomics on the card."""
-        uniq, g_sum = self.sum_grads(tokens, grads)
-        s = table.session()
-        s.update_rows(uniq, ops_mod.RowUpdate(self.optimizer, g_sum))
-        return s.commit()
+        with span("embedding.apply_grads"):
+            uniq, g_sum = self.sum_grads(tokens, grads)
+            s = table.session()
+            s.update_rows(uniq, ops_mod.RowUpdate(self.optimizer, g_sum))
+            return s.commit()
 
     def ingest(self, table: HKVTable, tokens) -> HKVTable:
         """Admit the batch's new tokens without reading values."""

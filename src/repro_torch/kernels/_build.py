@@ -34,6 +34,8 @@ import weakref
 
 import torch
 
+from repro_torch.obs.trace import span
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,6 +64,8 @@ _HOST_SIGNATURES = {
 _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
 
 launch_counts: collections.Counter = collections.Counter()
+# each launch's program span, by kernel
+_SPANS = {name[len("hkv_"):]: "kernel." + name[len("hkv_"):] for name in _SIGNATURES}
 build_log: list[str] = []
 _lib = None
 _lock = threading.Lock()
@@ -138,7 +142,8 @@ def launch(name: str, *args) -> None:
     """Call C entry point `hkv_<name>` on the current stream, raise on a
     launch error, and count the launch."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), "hkv_" + name)(*map(_arg, args), ctypes.c_void_p(stream))
+    with span(_SPANS[name]):
+        err = getattr(library(), "hkv_" + name)(*map(_arg, args), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"kernel {name} failed to launch: cudaError {err}")
     launch_counts[name] += 1

@@ -128,13 +128,7 @@ def lm_main(args):
 
 
 def embedding_main(args):
-    import numpy as np
-    import torch
-
-    from repro_torch.core.tiered import TieredHKVTable
-    from repro_torch.data import arrival_sizes, zipf_keys
-    from repro_torch.serving import (EmbeddingRequest, OnlineEmbeddingEngine,
-                                     OnlineTrainer, TablePublisher)
+    from repro_torch.obs import Tracer, install
 
     if args.smoke:
         args.hot_capacity = min(args.hot_capacity, 4 * 128)
@@ -142,11 +136,21 @@ def embedding_main(args):
         args.wave_size = min(args.wave_size, 256)
         args.waves = min(args.waves, 12)
 
-    tracer = None
-    if args.trace_out:
-        from repro_torch.obs import Tracer
+    # with --trace-out the table ops', closure stages' and kernel launches'
+    # spans land in the same file as the serving stack's
+    tracer = Tracer() if args.trace_out else None
+    with install(tracer):
+        return _serve_embedding(args, tracer)
 
-        tracer = Tracer()
+
+def _serve_embedding(args, tracer):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tiered import TieredHKVTable
+    from repro_torch.data import arrival_sizes, zipf_keys
+    from repro_torch.serving import (EmbeddingRequest, OnlineEmbeddingEngine,
+                                     OnlineTrainer, TablePublisher)
 
     table = TieredHKVTable.create(hot_capacity=args.hot_capacity,
                                   cold_capacity=args.cold_capacity, dim=args.dim,

@@ -63,7 +63,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core import find as find_mod
@@ -325,8 +324,3 @@ def psum_telemetry(records, device: Optional[torch.device] = None) -> OpTelemetr
     for r in records:
         tel = tel.merge(OpTelemetry(*[v.to(device) for v in r]))
     return tel
-
-
-def host_telemetry(tel: OpTelemetry) -> OpTelemetry:
-    """A record with every counter read to the host (numpy int64)."""
-    return OpTelemetry(*[np.int64(int(v)) for v in tel])

@@ -150,6 +150,13 @@ def test_serve_launcher_writes_the_reference_formats(tmp_path, capsys):
     names = {e["name"] for e in evs}
     assert {"wave.dispatch", "wave.reap", "wave.splice", "engine.submit", "request",
             "maintenance.run", "publisher.publish", "publisher.offer"} <= names
+    # the installed tracer also holds the table ops', closure stages' and
+    # hashing's spans, the op calls with their counters
+    assert {"op.find_or_insert", "op.readback", "hash", "closure.dedupe", "closure.miss_count",
+            "closure.post"} <= names
+    op_calls = [e for e in evs if e["name"] == "op.find_or_insert"]
+    assert all(e["args"]["op"] == e["args"]["id"] and e["args"]["lanes"] >= e["args"]["hits"]
+               and "launches" in e["args"] for e in op_calls)
     text = metrics.read_text()
     gauges = {ln.split()[0] for ln in text.splitlines() if not ln.startswith("#")}
     assert gauges == _reference_gauges(maintain=True)

@@ -462,8 +462,6 @@ def test_counters_are_int64_past_two_to_the_31():
     assert d["probed_slots"] == 12 * 2**28 > 2**31
     assert all(v.dtype == torch.int64 for v in sink.by_op["find"])
     assert sink.by_op["find"].rates()["probes_per_query"] == 2.0
-    host = obs_telemetry.host_telemetry(sink.total())
-    assert int(host.probed_slots) == 12 * 2**28 and host.probed_slots.dtype == np.int64
 
 
 def test_op_telemetry_algebra_and_sink():
