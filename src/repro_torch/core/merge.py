@@ -146,6 +146,16 @@ def stable_argsort(*keys: torch.Tensor) -> torch.Tensor:
     return perm
 
 
+def run_rank(sorted_ids: torch.Tensor) -> torch.Tensor:
+    """int64 [N]: each lane's position within its run of equal ids.
+
+    `sorted_ids` must be 1-D and sorted ascending.  A run then starts at
+    the left insertion point of its own id, so one binary search a lane
+    finds it: no scan over the batch, and no host read."""
+    iota = torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
+    return iota - torch.searchsorted(sorted_ids, sorted_ids)
+
+
 def _dedupe_sort(keys: torch.Tensor):
     """Sort the batch by unsigned key (stable); derive group ids, group
     multiplicities, the last writer's original index, and the mask of each
@@ -328,11 +338,7 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
         sc_m, dig_m, vrow_m = init_sc[perm], probe_s.digest[perm], last_idx_s[perm]
     with span("closure.rank"):
         mask_m = bkt_m < b
-        iota = torch.arange(n, device=dev)
-        is_newb = torch.ones(n, dtype=torch.bool, device=dev)
-        is_newb[1:] = bkt_m[1:] != bkt_m[:-1]
-        run_start = torch.cummax(torch.where(is_newb, iota, -1), 0).values
-        rank = iota - run_start
+        rank = run_rank(bkt_m)
 
     bkt_g = bkt_m.clamp(0, b - 1)
     # The misses sort first, so they are the prefix [:m]: victim_at_rank
