@@ -29,6 +29,22 @@ result carries `.table`, the same hierarchy (`with_tiers` builds another
 handle on the given tiers).  Caller keys are normalized once, and the
 tiers' ops then run through the op engine (``core.ops``) on the
 normalized keys.
+
+Tracing (``repro_torch.obs.trace``): find_or_insert (and so ingest),
+insert_or_assign and find each open a ``tier.<name>`` op span, the parent
+of the tiers' own op spans, with the stages
+
+  tier.hot_probe   find_or_insert's one hot locate (`find_ptr`)
+  tier.cold_probe  the cold tier's `find_rows` of the hot misses
+  tier.displaced   the demotion batch: `_dedupe_lanes` and `_displaced`
+  tier.demote      the cold tier's `insert_and_evict` of that batch
+
+and, while tracing is live, the counters ``lanes`` (valid key lanes),
+``hot_hits`` and ``cold_hits`` (lanes found in that tier before the op;
+insert_or_assign probes no cold tier: its hot hits are its in-place
+updates, its cold hits 0), ``promoted``, ``demoted`` and ``dropped`` (the
+op's own counts): at most four small launches, no host read.  Off, every
+span is the shared no-op.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ from repro_torch.core.api import HKVTable, OpSession
 from repro_torch.core.merge import EvictionStream
 from repro_torch.core.scores import ScorePolicy
 from repro_torch.core.table import HKVConfig, HKVState
+from repro_torch.obs.trace import op_span, span
 
 
 # =============================================================================
@@ -298,14 +315,15 @@ class TieredHKVTable:
         and what leaves the hierarchy at its boundary.  Lanes off `mask`
         go in as EMPTY, which every op ignores."""
         cold = self.cold
-        cs = translate_scores(self.hot.cfg.policy, cold.cfg.policy, scores)
-        res = ops_mod.insert_and_evict(cold.state, cold.cfg, _mask_keys(keys, mask), values,
-                                       custom_scores=cs, backend=cold.backend)
-        placed = mask & (res.status != ops_mod.STATUS_REJECTED)
-        # losses at the cold boundary: rejected demotions and the cold
-        # tier's own evictions (pairs pushed out of the last tier)
-        dropped = (mask & ~placed).sum() + res.evicted.count()
-        return _DemoteResult(demoted=placed.sum(), dropped=dropped, placed=placed)
+        with span("tier.demote"):
+            cs = translate_scores(self.hot.cfg.policy, cold.cfg.policy, scores)
+            res = ops_mod.insert_and_evict(cold.state, cold.cfg, _mask_keys(keys, mask), values,
+                                           custom_scores=cs, backend=cold.backend)
+            placed = mask & (res.status != ops_mod.STATUS_REJECTED)
+            # losses at the cold boundary: rejected demotions and the cold
+            # tier's own evictions (pairs pushed out of the last tier)
+            dropped = (mask & ~placed).sum() + res.evicted.count()
+            return _DemoteResult(demoted=placed.sum(), dropped=dropped, placed=placed)
 
     def _demote_stream(self, stream: EvictionStream) -> _DemoteResult:
         return self._demote(stream.keys, stream.values, stream.scores, stream.mask)
@@ -327,16 +345,22 @@ class TieredHKVTable:
         the cold tier.  `status` is the hot tier's verdict; `.ok` also
         covers hot-rejected pairs the cold tier placed."""
         hot = self.hot
-        k, cs = hot.keys(keys), hot._opt_keys(custom_scores)
-        values = ops_mod._pad_aux(hot._rows(values), hot.state)
-        res = ops_mod.insert_and_evict(hot.state, hot.cfg, k, values, custom_scores=cs,
-                                       backend=hot.backend, telemetry=telemetry)
-        first, rep_orig = _dedupe_lanes(k)
-        dem = self._demote(*self._displaced(k, values, res, rej_custom=cs, first=first))
-        _record_motion(telemetry, demoted=dem.demoted, dropped=dem.dropped)
-        return TieredUpsert(table=self, status=res.status, demoted=dem.demoted,
-                            dropped=dem.dropped,
-                            ok=_hierarchy_ok(res.status, dem.placed, rep_orig))
+        with op_span("tier.insert_or_assign") as sp:
+            k, cs = hot.keys(keys), hot._opt_keys(custom_scores)
+            values = ops_mod._pad_aux(hot._rows(values), hot.state)
+            res = ops_mod.insert_and_evict(hot.state, hot.cfg, k, values, custom_scores=cs,
+                                           backend=hot.backend, telemetry=telemetry)
+            with span("tier.displaced"):
+                first, rep_orig = _dedupe_lanes(k)
+                displaced = self._displaced(k, values, res, rej_custom=cs, first=first)
+            dem = self._demote(*displaced)
+            if sp:
+                _count_motion(sp, k, res.status == ops_mod.STATUS_UPDATED, None, 0,
+                              dem.demoted, dem.dropped)
+            _record_motion(telemetry, demoted=dem.demoted, dropped=dem.dropped)
+            return TieredUpsert(table=self, status=res.status, demoted=dem.demoted,
+                                dropped=dem.dropped,
+                                ok=_hierarchy_ok(res.status, dem.placed, rep_orig))
 
     def find_or_insert(self, keys: Any, init_values: Any,
                        custom_scores: Optional[Any] = None, *,
@@ -351,37 +375,45 @@ class TieredHKVTable:
         alike) cascades into the cold tier.  `custom_scores` feeds the hot
         tier's admission, promoted cold hits included."""
         hot, cold = self.hot, self.cold
-        k, cs = hot.keys(keys), hot._opt_keys(custom_scores)
-        # one hot probe, shared with the upsert closure through its `loc`
-        # (a locate depends only on the key plane, which the cold reads
-        # below do not touch)
-        pre = ops_mod.find_ptr(hot.state, hot.cfg, k, backend=hot.backend)
-        hot_pre = pre.found
-        # the cold tier is probed for hot misses only, full-width rows so
-        # that the aux optimizer columns travel with a promoted embedding
-        cold_rows = ops_mod.find_rows(cold.state, cold.cfg, _mask_keys(k, ~hot_pre),
-                                      backend=cold.backend)
-        cold_hit = cold_rows.found
-        init_full = ops_mod._pad_aux(hot._rows(init_values), hot.state)
-        admit_rows = torch.where(cold_hit[:, None], cold_rows.rows, init_full)
-        res = ops_mod.find_or_insert(hot.state, hot.cfg, k, admit_rows, custom_scores=cs,
-                                     backend=hot.backend, return_evicted=True, loc=pre,
-                                     telemetry=telemetry)
-        first, rep_orig = _dedupe_lanes(k)
-        # a rejected COLD HIT stays where it is: the pair never left the
-        # cold tier, and demoting it again would overwrite its cold score
-        # with a fresh count-1 init
-        dem = self._demote(*self._displaced(k, admit_rows, res, rej_custom=cs, first=first,
-                                            already_cold=cold_hit))
-        promoted = (cold_hit & first & (res.status >= ops_mod.STATUS_UPDATED)
-                    & (res.status <= ops_mod.STATUS_EVICTED)).sum()
-        _record_motion(telemetry, promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
-        return TieredFindOrInsert(
-            table=self, values=res.values, found=hot_pre | cold_hit, status=res.status,
-            promoted=promoted, demoted=dem.demoted, dropped=dem.dropped,
-            # rejected cold hits never left the cold tier: resident
-            ok=(_hierarchy_ok(res.status, dem.placed, rep_orig)
-                | ((res.status == ops_mod.STATUS_REJECTED) & cold_hit)))
+        with op_span("tier.find_or_insert") as sp:
+            k, cs = hot.keys(keys), hot._opt_keys(custom_scores)
+            # one hot probe, shared with the upsert closure through its `loc`
+            # (a locate depends only on the key plane, which the cold reads
+            # below do not touch)
+            with span("tier.hot_probe"):
+                pre = ops_mod.find_ptr(hot.state, hot.cfg, k, backend=hot.backend)
+            hot_pre = pre.found
+            # the cold tier is probed for hot misses only, full-width rows so
+            # that the aux optimizer columns travel with a promoted embedding
+            with span("tier.cold_probe"):
+                cold_rows = ops_mod.find_rows(cold.state, cold.cfg, _mask_keys(k, ~hot_pre),
+                                              backend=cold.backend)
+            cold_hit = cold_rows.found
+            init_full = ops_mod._pad_aux(hot._rows(init_values), hot.state)
+            admit_rows = torch.where(cold_hit[:, None], cold_rows.rows, init_full)
+            res = ops_mod.find_or_insert(hot.state, hot.cfg, k, admit_rows, custom_scores=cs,
+                                         backend=hot.backend, return_evicted=True, loc=pre,
+                                         telemetry=telemetry)
+            # a rejected COLD HIT stays where it is: the pair never left the
+            # cold tier, and demoting it again would overwrite its cold score
+            # with a fresh count-1 init
+            with span("tier.displaced"):
+                first, rep_orig = _dedupe_lanes(k)
+                displaced = self._displaced(k, admit_rows, res, rej_custom=cs, first=first,
+                                            already_cold=cold_hit)
+            dem = self._demote(*displaced)
+            promoted = (cold_hit & first & (res.status >= ops_mod.STATUS_UPDATED)
+                        & (res.status <= ops_mod.STATUS_EVICTED)).sum()
+            if sp:
+                _count_motion(sp, k, hot_pre, cold_hit, promoted, dem.demoted, dem.dropped)
+            _record_motion(telemetry, promoted=promoted, demoted=dem.demoted,
+                           dropped=dem.dropped)
+            return TieredFindOrInsert(
+                table=self, values=res.values, found=hot_pre | cold_hit, status=res.status,
+                promoted=promoted, demoted=dem.demoted, dropped=dem.dropped,
+                # rejected cold hits never left the cold tier: resident
+                ok=(_hierarchy_ok(res.status, dem.placed, rep_orig)
+                    | ((res.status == ops_mod.STATUS_REJECTED) & cold_hit)))
 
     def _displaced(self, k: torch.Tensor, values: torch.Tensor, res,
                    rej_custom: Optional[torch.Tensor] = None,
@@ -435,35 +467,42 @@ class TieredHKVTable:
         if promote is None:
             promote = self.promote_on_find
         hot, cold = self.hot, self.cold
-        k = hot.keys(keys)
-        h = ops_mod.find(hot.state, hot.cfg, k, backend=hot.backend, telemetry=telemetry)
-        cold_rows = ops_mod.find_rows(cold.state, cold.cfg, _mask_keys(k, ~h.found),
-                                      backend=cold.backend, telemetry=telemetry)
-        cold_hit = cold_rows.found
-        values = torch.where(h.found[:, None], h.values,
-                             cold_rows.rows[:, :self.dim].to(h.values.dtype))
-        found = h.found | cold_hit
-        zero = torch.zeros((), dtype=torch.int64, device=k.device)
-        if not promote:
+        with op_span("tier.find") as sp:
+            k = hot.keys(keys)
+            h = ops_mod.find(hot.state, hot.cfg, k, backend=hot.backend, telemetry=telemetry)
+            with span("tier.cold_probe"):
+                cold_rows = ops_mod.find_rows(cold.state, cold.cfg, _mask_keys(k, ~h.found),
+                                              backend=cold.backend, telemetry=telemetry)
+            cold_hit = cold_rows.found
+            values = torch.where(h.found[:, None], h.values,
+                                 cold_rows.rows[:, :self.dim].to(h.values.dtype))
+            found = h.found | cold_hit
+            zero = torch.zeros((), dtype=torch.int64, device=k.device)
+            if not promote:
+                if sp:
+                    _count_motion(sp, k, h.found, cold_hit, zero, zero, zero)
+                return TieredFind(table=self, values=values, found=found, hot_hit=h.found,
+                                  promoted=zero, demoted=zero, dropped=zero)
+            # re-admit the cold hits (first occurrence only), with their cold
+            # scores across the policy translation.  Every promoted key is a
+            # known hot miss, so the closure gets an all-miss locate
+            pk = _mask_keys(k, cold_hit & _dedupe_lanes(k)[0])
+            cs = translate_scores(cold.cfg.policy, hot.cfg.policy, cold_rows.scores)
+            n = pk.shape[0]
+            zeros = torch.zeros(n, dtype=torch.int64, device=k.device)
+            all_miss = find_mod.Locate(found=torch.zeros(n, dtype=torch.bool, device=k.device),
+                                       bucket=zeros, slot=zeros, row=zeros)
+            res = ops_mod.insert_and_evict(hot.state, hot.cfg, pk, cold_rows.rows,
+                                           custom_scores=cs, backend=hot.backend, loc=all_miss)
+            dem = self._demote_stream(res.evicted)
+            promoted = ((res.status == ops_mod.STATUS_INSERTED)
+                        | (res.status == ops_mod.STATUS_EVICTED)).sum()
+            if sp:
+                _count_motion(sp, k, h.found, cold_hit, promoted, dem.demoted, dem.dropped)
+            _record_motion(telemetry, promoted=promoted, demoted=dem.demoted,
+                           dropped=dem.dropped)
             return TieredFind(table=self, values=values, found=found, hot_hit=h.found,
-                              promoted=zero, demoted=zero, dropped=zero)
-        # re-admit the cold hits (first occurrence only), with their cold
-        # scores across the policy translation.  Every promoted key is a
-        # known hot miss, so the closure gets an all-miss locate
-        pk = _mask_keys(k, cold_hit & _dedupe_lanes(k)[0])
-        cs = translate_scores(cold.cfg.policy, hot.cfg.policy, cold_rows.scores)
-        n = pk.shape[0]
-        zeros = torch.zeros(n, dtype=torch.int64, device=k.device)
-        all_miss = find_mod.Locate(found=torch.zeros(n, dtype=torch.bool, device=k.device),
-                                   bucket=zeros, slot=zeros, row=zeros)
-        res = ops_mod.insert_and_evict(hot.state, hot.cfg, pk, cold_rows.rows,
-                                       custom_scores=cs, backend=hot.backend, loc=all_miss)
-        dem = self._demote_stream(res.evicted)
-        promoted = ((res.status == ops_mod.STATUS_INSERTED)
-                    | (res.status == ops_mod.STATUS_EVICTED)).sum()
-        _record_motion(telemetry, promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
-        return TieredFind(table=self, values=values, found=found, hot_hit=h.found,
-                          promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
+                              promoted=promoted, demoted=dem.demoted, dropped=dem.dropped)
 
     # -- updaters and sessions -----------------------------------------------------
 
@@ -574,6 +613,18 @@ def _contains(t: HKVTable, keys: torch.Tensor, telemetry=None) -> torch.Tensor:
     the op engine directly: through a handle, a key at or above 2**63 (a
     negative int64) would be taken for padding."""
     return ops_mod.contains(t.state, t.cfg, keys, backend=t.backend, telemetry=telemetry)
+
+
+def _count_motion(sp, keys: torch.Tensor, hot_hit: torch.Tensor,
+                  cold_hit: Optional[torch.Tensor], promoted, demoted, dropped) -> None:
+    """A hierarchy op span's counters (a stack and a sum over the op's
+    flags, no host read): valid lanes, hot hits and cold hits (0 where
+    the op probes no cold tier); the motion counts are the op's own
+    tensors."""
+    lanes = (keys != u64.EMPTY, hot_hit) + (() if cold_hit is None else (cold_hit,))
+    c = torch.stack(lanes).sum(1)
+    sp.count(lanes=(c, 0), hot_hits=(c, 1), cold_hits=0 if cold_hit is None else (c, 2),
+             promoted=promoted, demoted=demoted, dropped=dropped)
 
 
 def _record_motion(telemetry, **motion) -> None:
