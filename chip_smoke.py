@@ -416,7 +416,9 @@ TRAIN_LR = 0.05                    # the dense update of the DLRM example
 STATUS_NAMES = ("invalid", "updated", "inserted", "evicted", "rejected")
 # launches of one op on backend 'auto' on the card, by bucket mode: the
 # routing table of repro_torch/core/ops.py.  claim_scan runs on the miss
-# lanes only: an op whose batch has none launches it 0 times (Smoke.route).
+# lanes only: an op whose batch has none launches it 0 times (Smoke.route),
+# and so does the gather_rows of an op that builds the eviction stream
+# (STREAM_OPS), which reads the evicted rows of the miss lanes.
 # A dual upsert's two upsert_probe launches are the match pass and the
 # target pass; the target pass is gated to the miss lanes (no host read),
 # so it launches on every upsert
@@ -432,6 +434,7 @@ ROUTES = {
     "erase_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
     "evict_if": {1: {"sweep_match": 1}, 2: {"sweep_match": 1}},
 }
+STREAM_OPS = ("insert_and_evict",)
 # the training path's entry points (dual bucket): lookup_train is one
 # find_or_insert, apply_grads one update_scan
 TRAIN_ROUTES = {"lookup_train": ROUTES["find_or_insert"][2],
@@ -448,7 +451,9 @@ HMEM_TRAIN_ROUTES = {**TRAIN_ROUTES,
 # gather_rows, one scatter_rows), and the demotion's insert_and_evict into
 # the cold tier (two upsert_probe passes, gather_rows, two scatter_rows);
 # claim_scan once for the hot tier's miss lanes and at most once more for
-# the cold tier's (Smoke.tiered_route).  apply_grads trains the hot tier
+# the cold tier's (Smoke.tiered_route).  Both upserts build an eviction
+# stream, whose gather_rows runs with their claim_scan: the 4 gather_rows
+# are those of a step whose two upserts both have a miss lane.  apply_grads trains the hot tier
 # (update_scan); lookup_serve reads both tiers without promoting.
 TIERED_ROUTES = {"lookup_train": {"digest_scan": 2, "gather_rows": 4, "upsert_probe": 3,
                                   "scatter_rows": 3},
@@ -463,7 +468,9 @@ SERVE_UPDATE_READ = 0.25
 SERVE_LOW, SERVE_HIGH = 0.6, 0.85
 # launches of one serving op on backend 'auto' on the card (phase 8), with
 # claim_scan once for each upsert whose batch has a miss lane, up to
-# SERVE_CLAIMS.  An admitting wave is one tiered find_or_insert (the tiered
+# SERVE_CLAIMS.  Each of those upserts builds an eviction stream, whose
+# gather_rows runs with its claim_scan: the gather_rows below are those of
+# an op whose upserts all have a miss lane (Smoke.serve_route).  An admitting wave is one tiered find_or_insert (the tiered
 # lookup_train's route).  A readonly wave that promotes: find_scan on the
 # hot tier, the cold tier's locate and rows (digest_scan, gather_rows), the
 # promotion's upsert into the hot tier at an all-miss locate (its target
@@ -834,10 +841,15 @@ class Smoke:
         self.stats.setdefault(name, {}).update(kw)
 
     @staticmethod
-    def route(want: dict, has_miss: bool) -> dict:
+    def route(want: dict, has_miss: bool, stream: bool = False) -> dict:
         """An upserting op's expected launches: the victim stage, and with
-        it claim_scan, runs only where the batch has a miss lane."""
-        return {k: v for k, v in want.items() if has_miss or k != "claim_scan"}
+        it claim_scan, runs only where the batch has a miss lane; so does
+        the eviction stream's gather_rows (`stream`: the op builds one)."""
+        if has_miss:
+            return dict(want)
+        drop = {"claim_scan": 1, "gather_rows": int(stream)}
+        want = {k: v - drop.get(k, 0) for k, v in want.items()}
+        return {k: v for k, v in want.items() if v}
 
     @staticmethod
     def has_miss(status) -> bool:
@@ -1870,7 +1882,7 @@ class Smoke:
         self.op_launches[f"{name} ({'dual' if mode == 2 else 'single'})"] = got
         want = routes[name][mode]
         if "claim_scan" in want:
-            want = self.route(want, self.has_miss(out.status))
+            want = self.route(want, self.has_miss(out.status), name in STREAM_OPS)
         if self.dev.type == "cuda":
             require(got == want, f"{name}: launches {got}, the routing table says {want}")
         return out
@@ -2086,12 +2098,14 @@ class Smoke:
         """The tiered lookup_train's launches: TIERED_ROUTES's, with
         claim_scan once if the hot tier had a miss lane and at most once
         more for the demotion's upsert into the cold tier, whose miss lanes
-        only that upsert knows."""
+        only that upsert knows; an upsert without one launches no
+        gather_rows for its eviction stream either."""
         want = dict(TIERED_ROUTES["lookup_train"])
         claims = got.get("claim_scan", 0)
         require(claims - int(hot_miss) in (0, 1),
                 f"tiered lookup_train: claim_scan launched {claims} times, the hot tier had "
                 f"{'a' if hot_miss else 'no'} miss lane")
+        want["gather_rows"] -= 2 - claims
         if claims:
             want["claim_scan"] = claims
         return want
@@ -2605,14 +2619,17 @@ class Smoke:
     def serve_route(self, kind: str, got: dict) -> None:
         """One serving op's launches against SERVE_ROUTES; claim_scan up
         to SERVE_CLAIMS times (once for each upsert whose batch has a miss
-        lane)."""
+        lane), and one gather_rows fewer for each upsert without one (its
+        eviction stream reads no rows)."""
         want = dict(SERVE_ROUTES[kind])
         claims = got.get("claim_scan", 0)
         require(claims <= SERVE_CLAIMS[kind],
                 f"phase 8 {kind}: claim_scan launched {claims} times, at most "
                 f"{SERVE_CLAIMS[kind]}")
+        want["gather_rows"] -= SERVE_CLAIMS[kind] - claims
         if claims:
             want["claim_scan"] = claims
+        want = {k: v for k, v in want.items() if v}
         require(got == want, f"phase 8 {kind}: launches {got}, the route is {want}")
 
     def serve_run(self, table, tag: str, *, wave: int, waves: int, req_keys: int,
@@ -5396,7 +5413,7 @@ class Smoke:
             want_status, want_outs = op_outputs(op, ref)
             ctx = f"(b) {name}"
             self.same(((status, want_status), *zip(outs, want_outs)), f"{ctx} against {op}")
-            want = self.route(ROUTES[op][2], self.has_miss(status))
+            want = self.route(ROUTES[op][2], self.has_miss(status), op in STREAM_OPS)
             if self.dev.type == "cuda":
                 require(got_w == want and got_o == want,
                         f"phase 15 {ctx}: launches {got_w}, {op} {got_o}, the route is {want}")
@@ -5564,7 +5581,7 @@ class Smoke:
         if self.dev.type == "cuda":
             want = ROUTES[op][2]
             if "claim_scan" in want:
-                want = self.route(want, self.has_miss(res.status))
+                want = self.route(want, self.has_miss(res.status), op in STREAM_OPS)
             require(got == want, f"phase 16 {ctx}: launches {got}, the route is {want}")
         return res, ref
 

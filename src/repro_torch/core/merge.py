@@ -65,9 +65,10 @@ class UpsertStages(NamedTuple):
       victim_at_rank(state, cfg, buckets, rank)
           -> (slot int64, occupied bool, score int64, key int64), each [M]
           for the batch's M miss lanes (not called when M is 0)
-      gather_values(cfg, values, rows, mask) -> [N, Dtot]
+      gather_values(cfg, values, rows, mask) -> [M, Dtot]
           values[rows[i]] where mask[i], zeros elsewhere (the evicted-value
-          hand-off); rows outside the plane are clipped into it.
+          hand-off, over the M miss lanes; not called when M is 0); rows
+          outside the plane are clipped into it.
       scatter_values(cfg, values, rows, updates, mask) -> None
           values[rows[i]] = updates[i] where mask[i], in place; masked rows
           are unique within the batch.
@@ -361,8 +362,8 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     with span("closure.write"):
         # the evicted rows are read before the structural scatter overwrites them
         victim_row = bkt_g * s + victim_slot
-        if return_evicted:
-            ev_values = stages.gather_values(cfg, state.values, victim_row, evicts)
+        if return_evicted and m:   # only the miss prefix can evict
+            ev_values = stages.gather_values(cfg, state.values, victim_row[:m], evicts[:m])
 
         # structural scatter: distinct (bucket, victim_slot) pairs
         tb, ts = bkt_m[admitted], victim_slot[admitted]
@@ -389,7 +390,7 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     # admitted miss whose init score beats its updated score (lfu-family
     # and custom policies, never monotone lru clocks): the final key plane
     # at the hit's position decides whether it is still there.
-    with span("closure.post"):
+    with span("closure.post") as sp:
         hit_live = hit & find_mod.match_lanes(state.keys[loc.bucket, loc.slot], keys_s)
         pos_b = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         pos_s = torch.zeros(n + 1, dtype=torch.int64, device=dev)
@@ -412,13 +413,18 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
         pre_found[idx_s] = loc.found
 
         if return_evicted:
-            oe = torch.where(evicts, idx_m, n)            # evictor's batch position
-            stream = EvictionStream.zero(n + 1, vdim, state.values.dtype, dev)
-            stream.keys[oe] = torch.where(evicts, victim_key, 0)
-            stream.scores[oe] = torch.where(evicts, victim_sc, 0)
-            stream.values[oe] = ev_values.to(state.values.dtype)
-            stream.mask[oe] = evicts
-            stream = EvictionStream(*(x[:n] for x in stream))
+            # The miss prefix's lanes land on their own batch positions
+            # (idx_m is a permutation, so the rows are distinct); every other
+            # lane keeps the zero row it was allocated with.
+            stream = EvictionStream.zero(n, vdim, state.values.dtype, dev)
+            if m:
+                dst, ev = idx_m[:m], evicts[:m]
+                stream.keys[dst] = torch.where(ev, victim_key[:m], 0)
+                stream.scores[dst] = torch.where(ev, victim_sc[:m], 0)
+                stream.values[dst] = ev_values.to(state.values.dtype)
+                stream.mask[dst] = ev
+            if sp:
+                sp.count(stream_rows=m)
         else:
             stream = EvictionStream.zero(0, vdim, state.values.dtype, dev)
     return MergeResult(state=state, status=status, evicted=stream,

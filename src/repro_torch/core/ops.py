@@ -27,8 +27,9 @@ where the reference runs plain jnp:
                            buckets
   insert_or_assign,        the upsert stages (``kernels.ops.kernel_stages``);
   ingest                   insert_and_evict adds one gather_rows for the
-  insert_and_evict,        evicted rows, find_or_insert one for its readback
-  find_or_insert
+  insert_and_evict,        evicted rows (with claim_scan, on the miss lanes:
+  find_or_insert           none without a miss), find_or_insert one for its
+                           readback
   erase_if, evict_if       sweep_match for the mask
   update_rows              update_scan, when no ``loc`` is given and no
                            score is touched (on the 'hmem' tier:

@@ -50,7 +50,8 @@
                       lane) or one digest_scan (single), one claim_scan (on
                       the miss lanes; none without a miss) and two
                       scatter_rows launches; return_evicted adds one
-                      gather_rows;
+                      gather_rows (on the miss lanes, as claim_scan; none
+                      without a miss);
   upsert_kernel       ``core.merge.upsert`` on kernel_stages, in place
                       (insert_or_assign; insert_and_evict_kernel with the
                       eviction stream);
