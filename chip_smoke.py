@@ -1815,7 +1815,7 @@ class Smoke:
             return run
 
         base = kops.kernel_stages(table.cfg, table.device)
-        stages = merge.UpsertStages(*(timed(f, getattr(base, f)) for f in base._fields))
+        stages = merge.OpStages(*(timed(f, getattr(base, f)) for f in base._fields))
         n = self.sz.batch
         keys, vals = self.fresh_keys(n), ops._pad_aux(self.values(n), table.state)
         self.sync()

@@ -291,14 +291,8 @@ class BucketedP2CTable:
             occ = (state.keys != u64.EMPTY).sum(dim=1)
             ab1, ab2 = b1[act], b2[act]
             target = torch.where(occ[ab2] < occ[ab1], ab2, ab1)
-            order = torch.argsort(target, stable=True)
-            tb = target[order]
-            m = tb.numel()
-            iota = torch.arange(m, device=dev)
-            is_new = torch.ones(m, dtype=torch.bool, device=dev)
-            is_new[1:] = tb[1:] != tb[:-1]
-            rank = iota - torch.cummax(torch.where(is_new, iota, -1), dim=0).values
-            free_slot = occ[tb] + rank
+            tb, order = torch.sort(target, stable=True)
+            free_slot = occ[tb] + merge_mod.run_rank(tb)
             ok = free_slot < s
             wl, wb, ws = act[order][ok], tb[ok], free_slot[ok]
             state.keys[wb, ws] = keys[wl]

@@ -25,10 +25,12 @@ The reference's phase-2 sort is unstable, but lanes can tie on all its
 keys only when they are not misses, and the order of those reaches no
 output, so the stable chain gives identical results.
 
-The heavy stages are pluggable (``UpsertStages``); ``plain_stages`` is the
-PyTorch reference and ``repro_torch.kernels.ops.kernel_stages`` swaps in
-the CUDA kernels.  The orchestration is shared, so the two are
-bit-identical wherever the stage contracts hold.
+The heavy stages are pluggable: ``OpStages`` is the op engine's set of
+implementations, the closure's five stages among them.  ``plain_stages``
+is the PyTorch reference and ``repro_torch.kernels.ops.kernel_stages`` the
+CUDA kernels' set; ``core.ops.op_stages`` picks one for an op.  The
+orchestration is shared, so the two are bit-identical wherever the stage
+contracts hold.
 
 Each stage of ``upsert`` runs in a program span (``closure.dedupe`` to
 ``closure.post``, ``repro_torch.obs.trace``), so a trace shows which one
@@ -38,6 +40,7 @@ miss count alone.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -55,25 +58,36 @@ STATUS_EVICTED = 3    # inserted by evicting a minimum-score entry
 STATUS_REJECTED = 4   # admission control refused the entry
 
 
-class UpsertStages(NamedTuple):
-    """The replaceable stages of the closure.
+class OpStages(NamedTuple):
+    """The op engine's set of implementations (``core.ops.op_stages``).
 
+      read(state, cfg, keys, width) -> (rows [N, width], found, row, scores)
+          of find and find_rows (zeros where not found)
+      find_ptr(state, cfg, keys) -> find.Locate
+      update_rows(state, cfg, keys, grads, opt) -> found bool [N]: the
+          gradient step of unique keys in place, no score touched
+      sweep_mask(state, pred) -> bool [B, S]: live entries matching `pred`
+    The closure's (``upsert``):
       locate(state, cfg, keys, probe) -> find.Locate
       select_target(state, cfg, probe, lanes) -> int64 [N] target bucket,
-          read only where `lanes` (bool [N], the batch's miss lanes); the
-          kernel stage works on those lanes alone
+          read only where `lanes` (bool [N], the batch's miss lanes)
       victim_at_rank(state, cfg, buckets, rank)
           -> (slot int64, occupied bool, score int64, key int64), each [M]
           for the batch's M miss lanes (not called when M is 0)
-      gather_values(cfg, values, rows, mask) -> [M, Dtot]
-          values[rows[i]] where mask[i], zeros elsewhere (the evicted-value
-          hand-off, over the M miss lanes; not called when M is 0); rows
-          outside the plane are clipped into it.
+      gather_values(cfg, values, rows, mask, width=None) -> [M, width]
+          the first `width` columns (default all) of values[rows[i]] where
+          mask[i], zeros elsewhere, rows clipped: the closure's evicted
+          rows of its M miss lanes (not called when M is 0), a read at a
+          caller's locate, find_or_insert's readback
       scatter_values(cfg, values, rows, updates, mask) -> None
           values[rows[i]] = updates[i] where mask[i], in place; masked rows
           are unique within the batch.
     """
 
+    read: Callable
+    find_ptr: Callable
+    update_rows: Callable
+    sweep_mask: Callable
     locate: Callable
     select_target: Callable
     victim_at_rank: Callable
@@ -239,15 +253,10 @@ def victim_rows_at_rank(keys: torch.Tensor, scores: torch.Tensor,
     return slot[:, 0], take(occ), take(scores), take(keys)
 
 
-def plain_victim_at_rank(state: HKVState, cfg: HKVConfig, buckets: torch.Tensor,
-                         rank: torch.Tensor):
-    return victim_rows_at_rank(state.keys[buckets], state.scores[buckets], rank)
-
-
 def plain_gather_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        mask: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
     out = table_mod.tier_gather(cfg.value_tier, values, rows.clamp(0, values.shape[0] - 1))
-    return torch.where(mask[:, None], out, torch.zeros_like(out))
+    return torch.where(mask[:, None], out, torch.zeros_like(out))[:, :width]
 
 
 def plain_scatter_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tensor,
@@ -255,12 +264,37 @@ def plain_scatter_values(cfg: HKVConfig, values: torch.Tensor, rows: torch.Tenso
     table_mod.tier_scatter(cfg.value_tier, values, rows[mask], updates[mask].to(values.dtype))
 
 
-def plain_stages() -> UpsertStages:
-    """The plain PyTorch implementation of every stage."""
-    return UpsertStages(
+def plain_read(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, width: int):
+    """find's read: locate, then the rows and scores there."""
+    loc = find_mod.locate(state, cfg, keys)
+    return (plain_gather_values(cfg, state.values, loc.row, loc.found, width), loc.found,
+            loc.row, torch.where(loc.found, state.scores[loc.bucket, loc.slot], 0))
+
+
+def plain_update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
+                      grads: torch.Tensor, opt) -> torch.Tensor:
+    """The gradient step as the reference composes it: locate, gather,
+    the optimizer, and the found rows written (the last writer wins)."""
+    loc = find_mod.locate(state, cfg, keys)
+    rows = plain_gather_values(cfg, state.values, loc.row, loc.found)
+    plain_scatter_values(cfg, state.values, loc.row, opt.apply(rows, grads, cfg.dim),
+                         loc.found & last_writer_mask(keys))
+    return loc.found
+
+
+@functools.cache
+def plain_stages() -> OpStages:
+    """The plain PyTorch implementation of every stage (one set a process)."""
+    return OpStages(
+        read=plain_read,
+        find_ptr=lambda state, cfg, keys: find_mod.locate(state, cfg, keys),
+        update_rows=plain_update_rows,
+        sweep_mask=lambda state, pred: pred.matches(state.keys, state.scores)
+        & state.occupied_mask(),
         locate=lambda state, cfg, keys, probe: find_mod.locate(state, cfg, keys, probe),
         select_target=select_target_bucket,
-        victim_at_rank=plain_victim_at_rank,
+        victim_at_rank=lambda state, cfg, buckets, rank: victim_rows_at_rank(
+            state.keys[buckets], state.scores[buckets], rank),
         gather_values=plain_gather_values,
         scatter_values=plain_scatter_values,
     )
@@ -271,7 +305,7 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
            write_hit_values: bool = True, update_hit_scores: bool = True,
            insert_values: Optional[torch.Tensor] = None,
            return_evicted: bool = False,
-           stages: Optional[UpsertStages] = None,
+           stages: Optional[OpStages] = None,
            loc: Optional[find_mod.Locate] = None) -> MergeResult:
     """The batch closure of insert_or_assign / insert_and_evict /
     find_or_insert / ingest, in place on `state`.

@@ -17,15 +17,16 @@ inserters change `state` in place and return it.
 ``backend`` picks the implementation of the heavy stages:
   'auto'    the CUDA kernels when the state lies on the card, else 'plain';
   'plain'   the plain PyTorch reference, on any device.
-Under 'auto' an op runs a kernel exactly where the reference's
-``backend='kernel'`` runs a Pallas kernel, and plain PyTorch (on the card)
-where the reference runs plain jnp:
+``op_stages`` resolves it to one set of implementations (``merge.OpStages``,
+built once), whose stages an op calls.  Under 'auto' an op runs a kernel
+exactly where the reference's ``backend='kernel'`` runs a Pallas kernel,
+and plain PyTorch (on the card) where the reference runs plain jnp:
 
   find, find_rows          find_scan; at a caller's ``loc``: gather_rows;
                            on the 'hmem' tier: digest_scan and gather_rows
   find_ptr, contains       digest_scan, one launch over both candidate
                            buckets
-  insert_or_assign,        the upsert stages (``kernels.ops.kernel_stages``);
+  insert_or_assign,        the closure's stages (claim_scan and the rest);
   ingest                   insert_and_evict adds one gather_rows for the
   insert_and_evict,        evicted rows (with claim_scan, on the miss lanes:
   find_or_insert           none without a miss), find_or_insert one for its
@@ -34,8 +35,8 @@ where the reference runs plain jnp:
   update_rows              update_scan, when no ``loc`` is given and no
                            score is touched (on the 'hmem' tier:
                            digest_scan, gather_rows, the optimizer and
-                           scatter_rows); at a caller's ``loc``:
-                           gather_rows, the optimizer, and assign
+                           scatter_rows); else the locate or a caller's
+                           ``loc``, gather_rows, the optimizer, and assign
   the rest                 plain PyTorch (the reference's are plain jnp)
 
 On the 'hmem' tier (``core.table``) the kernels reach the value plane in
@@ -143,14 +144,15 @@ def uses_kernels(backend: str, device: torch.device) -> bool:
     return backend == "auto" and device.type == "cuda"
 
 
-def _kernel_ops():
+def op_stages(backend: str, cfg: HKVConfig, device: torch.device) -> merge_mod.OpStages:
+    """The set of implementations an op on a `cfg` table on `device` runs
+    under `backend`: the kernel set or the plain one, each built once and
+    kept.  On the card a value plane no kernel takes is refused here."""
+    if not uses_kernels(backend, device):
+        return merge_mod.plain_stages()
     from repro_torch.kernels import ops as kernel_ops  # kernels import core
 
-    return kernel_ops
-
-
-def _upsert_stages(backend: str, cfg: HKVConfig, device: torch.device):
-    return _kernel_ops().kernel_stages(cfg, device) if uses_kernels(backend, device) else None
+    return kernel_ops.kernel_stages(cfg, device)
 
 
 # =============================================================================
@@ -182,20 +184,12 @@ def _read(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
           loc: Optional[find_mod.Locate], dim: Optional[int], backend: str):
     """(rows, found, row, scores) of `keys`: one find_scan launch on the
     kernel path without a `loc`, a gather_rows launch with one."""
-    kern = uses_kernels(backend, state.device)
+    st = op_stages(backend, cfg, state.device)
     width = state.values.shape[1] if dim is None else dim
-    if loc is None and kern:
-        r = _kernel_ops().find_fused_kernel(state, cfg, keys)
-        return (r.values[:, :width], r.found, r.bucket * cfg.slots_per_bucket + r.slot,
-                r.scores)
     if loc is None:
-        loc = find_mod.locate(state, cfg, keys)
-    if kern:
-        vals = _kernel_ops().gather_rows_kernel(state, loc, width)
-    else:
-        vals = find_mod.gather_values(state, loc, dim, cfg.value_tier)
-    scores = torch.where(loc.found, state.scores[loc.bucket, loc.slot], 0)
-    return vals, loc.found, loc.row, scores
+        return st.read(state, cfg, keys, width)
+    rows = st.gather_values(cfg, state.values, loc.row, loc.found, width)
+    return rows, loc.found, loc.row, torch.where(loc.found, state.scores[loc.bucket, loc.slot], 0)
 
 
 @roles.reader
@@ -231,10 +225,7 @@ def find_ptr(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, *,
              backend: str = "auto", telemetry=None) -> find_mod.Locate:
     """Reader.  The paper's pointer find: (bucket, slot, row) of each key,
     no value traffic.  On the card: one digest_scan launch."""
-    if uses_kernels(backend, state.device):
-        loc = _kernel_ops().locate_kernel(state, cfg, keys)
-    else:
-        loc = find_mod.locate(state, cfg, keys)
+    loc = op_stages(backend, cfg, state.device).find_ptr(state, cfg, keys)
     if telemetry is not None:
         telemetry.record("find_ptr", _obs().observe_find(state, cfg, keys, loc.found))
     return loc
@@ -387,29 +378,21 @@ def update_rows(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, grads: torc
     as the reference composes it: locate (or the caller's `loc`), the row
     gather, the optimizer, and ``assign`` at that locate."""
     with op_span("op.update_rows") as sp:
-        kern = uses_kernels(backend, state.device)
-        if loc is None and not update_scores and kern:
-            r = _kernel_ops().update_rows_kernel(state, cfg, keys, grads, opt)
-            if sp:
-                _count_found(sp, keys, r.found, updated=True)
-            if telemetry is not None:
-                telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, r.found))
-            return UpdateRowsResult(state=state, found=r.found)
-        if loc is None:
-            loc = find_mod.locate(state, cfg, keys)
-            rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
-        elif kern:
-            rows = _kernel_ops().gather_rows_kernel(state, loc, state.values.shape[1])
+        st = op_stages(backend, cfg, state.device)
+        if loc is None and not update_scores:
+            found = st.update_rows(state, cfg, keys, grads, opt)
         else:
-            rows = find_mod.gather_values(state, loc, tier=cfg.value_tier)
-        if telemetry is not None:
-            telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, loc.found))
-        new_rows = opt.apply(rows, grads, cfg.dim).to(state.values.dtype)
-        new_rows = torch.where(loc.found[:, None], new_rows, rows)
-        assign(state, cfg, keys, new_rows, update_scores=update_scores, loc=loc)
+            if loc is None:
+                loc = find_mod.locate(state, cfg, keys)
+            rows = st.gather_values(cfg, state.values, loc.row, loc.found)
+            assign(state, cfg, keys, opt.apply(rows, grads, cfg.dim),   # found rows only
+                   update_scores=update_scores, loc=loc)
+            found = loc.found
         if sp:
-            _count_found(sp, keys, loc.found, updated=True)
-        return UpdateRowsResult(state=state, found=loc.found)
+            _count_found(sp, keys, found, updated=True)
+        if telemetry is not None:
+            telemetry.record("update_rows", _obs().observe_update(state, cfg, keys, found))
+        return UpdateRowsResult(state=state, found=found)
 
 
 # =============================================================================
@@ -458,7 +441,7 @@ def insert_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
         probe = _probe_before(telemetry, state, cfg, keys)
         res = merge_mod.upsert(state, cfg, keys, _pad_aux(values, state),
                                custom_scores=custom_scores,
-                               stages=_upsert_stages(backend, cfg, state.device))
+                               stages=op_stages(backend, cfg, state.device))
         if sp:
             _count_status(sp, res.status)
         _record_upsert(telemetry, "insert_or_assign", probe, keys, res.status)
@@ -479,7 +462,7 @@ def insert_and_evict(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     probe = _probe_before(telemetry, state, cfg, keys)
     res = merge_mod.upsert(state, cfg, keys, _pad_aux(values, state),
                            custom_scores=custom_scores, return_evicted=True,
-                           stages=_upsert_stages(backend, cfg, state.device), loc=loc)
+                           stages=op_stages(backend, cfg, state.device), loc=loc)
     _record_upsert(telemetry, "insert_and_evict", probe, keys, res.status)
     return InsertAndEvictResult(state=state, status=res.status, evicted=res.evicted)
 
@@ -499,11 +482,11 @@ def find_or_insert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     each key's post-op location and the readback gathers there."""
     with op_span("op.find_or_insert") as sp:
         probe = _probe_before(telemetry, state, cfg, keys)
+        st = op_stages(backend, cfg, state.device)
         res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
                                custom_scores=custom_scores, write_hit_values=False,
-                               return_evicted=return_evicted,
-                               stages=_upsert_stages(backend, cfg, state.device), loc=loc)
-        vals = _gather_post(res, cfg, init_values, backend)
+                               return_evicted=return_evicted, stages=st, loc=loc)
+        vals = readback(res, cfg, init_values, st)
         if sp:
             _count_status(sp, res.status, res.found)
         _record_upsert(telemetry, "find_or_insert", probe, keys, res.status, res.found)
@@ -511,31 +494,21 @@ def find_or_insert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                                   status=res.status, evicted=res.evicted)
 
 
-def _gather_post(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
-                 backend: str) -> torch.Tensor:
-    """The rows at the closure's post-op locations; a rejected key gets
-    the caller's init row back (see `readback_rows`)."""
-    state = res.state
+def readback(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
+             stages: merge_mod.OpStages) -> torch.Tensor:
+    """find_or_insert's rows: the stored row at the closure's post-op
+    location where the key is present now, else the caller's init row, in
+    the dtype the reference's ``jnp.where`` of the two promotes to (a
+    bfloat16 or float16 plane with float32 init rows gives float32;
+    bfloat16 with float16 gives float32).  A stored row is widened exactly
+    and an init row comes back unchanged; no plane changes.  A float64
+    init counts as float32, as under JAX's default of x64 off."""
     with span("op.readback"):
-        if uses_kernels(backend, state.device):
-            vals = _kernel_ops().gather_rows_kernel(state, res.loc, cfg.dim)
-        else:
-            vals = find_mod.gather_values(state, res.loc, cfg.dim, cfg.value_tier)
-        return readback_rows(res.loc.found, vals, init_values[:, :cfg.dim])
-
-
-def readback_rows(found: torch.Tensor, stored: torch.Tensor,
-                  init: torch.Tensor) -> torch.Tensor:
-    """find_or_insert's rows: the stored row where `found`, else the
-    caller's init row, in the dtype the reference's ``jnp.where`` of the
-    two promotes to (a bfloat16 or float16 plane with float32 init rows
-    gives float32; bfloat16 with float16 gives float32).  A stored row is
-    widened exactly and an init row comes back unchanged; no plane
-    changes.  A float64 init counts as float32, as under JAX's default of
-    x64 off."""
-    init_dtype = torch.float32 if init.dtype == torch.float64 else init.dtype
-    dtype = torch.promote_types(stored.dtype, init_dtype)
-    return torch.where(found[:, None], stored.to(dtype), init.to(dtype))
+        stored = stages.gather_values(cfg, res.state.values, res.loc.row, res.loc.found, cfg.dim)
+        init = init_values[:, :cfg.dim]
+        init_dtype = torch.float32 if init.dtype == torch.float64 else init.dtype
+        dtype = torch.promote_types(stored.dtype, init_dtype)
+        return torch.where(res.loc.found[:, None], stored.to(dtype), init.to(dtype))
 
 
 @roles.inserter
@@ -549,7 +522,7 @@ def ingest(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
         probe = _probe_before(telemetry, state, cfg, keys)
         res = merge_mod.upsert(state, cfg, keys, _pad_aux(init_values, state),
                                custom_scores=custom_scores, write_hit_values=False,
-                               stages=_upsert_stages(backend, cfg, state.device))
+                               stages=op_stages(backend, cfg, state.device))
         if sp:
             _count_status(sp, res.status, res.found)
         _record_upsert(telemetry, "ingest", probe, keys, res.status, res.found)
@@ -573,7 +546,8 @@ def accum_or_assign(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     assign_add(state, cfg, d.unique, v_sum)
     cs = None if custom_scores is None else custom_scores[d.last_index]
     res = merge_mod.upsert(state, cfg, d.unique, v_sum, custom_scores=cs,
-                           write_hit_values=False)
+                           write_hit_values=False,
+                           stages=op_stages("plain", cfg, state.device))
     status = res.status[d.inverse]
     _record_upsert(telemetry, "accum_or_assign", probe, keys, status)
     return UpsertResult(state=state, status=status)
@@ -621,13 +595,6 @@ class EvictIfResult(NamedTuple):
     count: torch.Tensor      # int64 [] live lanes in the stream
 
 
-def _sweep_mask(state: HKVState, pred: SweepPredicate, backend: str) -> torch.Tensor:
-    """bool [B, S]: live entries matching `pred`."""
-    if uses_kernels(backend, state.device):
-        return _kernel_ops().sweep_mask_kernel(state, pred)
-    return pred.matches(state.keys, state.scores) & state.occupied_mask()
-
-
 def _clear_slots(state: HKVState, cfg: HKVConfig, rows: torch.Tensor) -> None:
     """Free the slots at flat positions `rows` (= value rows): EMPTY key
     and digest, score 0, value row zeroed.  Only those rows are written,
@@ -643,7 +610,8 @@ def erase_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, *,
              backend: str = "auto", telemetry=None) -> SweepResult:
     """Inserter.  Remove EVERY live entry matching `pred` (TTL expiry:
     ``SweepPredicate.expire_before``)."""
-    rows = torch.nonzero(_sweep_mask(state, pred, backend).view(-1))[:, 0]
+    mask = op_stages(backend, cfg, state.device).sweep_mask(state, pred)
+    rows = torch.nonzero(mask.view(-1))[:, 0]
     _clear_slots(state, cfg, rows)
     swept = torch.tensor(rows.numel(), device=state.device)
     if telemetry is not None:
@@ -668,7 +636,7 @@ def evict_if(state: HKVState, cfg: HKVConfig, pred: SweepPredicate, budget: int,
         raise ValueError(f"budget must be >= 1; got {budget}")
     budget = min(budget, c)
     dev = state.device
-    mask = _sweep_mask(state, pred, backend)
+    mask = op_stages(backend, cfg, state.device).sweep_mask(state, pred)
     keys_f, scores_f = state.keys.view(-1), state.scores.view(-1)
     cand = torch.nonzero(mask.view(-1))[:, 0]
     order = merge_mod.stable_argsort(u64.flip(scores_f[cand]), u64.flip(keys_f[cand]))

@@ -204,12 +204,8 @@ class ShardedHKVEmbedding:
         n = keys.shape[0]
         dev = keys.device
         owner = self._owner(keys, n_shards)
-        order = torch.sort(owner, stable=True).indices
-        o_s = owner[order]
-        iota = torch.arange(n, device=dev)
-        is_new = torch.ones(n, dtype=torch.bool, device=dev)
-        is_new[1:] = o_s[1:] != o_s[:-1]
-        rank = iota - torch.cummax(torch.where(is_new, iota, -1), 0).values
+        o_s, order = torch.sort(owner, stable=True)
+        rank = merge_mod.run_rank(o_s)
         ok = (o_s < n_shards) & (rank < cap)
         slot = torch.where(ok, o_s * cap + rank, n_shards * cap)
         send = torch.full((n_shards * cap + 1,), u64.EMPTY, dtype=torch.int64, device=dev)

@@ -5,8 +5,8 @@
                       host-memory value plane ('hmem') locate_kernel and
                       one gather_rows launch over the host link instead, as
                       the reference routes that tier;
-  find_kernel         the kernel-backed `find`: find_fused_kernel's rows cut
-                      to the embedding columns, and found;
+  find_kernel         the kernel-backed `find`: kernel_stages' read cut to
+                      the embedding columns, and found;
   find_composed_kernel  the pre-fusion find: locate_kernel and one
                       gather_rows launch (two launches; the reference's
                       three, a digest_scan a candidate bucket), the fused
@@ -18,9 +18,9 @@
                       both candidate buckets (find_ptr, contains, the
                       single-bucket upsert's locate stage, and the locate
                       of the 'hmem' tier's readers and updaters);
-  gather_rows_kernel  the value gather at a known locate (find and
-                      find_rows at a caller's loc, find_or_insert's
-                      readback);
+  gather_rows_kernel  the value gather at a known locate (the 'hmem' tier's
+                      find; the ops gather through kernel_stages'
+                      gather_values, the same launch);
   sweep_mask_kernel   the sweeps' live-gated predicate mask (erase_if,
                       evict_if), one sweep_match launch;
   update_rows_kernel  the updater's fused gradient step: one update_scan
@@ -38,12 +38,15 @@
                       plain, as the reference's does);
   bucket_stats_kernel per-bucket occupancy and minimum live score, one
                       bucket_stats launch (no op calls it);
-  kernel_stages       the inserter's stages for ``core.merge.upsert``:
-                      dual-bucket mode locates on upsert_probe's match mode
-                      and selects on its target mode, gated to the miss
-                      lanes; single-bucket mode locates on digest_scan and
-                      targets bucket1; victim_at_rank on claim_scan,
-                      gather_values on gather_rows, scatter_values on
+  kernel_stages       the op engine's kernel set (``core.merge.OpStages``),
+                      built once per (cfg, device): the wrappers above for
+                      read, find_ptr, update_rows and sweep_mask, and the
+                      closure's stages: dual-bucket mode locates on
+                      upsert_probe's match mode and selects on its target
+                      mode, gated to the miss lanes; single-bucket mode
+                      locates on digest_scan and targets bucket1;
+                      victim_at_rank on claim_scan, gather_values (also
+                      the ops' row gathers) on gather_rows, scatter_values on
                       scatter_rows (on either tier's plane).  Per
                       insert_or_assign: two upsert_probe (dual; the target
                       pass launches without a miss too, and works on no
@@ -55,9 +58,9 @@
   upsert_kernel       ``core.merge.upsert`` on kernel_stages, in place
                       (insert_or_assign; insert_and_evict_kernel with the
                       eviction stream);
-  find_or_insert_kernel  upsert_kernel without hit writes, then the rows
-                      read back at the closure's post-op locations through
-                      gather_rows_kernel (either tier's plane);
+  find_or_insert_kernel  upsert_kernel without hit writes, then
+                      ``core.ops.readback`` on kernel_stages (either tier's
+                      plane);
   ref                 the kernels' oracles under the reference's names
                       (``kernels/ref.py``: the plain versions).
 
@@ -71,6 +74,7 @@ reach this module too.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -225,16 +229,6 @@ def update_composed_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
     return UpdateRows(found=loc.found)
 
 
-def _assign_rows(state: HKVState, values: torch.Tensor) -> torch.Tensor:
-    """Caller rows in the plane's dtype, aux columns zero-padded."""
-    values = values.to(state.values.dtype)
-    vdim = state.values.shape[1]
-    if values.shape[1] < vdim:
-        values = torch.cat([values, values.new_zeros((values.shape[0], vdim - values.shape[1]))],
-                           dim=1)
-    return values.contiguous()
-
-
 def assign_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: torch.Tensor,
                   *, add: bool = False) -> HKVState:
     """Kernel-backed updater (assign, or assign_add with `add`): one
@@ -245,7 +239,8 @@ def assign_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: t
     wrapper's convention."""
     loc = locate_kernel(state, cfg, keys)
     rows = loc.row.clamp(0, state.values.shape[0] - 1)
-    scatter_rows(state.values, rows, _assign_rows(state, values), loc.found, add=add)
+    scatter_rows(state.values, rows, ops_mod._pad_aux(values, state).contiguous(), loc.found,
+                 add=add)
     return state
 
 
@@ -254,7 +249,7 @@ def assign_plain(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: to
     """`assign_kernel` composed in plain PyTorch (the plain locate and an
     index write), on any device."""
     loc = find_mod.locate(state, cfg, keys)
-    values = _assign_rows(state, values)
+    values = ops_mod._pad_aux(values, state)
     rows, found = loc.row[loc.found], values[loc.found]
     if add:
         state.values.index_add_(0, rows, found)
@@ -269,14 +264,20 @@ def bucket_stats_kernel(state: HKVState):
     return bucket_stats(state.keys, state.scores)
 
 
-def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStages:
-    """Kernel-backed implementations of the upsert stages.  On the card a
-    value plane that no kernel takes (float64) is refused here, before the
-    closure writes a key."""
+@functools.cache
+def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.OpStages:
+    """The op engine's kernel set for tables of `cfg` on `device`, built
+    once a process (``core.ops.op_stages`` hands it to the ops).  On the
+    card a value plane that no kernel takes (float64) is refused here,
+    before an op reads or writes the table."""
     _build.check(device.type != "cuda" or cfg.value_dtype in _build.VALUE_DTYPES,
                  f"the kernels take no {cfg.value_dtype} value plane, only float32, "
                  "bfloat16 or float16")
     s = cfg.slots_per_bucket
+
+    def read(state: HKVState, _cfg, keys, width: int):
+        r = find_fused_kernel(state, cfg, keys)
+        return r.values[:, :width], r.found, r.bucket * s + r.slot, r.scores
 
     def locate(state: HKVState, _cfg, keys, probe: find_mod.Probe) -> find_mod.Locate:
         if cfg.buckets_per_key == 1:
@@ -303,23 +304,23 @@ def kernel_stages(cfg: HKVConfig, device: torch.device) -> merge_mod.UpsertStage
                                            rank.clamp(0, s - 1))
         return slot.to(torch.int64), occ.to(torch.bool), score, key
 
-    def gather_values(_cfg, values, rows, mask) -> torch.Tensor:
-        return gather_rows(values, rows, mask)
-
-    def scatter_values(_cfg, values, rows, updates, mask) -> None:
-        scatter_rows(values, rows, updates.to(values.dtype).contiguous(), mask, add=False)
-
-    return merge_mod.UpsertStages(locate=locate, select_target=select_target,
-                                  victim_at_rank=victim_at_rank,
-                                  gather_values=gather_values,
-                                  scatter_values=scatter_values)
+    return merge_mod.OpStages(
+        read=read,
+        find_ptr=lambda state, _cfg, keys: locate_kernel(state, cfg, keys),
+        update_rows=lambda state, _cfg, keys, grads, opt: update_rows_kernel(
+            state, cfg, keys, grads, opt).found,
+        sweep_mask=sweep_mask_kernel,
+        locate=locate, select_target=select_target, victim_at_rank=victim_at_rank,
+        gather_values=lambda _cfg, values, rows, mask, width=None: gather_rows(
+            values, rows, mask, width),
+        scatter_values=lambda _cfg, values, rows, updates, mask: scatter_rows(
+            values, rows, updates.to(values.dtype).contiguous(), mask, add=False))
 
 
 def find_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor):
-    """Kernel-backed `find`: (values [N, dim], found [N]) from one fused
-    find_scan launch (on 'hmem', find_fused_kernel's locate and gather)."""
-    r = find_fused_kernel(state, cfg, keys)
-    return r.values[:, :cfg.dim], r.found
+    """Kernel-backed `find`: (values [N, dim], found [N]) from the kernel
+    set's read (one find_scan launch; on 'hmem', a locate and a gather)."""
+    return kernel_stages(cfg, state.device).read(state, cfg, keys, cfg.dim)[:2]
 
 
 def find_composed_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor):
@@ -338,15 +339,13 @@ def upsert_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor, values: t
                   write_hit_values: bool = True, update_hit_scores: bool = True,
                   insert_values: Optional[torch.Tensor] = None,
                   return_evicted: bool = False) -> merge_mod.MergeResult:
-    """``core.merge.upsert`` on the kernel stages, in place: the same
-    closure, so statuses, eviction streams and the state equal the plain
-    path's.  `values` (and `insert_values`) are full-width rows, as the
-    closure takes them."""
+    """``core.merge.upsert`` on the kernel set, in place; `values` (and
+    `insert_values`) are full-width rows, as the closure takes them."""
     return merge_mod.upsert(state, cfg, keys, values, custom_scores=custom_scores,
                             write_hit_values=write_hit_values,
                             update_hit_scores=update_hit_scores, insert_values=insert_values,
                             return_evicted=return_evicted,
-                            stages=kernel_stages(cfg, state.keys.device))
+                            stages=kernel_stages(cfg, state.device))
 
 
 def insert_and_evict_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
@@ -363,13 +362,9 @@ def find_or_insert_kernel(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                           init_values: torch.Tensor, *,
                           custom_scores: Optional[torch.Tensor] = None):
     """Kernel-backed find_or_insert: (state, values [N, dim], found,
-    status) with ``core.ops.find_or_insert``'s meaning.  The closure's own
-    probe gives `found` and publishes each key's post-op location, so the
-    readback is one gather_rows launch there: a key found or admitted by
-    this batch reads its stored row, a rejected one the caller's init row,
-    in the promoted dtype of ``core.ops.readback_rows``."""
+    status) with ``core.ops.find_or_insert``'s meaning: upsert_kernel
+    without hit writes, then ``core.ops.readback`` on the kernel set."""
     res = upsert_kernel(state, cfg, keys, init_values, custom_scores=custom_scores,
                         write_hit_values=False)
-    vals = gather_rows_kernel(res.state, res.loc, cfg.dim)
-    vals = ops_mod.readback_rows(res.loc.found, vals, init_values[:, :cfg.dim])
+    vals = ops_mod.readback(res, cfg, init_values, kernel_stages(cfg, state.device))
     return res.state, vals, res.found, res.status

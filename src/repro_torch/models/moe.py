@@ -2,8 +2,9 @@
 ``repro/models/moe.py``).
 
 The top-k assignments are sorted by expert (stably), ranked within their
-expert (iota - cummax, as the HKV merge ranks), and scattered into an
-[E, C, d] buffer; assignments past an expert's capacity C are dropped.
+expert (``core.merge.run_rank``, as the HKV closure ranks), and scattered
+into an [E, C, d] buffer; assignments past an expert's capacity C are
+dropped.
 The experts run as one batched product over the expert dimension, and the
 combine adds each kept assignment's gated output back to its token.
 
@@ -23,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import merge as merge_mod
 from repro_torch.distributed import sharding
 from repro_torch.models.common import activation, dense_init, normal, scalar
 
@@ -81,12 +83,9 @@ def moe_apply(cfg: MoECfg, params: dict, x: torch.Tensor) -> tuple[torch.Tensor,
     flat_e = expert.reshape(-1)
     flat_g = gate.reshape(-1)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
-    order = torch.sort(flat_e, stable=True).indices
-    se, sg, stok = flat_e[order], flat_g[order], flat_t[order]
-    iota = torch.arange(t * k, device=dev)
-    is_new = torch.ones_like(se, dtype=torch.bool)
-    is_new[1:] = se[1:] != se[:-1]
-    rank = iota - torch.cummax(torch.where(is_new, iota, -1), dim=0).values
+    se, order = torch.sort(flat_e, stable=True)
+    sg, stok = flat_g[order], flat_t[order]
+    rank = merge_mod.run_rank(se)
     keep = rank < c
     slot = torch.where(keep, se * c + rank, e * c)                # past capacity: dropped
     # the reference's scatter drops slot e*c ("drop" mode): a spare row takes

@@ -37,6 +37,33 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_op_engine_picks_its_implementations_in_one_place():
+    """core/ops.py asks `uses_kernels` once and imports the kernel set
+    once, both in `op_stages`; every op calls the set that returns."""
+    path = ROOT / "src" / "repro_torch" / "core" / "ops.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    sites = {}
+    for fn in (n for n in tree.body if isinstance(n, ast.FunctionDef)):
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "uses_kernels":
+                sites.setdefault("uses_kernels", []).append(fn.name)
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                    "repro_torch.kernels"):
+                sites.setdefault("import", []).append((fn.name, node.module,
+                                                       [a.name for a in node.names]))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))
+           and any("kernels" in m for m in _imported_modules_of(n))]
+    assert sites == {"uses_kernels": ["op_stages"],
+                     "import": [("op_stages", "repro_torch.kernels", ["ops"])]}
+    assert not top
+
+
+def _imported_modules_of(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    return [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+
+
 def test_port_files_were_found():
     assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     port = ROOT / "src" / "repro_torch"

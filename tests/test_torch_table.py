@@ -159,4 +159,72 @@ def test_default_stages_are_the_plain_ones():
     for unknown in ("jnp", "kernel"):
         with pytest.raises(ValueError):
             pt_ops.uses_kernels(unknown, torch.device("cpu"))
+        with pytest.raises(ValueError):
+            pt_ops.op_stages(unknown, repro_torch.HKVConfig(capacity=128, dim=4),
+                             torch.device("cpu"))
     assert pt_merge.plain_stages().select_target is pt_merge.select_target_bucket
+    assert pt_merge.plain_stages() is pt_merge.plain_stages()
+    cfg = repro_torch.HKVConfig(capacity=128, dim=4)
+    for backend, device in (("auto", "cpu"), ("plain", "cpu"), ("plain", "cuda")):
+        assert pt_ops.op_stages(backend, cfg, torch.device(device)) is pt_merge.plain_stages()
+    # building the kernel set launches nothing, so the card's set is built here
+    kern = pt_ops.op_stages("auto", cfg, torch.device("cuda"))
+    assert kern is pt_ops.op_stages("auto", cfg, torch.device("cuda"))
+    assert kern is not pt_merge.plain_stages()
+    assert kern._fields == pt_merge.plain_stages()._fields
+
+
+def test_a_float64_plane_is_refused_on_the_card_before_a_write():
+    """The card's kernel set is refused for a plane no kernel takes: every
+    'auto' op on such a table raises before it touches the planes."""
+    cfg = repro_torch.HKVConfig(capacity=128, dim=4, value_dtype=torch.float64)
+    for _ in range(2):   # a refusal is not cached
+        with pytest.raises(ValueError, match="float64"):
+            pt_ops.op_stages("auto", cfg, torch.device("cuda"))
+    assert pt_ops.op_stages("plain", cfg, torch.device("cuda")) is pt_merge.plain_stages()
+    assert pt_ops.op_stages("auto", cfg, torch.device("cpu")) is pt_merge.plain_stages()
+
+
+@pytest.mark.parametrize("backend", ["kernel_set", "plain"])
+def test_ops_on_one_table_resolve_one_cached_set(backend, monkeypatch):
+    """Every op on one table resolves the same set object, and the kernel
+    set is built once per (cfg, device) however many ops run (the kernel
+    routing is forced on the CPU, where its wrappers take their plain
+    versions)."""
+    from repro_torch import SweepPredicate
+    from repro_torch.embedding.sparse_opt import SparseOptimizer
+
+    if backend == "kernel_set":
+        monkeypatch.setattr(pt_ops, "uses_kernels", lambda backend, device: True)
+        pt_kops.kernel_stages.cache_clear()
+    seen = []
+    resolve = pt_ops.op_stages
+
+    def recording(*args):
+        seen.append(resolve(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(pt_ops, "op_stages", recording)
+    rng = np.random.default_rng(5)
+    t = repro_torch.HKVTable.create(capacity=CAPACITY, dim=DIM, buckets_per_key=2,
+                                    device="cpu", backend="plain")
+    cfg, state = t.cfg, t.state
+    for step in range(2):
+        keys = repro_torch.normalize_keys(_batch(rng, step), "cpu")
+        vals = torch.from_numpy(rng.normal(size=(BATCH, DIM)).astype(np.float32))
+        pt_ops.insert_or_assign(state, cfg, keys, vals, backend="auto")
+        pt_ops.find_or_insert(state, cfg, keys, vals, backend="auto", return_evicted=True)
+        pt_ops.find(state, cfg, keys, backend="auto")
+        pt_ops.find_rows(state, cfg, keys, backend="auto")
+        pt_ops.contains(state, cfg, keys, backend="auto")
+        uniq = torch.unique(keys)   # the EMPTY key among them is padding
+        pt_ops.update_rows(state, cfg, uniq, torch.ones((uniq.numel(), DIM)),
+                           SparseOptimizer("sgd", lr=0.1), backend="auto")
+    pt_ops.evict_if(state, cfg, SweepPredicate.score_below(2**62), 8, backend="auto")
+    pt_ops.erase_if(state, cfg, SweepPredicate.score_below(2**62), backend="auto")
+    assert len(seen) == 14 and all(st is seen[0] for st in seen)   # one resolve an op
+    if backend == "kernel_set":
+        assert seen[0] is not pt_merge.plain_stages()
+        assert pt_kops.kernel_stages.cache_info().misses == 1
+    else:
+        assert seen[0] is pt_merge.plain_stages()
