@@ -441,9 +441,13 @@ TRAIN_ROUTES = {"lookup_train": ROUTES["find_or_insert"][2],
                 "apply_grads": {"update_scan": 1}}
 # on the 'hmem' tier (phase 6) the readers and updaters locate with
 # digest_scan and move rows over the host link with gather_rows and
-# scatter_rows, as the reference routes that tier
-HMEM_ROUTES = {**ROUTES, "find": {2: {"digest_scan": 1, "gather_rows": 1}}}
-HMEM_TRAIN_ROUTES = {**TRAIN_ROUTES,
+# scatter_rows, as the reference routes that tier; find_or_insert's
+# readback reads each key group's row once and copies it to the group's
+# lanes on the card, a second gather_rows
+HMEM_ROUTES = {**ROUTES, "find": {2: {"digest_scan": 1, "gather_rows": 1}},
+               "find_or_insert": {m: {**ROUTES["find_or_insert"][m], "gather_rows": 2}
+                                  for m in (1, 2)}}
+HMEM_TRAIN_ROUTES = {"lookup_train": HMEM_ROUTES["find_or_insert"][2],
                      "apply_grads": {"digest_scan": 1, "gather_rows": 1, "scatter_rows": 1}}
 # the tier hierarchy (phase 7).  lookup_train: the hot locate (digest_scan),
 # the cold tier's find_rows (digest_scan, gather_rows), the hot upsert at

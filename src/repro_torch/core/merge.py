@@ -130,6 +130,20 @@ class EvictionStream(NamedTuple):
                    scores=z.clone(), mask=torch.zeros(n, dtype=torch.bool, device=device))
 
 
+class GroupPost(NamedTuple):
+    """The closure's post-op locations in group space, before they are
+    expanded to the batch's lanes: group g's key sits at (bucket[g],
+    slot[g]) after the op iff found[g]; sorted lane j, at batch position
+    idx_sorted[j], belongs to group gid[j].  Groups past the batch's last
+    are not found.  Every tensor has the batch length N."""
+
+    bucket: torch.Tensor       # int64 [N]
+    slot: torch.Tensor         # int64 [N]
+    found: torch.Tensor        # bool [N]
+    idx_sorted: torch.Tensor   # int64 [N]
+    gid: torch.Tensor          # int64 [N]
+
+
 class MergeResult(NamedTuple):
     state: HKVState
     status: torch.Tensor             # int8 [N] in batch order
@@ -137,6 +151,7 @@ class MergeResult(NamedTuple):
     found: torch.Tensor              # bool [N] key existed BEFORE this op
     loc: find_mod.Locate             # where each key lives AFTER this op
                                      # (loc.found: present now, hit or admitted)
+    groups: GroupPost                # `loc` once a key group, in sorted space
 
 
 class DedupeResult(NamedTuple):
@@ -461,5 +476,7 @@ def upsert(state: HKVState, cfg: HKVConfig, keys: torch.Tensor,
                 sp.count(stream_rows=m)
         else:
             stream = EvictionStream.zero(0, vdim, state.values.dtype, dev)
-    return MergeResult(state=state, status=status, evicted=stream,
-                       found=pre_found, loc=post_loc)
+    return MergeResult(state=state, status=status, evicted=stream, found=pre_found,
+                       loc=post_loc, groups=GroupPost(bucket=pos_b[:n], slot=pos_s[:n],
+                                                      found=pos_in[:n], idx_sorted=idx_s,
+                                                      gid=gid))

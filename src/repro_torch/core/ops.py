@@ -502,9 +502,32 @@ def readback(res: MergeResult, cfg: HKVConfig, init_values: torch.Tensor,
     bfloat16 or float16 plane with float32 init rows gives float32;
     bfloat16 with float16 gives float32).  A stored row is widened exactly
     and an init row comes back unchanged; no plane changes.  A float64
-    init counts as float32, as under JAX's default of x64 off."""
-    with span("op.readback"):
-        stored = stages.gather_values(cfg, res.state.values, res.loc.row, res.loc.found, cfg.dim)
+    init counts as float32, as under JAX's default of x64 off.
+
+    On a plane in host memory ('hmem') a row costs the link's round trip
+    whatever its width, and a batch's lanes repeat keys, so each key
+    group's row crosses once, into a staging tensor beside the indices,
+    and a second gather copies it to the group's lanes: the same rows,
+    bit for bit.  While traced, the span counts `plane_rows`, the rows
+    read from the value plane (found groups on 'hmem', found lanes on an
+    HBM plane)."""
+    with span("op.readback") as sp:
+        if cfg.value_tier == "hmem":
+            g = res.groups
+            staged = stages.gather_values(cfg, res.state.values,
+                                          g.bucket * cfg.slots_per_bucket + g.slot, g.found,
+                                          cfg.dim)
+            lane_group = torch.empty_like(g.gid)
+            lane_group[g.idx_sorted] = g.gid
+            stored = stages.gather_values(cfg, staged, lane_group, res.loc.found)
+            del staged, lane_group     # freed before the rows are widened
+            plane_found = g.found
+        else:
+            stored = stages.gather_values(cfg, res.state.values, res.loc.row, res.loc.found,
+                                          cfg.dim)
+            plane_found = res.loc.found
+        if sp:
+            sp.count(plane_rows=plane_found.sum())
         init = init_values[:, :cfg.dim]
         init_dtype = torch.float32 if init.dtype == torch.float64 else init.dtype
         dtype = torch.promote_types(stored.dtype, init_dtype)

@@ -59,8 +59,10 @@
                       (insert_or_assign; insert_and_evict_kernel with the
                       eviction stream);
   find_or_insert_kernel  upsert_kernel without hit writes, then
-                      ``core.ops.readback`` on kernel_stages (either tier's
-                      plane);
+                      ``core.ops.readback`` on kernel_stages: one
+                      gather_rows on an HBM plane; on 'hmem' two, the key
+                      groups' rows over the host link, then their copy to
+                      the lanes on the card;
   ref                 the kernels' oracles under the reference's names
                       (``kernels/ref.py``: the plain versions).
 

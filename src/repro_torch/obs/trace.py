@@ -55,6 +55,9 @@ find_or_insert and ingest: found before the op; update_rows: the rows
 trained; insert_or_assign: updated in place), the inserters' status
 histogram ``updated``, ``inserted``, ``evicted``, ``rejected``, and
 ``launches`` (custom-kernel launches within the call, a host int).
+``op.readback`` counts ``plane_rows``, the rows it read from the value
+plane (one sum); ``closure.post`` counts ``stream_rows``, the eviction
+stream's rows (a host int).
 """
 
 from __future__ import annotations
