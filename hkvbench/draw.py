@@ -6,10 +6,14 @@ index), so a batch can be drawn again from its index alone: the reference
 replays the run from the same inputs, and a batch is drawn just before its
 call instead of from a pool that a long window would cycle.
 
-`field_ids` draws by the inverse CDF of a truncated Zipf(α) through the
-harmonic approximation and `fmix64` is MurmurHash3's 64-bit finalizer, the
-arithmetic of ``repro_torch/data/synthetic.py`` (numpy on the host there),
-here in torch on the device.
+`uniform` is the counter-based alternative to a generator: a uniform from
+each counter alone, so that one query of an open-loop stream is drawn
+again without the rest (`traffic/poisson_queries.py`).
+
+`field_ids` and `zipf_lanes` draw by the inverse CDF of a truncated
+Zipf(α) through the harmonic approximation and `fmix64` is MurmurHash3's
+64-bit finalizer, the arithmetic of ``repro_torch/data/synthetic.py``
+(numpy on the host there), here in torch on the device.
 """
 
 from __future__ import annotations
@@ -97,12 +101,34 @@ def field_ids(g: torch.Generator, n: int, sizes, alpha: float) -> torch.Tensor:
     f = len(sizes)
     scale, last, base = _fields(sizes, alpha, g.device)
     u = torch.rand((-(-n // f), f), generator=g, dtype=torch.float64, device=g.device)
+    return _inverse_cdf(u, scale, last, base, alpha).view(-1)[:n]
+
+
+def zipf_lanes(u: torch.Tensor, field: torch.Tensor, sizes, alpha: float) -> torch.Tensor:
+    """The ids that `field_ids`' inverse CDF gives the uniforms `u`
+    (float64 in [0, 1), overwritten), lane i of field `field[i]`: for draws
+    whose uniforms come from `uniform` rather than a generator."""
+    scale, last, base = _fields(sizes, alpha, u.device)
+    return _inverse_cdf(u, scale[field], last[field], base[field], alpha)
+
+
+def _inverse_cdf(u, scale, last, base, alpha: float) -> torch.Tensor:
+    """Ranks by the truncated Zipf's inverse CDF, offset to their fields'
+    ids (`u` is overwritten)."""
     if abs(alpha - 1.0) < 1e-9:
         ranks = torch.expm1(u.mul_(scale))
     else:
         ranks = u.mul_(scale).add_(1.0).pow_(1.0 / (1.0 - alpha)).sub_(1.0)
-    ranks = torch.minimum(ranks.to(torch.int64).clamp_(min=0), last).add_(base)
-    return ranks.view(-1)[:n]
+    return torch.minimum(ranks.to(torch.int64).clamp_(min=0), last).add_(base)
+
+
+def uniform(counter: torch.Tensor, seed: int, *words) -> torch.Tensor:
+    """A float64 uniform in [0, 1) for each int64 counter, from fmix64 of
+    the counter spread by the golden ratio and salted by (seed, words):
+    counter-based, so any part of a stream is drawn again from its
+    counters alone."""
+    x = fmix64(counter * to_signed(0x9E3779B97F4A7C15) + to_signed(seed_of(seed, *words)))
+    return ((x >> 11) & ((1 << 53) - 1)).to(torch.float64).mul_(2.0 ** -53)
 
 
 def hottest(sizes, alpha: float, n: int) -> list:

@@ -14,7 +14,10 @@ metric is a file of its own, found by the name that BENCHMARK.json gives:
 
 The loop is closed: one batch in flight, each timed from the call into
 the port to the synchronize after it.  Every batch is drawn from the seed
-just before its call, so the reference can draw it again.
+just before its call, so the reference can draw it again.  A cell whose
+traffic kind gives a `schedule` runs the open loop of ``open_loop.py``
+instead: requests submitted on a seeded schedule, each timed from when it
+fell due.
 """
 
 from __future__ import annotations
@@ -170,6 +173,15 @@ class Run:
     slice: trace_mod.Slice | None = None
     profiled: list = dataclasses.field(default_factory=list)   # batch indices in the slice
     counts: dict = dataclasses.field(default_factory=dict)     # batch index -> work counts
+    # the open loop's, a request due in the window each (ms): due -> done,
+    # due -> first wave's dispatch, that dispatch -> done, due -> submitted
+    request_ms: list = dataclasses.field(default_factory=list)
+    queue_ms: list = dataclasses.field(default_factory=list)
+    service_ms: list = dataclasses.field(default_factory=list)
+    late_ms: list = dataclasses.field(default_factory=list)
+    # the open loop's, a wave each (ms, the engine's `WaveReport.latency_s`:
+    # dispatch -> results on the host), retired before the profiled slice
+    wave_ms: list = dataclasses.field(default_factory=list)
 
     def roofline(self, op: str, spans: tuple) -> float | None:
         """The least time of the profiled batches' work over the device
@@ -191,35 +203,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.
     process's start on `time.perf_counter`'s clock; `value_dtype` other
     than the configuration's is the control."""
     config, mix, work = cell.config, cell.mix, cell.work
-    gen = load_module(HERE / "traffic" / f"{mix['kind']}.py")
-    drv = load_module(HERE / "ops" / f"{work['op']}.py").Op(
-        config, device, value_dtype or config["value_dtype"])
-    run = Run(cell=cell, config=dict(config, width=drv.width))
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-        torch.cuda.init()
-        torch.cuda.reset_peak_memory_stats(device)
+    gen, drv, run = start(cell, device, value_dtype)
+    if hasattr(gen, "schedule"):
+        from hkvbench import open_loop
+
+        return open_loop.run(gen, drv, run, seed, seconds, traced, device, started)
     spans = Spans(device, traced)
     quiet = Spans(device, False)
 
     # ---- set-up: the kernels, the table, its prefill, the warm-up batches -----
-    if device.type == "cuda":
-        from repro_torch.kernels import _build
-
-        t_build = time.perf_counter()
-        _build.library()            # nvcc on a checkout's first run, else a load
-        run.build_s = time.perf_counter() - t_build
+    build_kernels(run, device)
     drv.create()
     for b in gen.prefill(mix, config, seed, device):
         drv.prefill(b)
     warm = work["warmup_batches"]
     for i in range(warm):
         drv.call(gen.batch(mix, config, seed, i, device), quiet)
-    prof = None
-    if traced:
-        prof = torch.profiler.profile(activities=_activities(device))
-        with torch.profiler.profile(activities=_activities(device)):
-            torch.ones(1, device=device).add_(1)      # the profiler's own start-up
+    prof = profiler(device) if traced else None
     sync(device)
     run.setup_s = time.perf_counter() - started
     cuda = device.type == "cuda"
@@ -272,11 +272,43 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.
     checks, failed, replayed = _check(drv, gen, run, samples, seed, i, device)
     sync(device)
     t_check = time.perf_counter() - t_check
-    limits = work["limits"]
+    return report(run, device, traced, checks, i - warm, failed,
+                  {"check": t_check, "replayed_batches": replayed})
+
+
+def start(cell: Cell, device: torch.device, value_dtype: str | None):
+    """The cell's traffic kind, its op (the program's table not yet built)
+    and its `Run`, the card's peak counted from here."""
+    config = cell.config
+    gen = load_module(HERE / "traffic" / f"{cell.mix['kind']}.py")
+    drv = load_module(HERE / "ops" / f"{cell.work['op']}.py").Op(
+        config, device, value_dtype or config["value_dtype"])
+    run = Run(cell=cell, config=dict(config, width=drv.width))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)
+    return gen, drv, run
+
+
+def build_kernels(run: Run, device: torch.device) -> None:
+    if device.type == "cuda":
+        from repro_torch.kernels import _build
+
+        t_build = time.perf_counter()
+        _build.library()            # nvcc on a checkout's first run, else a load
+        run.build_s = time.perf_counter() - t_build
+
+
+def report(run: Run, device: torch.device, traced: bool, checks: dict, attempted: int,
+           failed: int, phases: dict) -> dict:
+    """The result line's object: the verdict on `checks` against the cell's
+    limits, the metrics its readers find in `run`, the device, and with a
+    traced slice its breakdown."""
+    cell = run.cell
+    limits = cell.work["limits"]
     verdict = {n: {"value": v, "limit": limits[n]} for n, v in checks.items()}
     correct = all(v <= limits[n] for n, v in checks.items())
-
-    # ---- the result ---------------------------------------------------------
     end_to_end, per_layer = cell.metrics
     wanted = per_layer if traced else end_to_end
     metrics = {}
@@ -287,7 +319,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": cell.chips, "memory_peak_bytes": run.peak_bytes}
-    result = {"correct": correct, "attempted": i - warm, "failed": failed,
+    result = {"correct": correct, "attempted": attempted, "failed": failed,
               "metrics": metrics, "device": dev}
     if run.slice is not None:
         dev["busy_s"] = run.slice.busy_ns(run.slice.t0, run.slice.t1) / 1e9
@@ -298,9 +330,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.
         result["traced_ops"] = {"device": len(run.slice.device),
                                 "by_launch": run.slice.by_launch}
     result["phases_s"] = {"setup": run.setup_s, "build": run.build_s, "window": run.window_s,
-                          "check": t_check, "replayed_batches": replayed}
+                          **phases}
     result["checks"] = verdict
     return result
+
+
+def profiler(device: torch.device):
+    """The traced slice's profiler, not yet started; its own start-up is
+    paid here, in set-up."""
+    with torch.profiler.profile(activities=_activities(device)):
+        torch.ones(1, device=device).add_(1)
+    return torch.profiler.profile(activities=_activities(device))
 
 
 def _activities(device: torch.device) -> list:
